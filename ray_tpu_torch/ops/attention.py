@@ -1,0 +1,67 @@
+"""Attention ops: causal multi-head attention with GQA, plain PyTorch path +
+the hand-written CUDA flash kernel on the card.
+
+Counterpart of ``ray_tpu/ops/attention.py``.  The plain path is two einsums
+and is the right choice for short sequences; the flash kernel
+(``flash_attention.py``) takes over once S is large enough that the S×S score
+matrix is worth never writing to device memory.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, S, KV, D] -> [B, S, H, D] by repeating kv heads (GQA)."""
+    num_kv = k.shape[2]
+    if num_kv == num_heads:
+        return k
+    return torch.repeat_interleave(k, num_heads // num_kv, dim=2)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool = True, q_offset: int = 0, kv_offset: int = 0,
+           logit_softcap: float = 0.0) -> torch.Tensor:
+    """Plain attention. q: [B, Sq, H, D], k/v: [B, Skv, KV, D] -> [B, Sq, H, D].
+
+    Logits stay in the input dtype, the softmax runs in f32 and the
+    probabilities return to the input dtype for the PV product, as in the
+    JAX package.  Masked logits take ``NEG_INF`` (not -inf), so a fully
+    masked row gives no NaN.
+    """
+    num_heads = q.shape[2]
+    k = repeat_kv(k, num_heads)
+    v = repeat_kv(v, num_heads)
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k.to(q.dtype)) * scale
+    if logit_softcap > 0:
+        logits = torch.tanh(logits / logit_softcap) * logit_softcap
+    if causal:
+        q_pos = q_offset + torch.arange(q.shape[1], device=q.device)
+        k_pos = kv_offset + torch.arange(k.shape[1], device=q.device)
+        mask = q_pos[:, None] >= k_pos[None, :]
+        logits = logits.masked_fill(~mask[None, None], NEG_INF)
+    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(q.dtype))
+
+
+def mha(q, k, v, causal: bool = True, logit_softcap: float = 0.0,
+        use_flash: Optional[bool] = None):
+    """Dispatch between the flash kernel (CUDA, long seq) and plain attention."""
+    if use_flash is None:
+        # The flash kernel does not implement logit softcap; plain when set.
+        use_flash = (q.is_cuda and q.shape[1] >= 1024
+                     and q.shape[-1] in (64, 128, 256) and logit_softcap == 0.0)
+    if use_flash:
+        if logit_softcap > 0.0:
+            raise ValueError("flash_attention does not implement logit_softcap;"
+                             " use use_flash=False (or leave it None to"
+                             " take the plain path)")
+        from .flash_attention import flash_attention
+        return flash_attention(q, k, v, causal=causal)
+    return attend(q, k, v, causal=causal, logit_softcap=logit_softcap)
