@@ -31,28 +31,21 @@
 // is a contiguous [B, H, S] f32 array.  One thread block of 4 warps takes one
 // (q tile of 64 rows, head, batch); each warp owns 16 rows of the tile.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockKV = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e30f;
+using namespace flash;
 
-static_assert(kBlockQ == kWarps * 16, "one m16 row tile per warp");
-static_assert(kBlockQ == kBlockKV, "load_tile serves the Q and K/V tiles");
+constexpr int kBlockQ = kTileRows;
+constexpr int kBlockKV = kTileRows;
 
-// Shared memory: the Q tile, then two K and two V buffers, each [64][D + 8]
-// bf16 (the pad staggers rows over the banks for ldmatrix).
+// Shared memory: the Q tile, then two K and two V buffers.
 template <int D>
 struct Smem {
-  static constexpr int kLd = D + 8;
-  static constexpr int kTile = kBlockKV * kLd;  // elements per tile
-  static constexpr size_t kBytes = sizeof(__nv_bfloat16) * 5 * kTile;
+  static constexpr int kLd = Tile<D>::kLd;
+  static constexpr int kTile = Tile<D>::kElems;  // elements per tile
+  static constexpr size_t kBytes = 5 * Tile<D>::kBytes;
   static_assert(kBytes <= 232448, "above the 227 KB a block may use");
 };
 
@@ -69,76 +62,6 @@ struct Params {
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy; src_bytes = 0 fills the destination with zeros.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row-major) * b (16x8, column-major), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Start copying rows [row0, row0 + 64) of one head into a padded shared
-// tile, 16 bytes per thread per step; rows at or past `seq` (the ragged
-// edge) become zeros.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long row_stride, int row0,
-                                          int seq) {
-  constexpr int kVecs = D / 8;
-  for (int i = threadIdx.x; i < kBlockKV * kVecs; i += kThreads) {
-    const int r = i / kVecs;
-    const int c = (i % kVecs) * 8;
-    const bool valid = row0 + r < seq;
-    const __nv_bfloat16* from = valid ? src + (row0 + r) * row_stride + c : src;
-    cp_async_16(dst + r * Smem<D>::kLd + c, from, valid ? 16 : 0);
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {

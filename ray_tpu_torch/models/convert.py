@@ -1,4 +1,5 @@
-"""Carry params of the JAX package into the port, leaf by leaf.
+"""Carry params and train states of the JAX package into the port, leaf by
+leaf.
 
 The JAX package's params are a nested dict of arrays with block weights
 stacked ``[L, ...]``; the port keeps the same tree.  The caller hands the
@@ -33,3 +34,27 @@ def params_from_numpy(tree: Mapping[str, Any],
     ``dtype`` (optional) casts every floating leaf."""
     return {k: params_from_numpy(v, device, dtype) if isinstance(v, Mapping)
             else _leaf(v, device, dtype) for k, v in tree.items()}
+
+
+def train_state_from_numpy(params: Mapping[str, Any], mu: Mapping[str, Any],
+                           nu: Mapping[str, Any], count: Any, step: Any,
+                           device: Union[str, torch.device]):
+    """A JAX ``TrainState`` -> the port's ``TrainState`` on ``device``, so a
+    JAX run resumes in the port.  ``params`` is the param tree, ``mu`` and
+    ``nu`` optax's adam moments (trees of the same shape) and ``count`` its
+    step count (``ScaleByAdamState.count``), ``step`` the state's step; all
+    as numpy.  Params become leaves that require grad."""
+    from ..parallel.train_step import TrainState, _leaves
+
+    p = params_from_numpy(params, device)
+    for leaf in _leaves(p):
+        leaf.requires_grad_(True)
+    opt_state = {
+        "mu": params_from_numpy(mu, device),
+        "nu": params_from_numpy(nu, device),
+        "count": torch.tensor(int(np.asarray(count)), dtype=torch.int32,
+                              device=device),
+    }
+    return TrainState(params=p, opt_state=opt_state,
+                      step=torch.tensor(int(np.asarray(step)),
+                                        dtype=torch.int32, device=device))

@@ -33,7 +33,8 @@ from .. import device as _device
 from ..ops.attention import NEG_INF
 from .config import TransformerConfig
 from .transformer import (Params, _mlp_block, _norm, _not_ported,
-                          _rope_tables, _rotate, layer_params, lm_head_weight)
+                          _rope_tables, _rotate, lm_head_weight,
+                          unbind_layers)
 
 KVCache = Dict[str, torch.Tensor]
 
@@ -128,8 +129,7 @@ def prefill(params: Params, cache: KVCache, tokens: torch.Tensor,
         x = x + params["embed"]["pos"][:s][None].to(cast)
     positions = torch.arange(s, device=x.device).expand(b, s)
 
-    for i in range(cfg.num_layers):
-        lp = layer_params(params["blocks"], i)
+    for i, lp in enumerate(unbind_layers(params["blocks"], cfg.num_layers)):
         y = _norm(x, lp["attn_norm"], cfg)
         q, k, v = _qkv(y, lp["attn"], cfg, positions)
         attn = mha(q, k, v, causal=True,
@@ -186,8 +186,7 @@ def decode_step(params: Params, cache: KVCache, tokens: torch.Tensor,
     in_range = (lengths < max_len)[:, None, None]
     write_at = lengths.clamp(max=max_len - 1)
 
-    for i in range(cfg.num_layers):
-        lp = layer_params(params["blocks"], i)
+    for i, lp in enumerate(unbind_layers(params["blocks"], cfg.num_layers)):
         k_lay, v_lay = cache["k"][i], cache["v"][i]
         y = _norm(x, lp["attn_norm"], cfg)
         q, k, v = _qkv(y, lp["attn"], cfg, positions)  # q:[S,1,NH,D] k/v:[S,1,NKV,D]

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds).  Libraries
 land in ``ray_tpu_torch/_build/`` inside the checkout, keyed by a hash of
-the source and the flags, so an edited source rebuilds and an unchanged one
-loads at once.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one loads at once.
 Nothing builds at import time: the first launch of a kernel builds it, or a
 caller builds every source up front with ``build()``.
 """
@@ -22,7 +22,7 @@ from typing import Callable, Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
-SOURCES = ("flash_attention_fwd",)
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v")
 
@@ -43,8 +43,11 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    key = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 

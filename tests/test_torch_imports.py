@@ -45,8 +45,9 @@ def test_every_module_imports_with_jax_and_ray_tpu_blocked():
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     # models.{config,convert,decode,transformer}, ops.{_build,attention,
-    # flash_attention}, serve.llm, device and the three subpackages
-    assert int(res.stdout.split()[-1]) >= 12, res.stdout
+    # flash_attention}, parallel.train_step, serve.llm, device and the four
+    # subpackages
+    assert int(res.stdout.split()[-1]) >= 14, res.stdout
 
 
 def _import_roots(path: Path):
@@ -74,6 +75,21 @@ def test_engine_without_device_raises_when_cuda_is_missing(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LLMEngine(tiny())
+
+
+def test_train_entry_points_without_device_raise_when_cuda_is_missing(
+        monkeypatch):
+    from ray_tpu_torch.models.config import tiny
+    from ray_tpu_torch.parallel import (init_sharded_state, make_eval_step,
+                                        make_optimizer, make_train_step)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    opt = make_optimizer()
+    for fn in (lambda: make_train_step(tiny(), None, opt, None),
+               lambda: init_sharded_state(tiny(), None, opt),
+               lambda: make_eval_step(tiny(), None, None)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn()
 
 
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
