@@ -40,7 +40,23 @@ script exits non-zero:
    Loss finite and falling; one step's loss and gradients through the
    kernels against the same step through the kernels' plain versions; the
    chunked LM-head loss timed alone; one step profiled (torch.profiler).
-7. A JSON line of kernels, then the contract line
+7. Kernel B4 (splash: B1-B3's code with the logit softcap, on a q scaled
+   by D^-0.5 beforehand) forward, dq and dk/dv against their plain
+   versions at the training shape with softcap 0 and 50 (Gemma-2's cap),
+   at D=256 and non-causal; the backward run twice and required to give
+   the same bits.  Times beside bounds that count the special-function
+   units too (an exp per kept score, and a tanh with the cap, at 16 per
+   clock per SM at the card's maximum SM clock), beside the plain versions'
+   and, at softcap 0 only, SDPA's (no library call computes the cap).
+8. The training path as ``bench.py``'s splash arm runs it:
+   llama_1b with ``attention_impl="splash"`` and ``remat="save_acts"``,
+   otherwise as phase 6.  B4's launch counts asserted (the forward twice
+   per layer and step: splash's residuals carry no names, so the backward
+   replays it; dq and dk/dv once) and B1-B3's at 0; the same checks,
+   numbers and profile as phase 6, the step compared against the same
+   step through B4's plain versions (the loss within a limit of its own,
+   set from the measured noise of this comparison).
+9. A JSON line of kernels, then the contract line
    ``{"ok": true, "device": {...}}`` as the last line of output.
 
 Exits non-zero without a result when there is no CUDA card, or when the
@@ -62,6 +78,9 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM published peaks (dense bf16 tensor-core rate, HBM3 bandwidth)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
+# special-function units (exp, tanh): 16 results per clock per SM, 132 SMs
+SFU_PER_CLOCK = 16 * 132
+SPLASH_SOFTCAP = 50.0   # Gemma-2's attention logit softcap
 
 OUT_ATOL = 2e-2      # bf16 out: P rounds to bf16 at other tile boundaries
 LSE_ATOL = 1e-3      # f32 lse: same terms summed in another order
@@ -77,6 +96,14 @@ GRAD_RTOL = 2e-2
 # mean over 16k tokens, differed by 1.2e-5 on an H100)
 STEP_LOSS_ATOL = 2e-4
 STEP_GRAD_REL_L2 = 5e-2
+# the same comparison on the splash path: B4 and its plain versions on a q
+# rounded to bf16 after scaling read |dloss| 2.30e-4 at the first step and
+# 2.38e-4 after 8 steps on an H100 (largest leaf rel. L2 2.7e-2, 1.36e-2):
+# the bf16 rounding of P at other tile boundaries moves this mean over 16k
+# tokens by ~1e-4 (pre-scaling q in bf16 alone moves the first loss by
+# 1.05e-4), so 2e-4 sits inside that noise; a wrong kernel moves it by
+# orders of magnitude more
+SPLASH_STEP_LOSS_ATOL = 1e-3
 # prefill logits through 32 bf16 layers, kernel vs plain version, as a
 # share of the logits' std: the rms and the largest of 2 x 128256 differences
 LOGITS_RMS = 0.05
@@ -102,11 +129,20 @@ def phase(name: str):
     log(f"== phase {name}: {time.perf_counter() - t0:.1f} s")
 
 
-def card_line() -> str:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+def nvidia_smi(query: str) -> str:
+    res = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     return res.stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    return nvidia_smi("name,power.limit")
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock as nvidia-smi reports it ("1980 MHz")."""
+    return float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -136,13 +172,13 @@ def attention_bound_ms(b, s, h, kv, d, causal):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def sdpa_call(q, k, v, causal):
+def sdpa_call(q, k, v, causal, scale=None):
     """One library call computing the same function on the same inputs
     (layout change made outside the timed call)."""
     import torch.nn.functional as F
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     return lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, enable_gqa=True)
+        qt, kt, vt, is_causal=causal, enable_gqa=True, scale=scale)
 
 
 def check_flash(dev):
@@ -212,7 +248,7 @@ def attention_bwd_bounds_ms(b, s, h, kv, d, causal):
     return out
 
 
-def sdpa_bwd_call(q, k, v, dout, causal):
+def sdpa_bwd_call(q, k, v, dout, causal, scale=None):
     """The backward of one library call computing the same function
     (``scaled_dot_product_attention`` with GQA), after an untimed forward:
     dq, dk and dv together, so a yardstick for B2 + B3."""
@@ -221,7 +257,7 @@ def sdpa_bwd_call(q, k, v, dout, causal):
     qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
                   for x in (q, k, v))
     o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                       enable_gqa=True)
+                                       enable_gqa=True, scale=scale)
     g = dout.transpose(1, 2)
     return lambda: torch.autograd.grad(o, (qt, kt, vt), g,
                                        retain_graph=True)
@@ -295,6 +331,117 @@ def check_flash_bwd(dev):
                 f"{same_bits}")
         results.append(row)
         del q, k, v, dout, out, lse, delta, got, again, want, args
+    torch.cuda.empty_cache()
+    return results
+
+
+def splash_bounds_ms(b, s, h, kv, d, causal, softcap, clock_hz):
+    """B4's least times (forward, dq, dk/dv): flash's tensor-core and HBM
+    terms, and the special-function units' term: an exp per kept (q, k)
+    score and head, and a tanh with the softcap, at 16 per clock per SM.
+    -> {pass: (ms, bound_by, {term: ms})}"""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    special_ms = ((2 if softcap else 1) * b * h * pairs
+                  / (SFU_PER_CLOCK * clock_hz) * 1e3)
+    fwd = attention_bound_ms(b, s, h, kv, d, causal)
+    bwd = attention_bwd_bounds_ms(b, s, h, kv, d, causal)
+    out = {}
+    for name, (ms, by) in (("fwd", fwd), ("dq", bwd["dq"]),
+                           ("dkv", bwd["dkv"])):
+        terms = {"tensor_cores" if by == "operations" else "hbm": ms,
+                 "special_functions": special_ms}
+        out[name] = ((special_ms, "operations") if special_ms > ms
+                     else (ms, by)) + (terms,)
+    return out
+
+
+def check_splash(dev, clock_hz):
+    """Phase 7: kernel B4 (forward, dq, dk/dv) against its plain versions
+    on a q scaled by D^-0.5 in bf16, as ``splash_mha`` scales it."""
+    import torch
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import splash_attention as sa
+
+    cases = [  # (B, S, H, KV, D, causal, softcap, timed)
+        (8, 2048, 16, 8, 128, True, 0.0, True),    # llama_1b training batch
+        (8, 2048, 16, 8, 128, True, SPLASH_SOFTCAP, True),
+        (1, 1024, 8, 2, 256, True, SPLASH_SOFTCAP, False),
+        (2, 1024, 16, 16, 128, False, SPLASH_SOFTCAP, False),
+        (2, 1024, 16, 8, 128, False, 0.0, False),
+    ]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    results = []
+    for b, s, h, kv, d, causal, cap, timed in cases:
+        q, k, v, dout = (torch.randn(shape, generator=gen, device=dev,
+                                     dtype=torch.bfloat16)
+                         for shape in ((b, s, h, d), (b, s, kv, d),
+                                       (b, s, kv, d), (b, s, h, d)))
+        qs = q * d ** -0.5
+        blk = sa._pick_block(s, sa.DEFAULT_BLOCK)
+        out, lse = sa._splash_fwd(qs, k, v, causal, cap, blk, blk)
+        delta = fa._delta(out, dout)
+
+        def kernels():
+            return (sa.splash_attention_bwd_dq(qs, k, v, dout, lse, delta,
+                                               causal, cap),
+                    *sa.splash_attention_bwd_dkv(qs, k, v, dout, lse, delta,
+                                                 causal, cap))
+
+        got = kernels()
+        again = kernels()
+        torch.cuda.synchronize()
+        same_bits = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        ref_out, ref_lse = fa.flash_attention_reference(qs, k, v, causal, blk,
+                                                        blk, cap, 1.0)
+        want = fa.flash_attention_bwd_reference(qs, k, v, out, lse, dout,
+                                                causal, blk, blk, cap, 1.0)
+        row = {"shape": [b, s, h, kv, d], "causal": causal, "softcap": cap,
+               "max_abs_err": (out.float() - ref_out.float()).abs().max()
+               .item(),
+               "lse_max_abs_err": (lse - ref_lse).abs().max().item(),
+               "bitwise_repeatable": same_bits}
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            diff = (a.float() - w.float()).abs().max().item()
+            row[f"{name}_max_abs_err"] = diff
+            row[f"{name}_rel_err"] = diff / w.float().abs().max().item()
+            row[f"{name}_finite"] = bool(torch.isfinite(a).all())
+        bounds = splash_bounds_ms(b, s, h, kv, d, causal, cap, clock_hz)
+        for name, (ms, by, terms) in bounds.items():
+            row[f"{name}_bound_ms"], row[f"{name}_bound_by"] = ms, by
+            row[f"{name}_bound_terms_ms"] = terms
+        if timed:
+            args = fa._bwd_reference_args(qs, k, v, out, lse, dout, causal,
+                                          blk, blk, cap, 1.0)
+            row["fwd_ms"] = time_ms(
+                lambda: sa._splash_fwd(qs, k, v, causal, cap, blk, blk), 10)
+            row["dq_ms"] = time_ms(lambda: sa.splash_attention_bwd_dq(
+                qs, k, v, dout, lse, delta, causal, cap), 10)
+            row["dkv_ms"] = time_ms(lambda: sa.splash_attention_bwd_dkv(
+                qs, k, v, dout, lse, delta, causal, cap), 10)
+            row["fwd_plain_ms"] = time_ms(lambda: fa.flash_attention_reference(
+                qs, k, v, causal, blk, blk, cap, 1.0), 3, 1)
+            row["dq_plain_ms"] = time_ms(
+                lambda: fa._bwd_dq_reference(*args), 3, 1)
+            row["dkv_plain_ms"] = time_ms(
+                lambda: fa._bwd_dkv_reference(*args), 3, 1)
+            # no library call computes the softcapped function
+            row["sdpa_fwd_ms"] = None if cap else time_ms(
+                sdpa_call(qs, k, v, causal, scale=1.0), 10)
+            row["sdpa_bwd_ms"] = None if cap else time_ms(
+                sdpa_bwd_call(qs, k, v, dout, causal, scale=1.0), 10)
+        log("splash_attention " + json.dumps(row))
+        bad = [n for n in ("dq", "dk", "dv")
+               if not (row[f"{n}_finite"] and row[f"{n}_rel_err"] <= GRAD_RTOL)]
+        if (bad or not same_bits or row["max_abs_err"] > OUT_ATOL
+                or row["lse_max_abs_err"] > LSE_ATOL):
+            raise AssertionError(
+                f"splash kernel at {row['shape']} causal={causal} softcap="
+                f"{cap}: out {row['max_abs_err']} (atol {OUT_ATOL}), lse "
+                f"{row['lse_max_abs_err']} (atol {LSE_ATOL}), {bad} exceed "
+                f"{GRAD_RTOL} of the plain version's largest magnitude (or "
+                f"are not finite); bitwise repeatable: {same_bits}")
+        results.append(row)
+        del q, k, v, dout, qs, out, lse, delta, got, again, want
     torch.cuda.empty_cache()
     return results
 
@@ -513,23 +660,77 @@ def plain_attention():
         q, k, v, causal)
 
 
-def train_llama(dev):
-    """Phase 6: the training path at full width."""
+def plain_splash_attention():
+    """Splash attention through B4's plain versions, forward and backward,
+    as a differentiable function with ``splash_attention``'s signature."""
+    import torch
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, qs, k, v, causal, softcap, blocks):
+            out, lse = fa.flash_attention_reference(qs, k, v, causal,
+                                                    *blocks[:2], softcap, 1.0)
+            ctx.save_for_backward(qs, k, v, out, lse)
+            ctx.args = causal, softcap, blocks
+            return out
+
+        @staticmethod
+        def backward(ctx, dout):
+            qs, k, v, out, lse = ctx.saved_tensors
+            causal, softcap, blocks = ctx.args
+            return (*fa.flash_attention_bwd_reference(
+                qs, k, v, out, lse, dout, causal, *blocks[2:], softcap, 1.0),
+                None, None, None)
+
+    return lambda qs, k, v, causal=True, softcap=0.0, blocks=(512,) * 4: \
+        Plain.apply(qs, k, v, causal, softcap, tuple(blocks))
+
+
+def train_llama(dev, splash: bool = False):
+    """Phase 6 (``splash`` False) and phase 8: the training path at full
+    width, with flash attention under full remat, or with splash attention
+    under ``remat="save_acts"`` as bench.py's splash arm runs it."""
+    import dataclasses
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from ray_tpu_torch.models import config as mcfg
+    from ray_tpu_torch.models import transformer
     from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import splash_attention as sa
     from ray_tpu_torch.parallel import (init_sharded_state, make_optimizer,
                                         make_train_step)
     from ray_tpu_torch.parallel.train_step import _leaves
 
     cfg = mcfg.llama_1b()
     layers = cfg.num_layers
+    counters = {"flash_attention_fwd": fa.flash_attention,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+                "splash_attention_fwd": sa.splash_attention,
+                "splash_attention_bwd_dq": sa.splash_attention_bwd_dq,
+                "splash_attention_bwd_dkv": sa.splash_attention_bwd_dkv}
+    if splash:
+        cfg = dataclasses.replace(cfg, attention_impl="splash")
+        remat = "save_acts"
+        # "save_acts" keeps q, k, v and the attention output, but splash's
+        # residuals carry no checkpoint names (the JAX package builds the
+        # kernel without residual_checkpoint_name), so lse is not kept and
+        # the backward runs B4's forward again: 2 forward launches per
+        # layer and step, dq and dk/dv once
+        per_layer = {"splash_attention_fwd": 2, "splash_attention_bwd_dq": 1,
+                     "splash_attention_bwd_dkv": 1}
+        plain = (sa, "splash_attention", plain_splash_attention())
+    else:
+        remat = True
+        # full remat replays the whole layer: B1 runs again in the backward
+        per_layer = {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 1,
+                     "flash_attention_bwd_dkv": 1}
+        plain = (transformer, "mha", plain_attention())
     opt = make_optimizer(warmup_steps=2, total_steps=100)
     t0 = time.perf_counter()
     state, sh = init_sharded_state(cfg, None, opt, seed=0)
-    step = make_train_step(cfg, None, opt, sh)   # bf16 compute, remat=True
+    step = make_train_step(cfg, None, opt, sh, remat=remat)  # bf16 compute
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in _leaves(state.params))
     log(f"train state up (llama_1b, {n_params / 1e9:.3f} B params, fp32 "
@@ -540,11 +741,9 @@ def train_llama(dev):
              .astype(np.int32)}
     tokens = TRAIN_BATCH * TRAIN_SEQ
 
-    counters = (fa.flash_attention, fa.flash_attention_bwd_dq,
-                fa.flash_attention_bwd_dkv)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
+    for c in counters.values():
         c.launches = 0
     losses, step_ms = [], []
     for i in range(TRAIN_STEPS):
@@ -555,38 +754,46 @@ def train_llama(dev):
         losses.append(metrics["loss"].item())
         log(f"train step {i}: loss {losses[-1]:.6f}, grad_norm "
             f"{metrics['grad_norm'].item():.4f}, {step_ms[-1]:.1f} ms")
-    launches = [c.launches for c in counters]
+    launches = {n: c.launches for n, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
 
     timed = sorted(step_ms[TRAIN_UNTIMED:])
     med = timed[len(timed) // 2] if len(timed) % 2 else (
         timed[len(timed) // 2 - 1] + timed[len(timed) // 2]) / 2
     flops = cfg.flops_per_token(TRAIN_SEQ) * tokens
-    stats = {"steps": TRAIN_STEPS, "untimed": TRAIN_UNTIMED,
+    stats = {"attention_impl": cfg.attention_impl, "remat": remat,
+             "steps": TRAIN_STEPS, "untimed": TRAIN_UNTIMED,
              "losses": losses, "step_ms": step_ms, "step_ms_median": med,
              "tokens_per_s": tokens / (med / 1e3),
              "model_flops_per_step": flops,
              "share_of_bf16_peak": flops / (med / 1e3) / PEAK_BF16_FLOPS,
              "peak_mem_gb": peak / 1e9,
-             "launches_per_step": {
-                 "flash_attention_fwd": launches[0] / TRAIN_STEPS,
-                 "flash_attention_bwd_dq": launches[1] / TRAIN_STEPS,
-                 "flash_attention_bwd_dkv": launches[2] / TRAIN_STEPS}}
+             "launches_per_step": {n: c / TRAIN_STEPS
+                                   for n, c in launches.items()}}
     log("train " + json.dumps(stats))
     if not all(np.isfinite(losses)) or not losses[-1] < losses[1]:
         raise AssertionError(f"training losses not finite and falling: "
                              f"{losses}")
-    want = [2 * layers * TRAIN_STEPS, layers * TRAIN_STEPS,
-            layers * TRAIN_STEPS]
+    want = {n: per_layer.get(n, 0) * layers * TRAIN_STEPS for n in counters}
     if launches != want:
-        raise AssertionError(f"kernel launches B1/B2/B3 over {TRAIN_STEPS} "
-                             f"steps: {launches}, want {want} (2L/L/L per "
-                             f"step, L = {layers})")
+        raise AssertionError(f"kernel launches over {TRAIN_STEPS} steps "
+                             f"(L = {layers}): {launches}, want {want}")
 
-    compare_train_step(state, batch, cfg, dev)
-    time_lm_head_loss(state, cfg, dev)
+    compare_train_step(state, batch, cfg, dev, remat, plain,
+                       SPLASH_STEP_LOSS_ATOL if splash else STEP_LOSS_ATOL)
+    if not splash:
+        time_lm_head_loss(state, cfg, dev)
+    profile_step(step, state, batch,
+                 "train_step_splash" if splash else "train_step")
+    return stats, launches
 
-    # one step traced: device-busy share and the kernels that take the most
+
+def profile_step(step, state, batch, name: str):
+    """One step traced: device-busy share, device time by category and the
+    kernels that take the most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -604,18 +811,20 @@ def train_llama(dev):
         by_category[cat] = (by_category.get(cat, 0.0)
                             + e.self_device_time_total / 1e3)
     log("time " + json.dumps({
-        "phase": "train_step", "wall_ms": wall_ms,
+        "phase": name, "wall_ms": wall_ms,
         "device_busy_ms_traced": busy, "device_busy_share": busy / wall_ms,
         "by_category_ms": dict(sorted(by_category.items(),
                                       key=lambda kv: -kv[1])),
         "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3
                            for e in top}}))
-    return stats, launches
 
 
 def kernel_category(name: str) -> str:
     """A device kernel's name -> what it does, for the time breakdown."""
     for cat, keys in (
+            ("splash_fwd (B4)", ("splash_fwd_kernel",)),
+            ("splash_bwd_dq (B4)", ("splash_bwd_dq_kernel",)),
+            ("splash_bwd_dkv (B4)", ("splash_bwd_dkv_kernel",)),
             ("flash_fwd (B1)", ("flash_fwd_kernel",)),
             ("flash_bwd_dq (B2)", ("flash_bwd_dq_kernel",)),
             ("flash_bwd_dkv (B3)", ("flash_bwd_dkv_kernel",)),
@@ -629,9 +838,11 @@ def kernel_category(name: str) -> str:
     return "other"
 
 
-def compare_train_step(state, batch, cfg, dev):
+def compare_train_step(state, batch, cfg, dev, remat, plain_entry,
+                       loss_atol):
     """One step's loss and gradients with attention through the kernels,
-    against the same step with attention through their plain versions."""
+    against the same step with attention through their plain versions
+    (``plain_entry``: the (module, name, function) to patch in)."""
     import torch
     from ray_tpu_torch.models import transformer
     from ray_tpu_torch.parallel.train_step import _leaves
@@ -641,26 +852,27 @@ def compare_train_step(state, batch, cfg, dev):
 
     def loss_and_grads():
         total, metrics = transformer.causal_lm_loss(state.params, batch_t,
-                                                    cfg, remat=True)
+                                                    cfg, remat=remat)
         return metrics["loss"].item(), torch.autograd.grad(total, leaves)
 
     kern_loss, kern = loss_and_grads()
-    with patched(transformer, "mha", plain_attention()):
+    with patched(*plain_entry):
         plain_loss, plain = loss_and_grads()
     rel = [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
            for a, b in zip(kern, plain)]
-    row = {"loss_kernels": kern_loss, "loss_plain_versions": plain_loss,
+    row = {"attention_impl": cfg.attention_impl,
+           "loss_kernels": kern_loss, "loss_plain_versions": plain_loss,
            "abs_loss_diff": abs(kern_loss - plain_loss),
            "max_leaf_rel_l2": max(rel),
            "median_leaf_rel_l2": sorted(rel)[len(rel) // 2],
            "leaves": len(rel)}
     log("train_step_vs_plain " + json.dumps(row))
-    if not (row["abs_loss_diff"] <= STEP_LOSS_ATOL
+    if not (row["abs_loss_diff"] <= loss_atol
             and row["max_leaf_rel_l2"] <= STEP_GRAD_REL_L2):
         raise AssertionError(
             f"training step through the kernels differs from the plain "
             f"versions' by |dloss| {row['abs_loss_diff']} (limit "
-            f"{STEP_LOSS_ATOL}), leaf rel L2 {row['max_leaf_rel_l2']} "
+            f"{loss_atol}), leaf rel L2 {row['max_leaf_rel_l2']} "
             f"(limit {STEP_GRAD_REL_L2})")
     del kern, plain
 
@@ -705,7 +917,8 @@ def main() -> int:
     torch.cuda.set_device(dev)
 
     card = card_line()
-    log(f"card: {card}")
+    clock_hz = max_sm_clock_hz()
+    log(f"card: {card}; max SM clock {clock_hz / 1e6:.0f} MHz")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("tf32: off for float32 matmuls and cuDNN convolutions")
@@ -732,6 +945,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("train_llama_1b"):
         _, train_launches = train_llama(dev)
+    with phase("splash_kernels"):
+        splash_rows = check_splash(dev, clock_hz)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("train_llama_1b_splash"):
+        _, splash_launches = train_llama(dev, splash=True)
 
     main_row, bwd_row = flash_rows[0], bwd_rows[0]
     sdpa_covers = "dq, dk and dv in one call: B2 + B3 together"
@@ -740,9 +959,9 @@ def main() -> int:
         "route": "cuda",
         "source": "ray_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:42",
-        "launches": serve_launches + train_launches[0],
+        "launches": serve_launches + train_launches["flash_attention_fwd"],
         "launches_by_path": {"serve": serve_launches,
-                             "train": train_launches[0]},
+                             "train": train_launches["flash_attention_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -754,7 +973,7 @@ def main() -> int:
         "route": "cuda",
         "source": "ray_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:201",
-        "launches": train_launches[1],
+        "launches": train_launches["flash_attention_bwd_dq"],
         "max_abs_err": max(r["dq_max_abs_err"] for r in bwd_rows),
         "ms": bwd_row["dq_ms"],
         "plain_ms": bwd_row["dq_plain_ms"],
@@ -767,7 +986,7 @@ def main() -> int:
         "route": "cuda",
         "source": "ray_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:248",
-        "launches": train_launches[2],
+        "launches": train_launches["flash_attention_bwd_dkv"],
         "max_abs_err": max(max(r["dk_max_abs_err"], r["dv_max_abs_err"])
                            for r in bwd_rows),
         "ms": bwd_row["dkv_ms"],
@@ -777,6 +996,35 @@ def main() -> int:
         "library_ms": bwd_row["sdpa_bwd_ms"],
         "library_covers": sdpa_covers,
     }]
+    # B4 on the splash training path (softcap 0, as llama_1b has none);
+    # the capped kernel's numbers beside them, where no library call
+    # computes the same function
+    plain_row, cap_row = splash_rows[0], splash_rows[1]
+    for name, key, errs in (("fwd", "fwd", ("max_abs_err",)),
+                            ("bwd_dq", "dq", ("dq_max_abs_err",)),
+                            ("bwd_dkv", "dkv", ("dk_max_abs_err",
+                                                "dv_max_abs_err"))):
+        library = "sdpa_fwd_ms" if key == "fwd" else "sdpa_bwd_ms"
+        kernels.append({
+            "name": f"splash_attention_{name}",
+            "route": "cuda",
+            "source": "ray_tpu_torch/csrc/flash_attention_"
+                      + ("fwd.cu" if key == "fwd" else "bwd.cu"),
+            "replaces": "ray_tpu/ops/splash_attention.py:87",
+            "launches": splash_launches[f"splash_attention_{name}"],
+            "max_abs_err": max(r[e] for r in splash_rows for e in errs),
+            "ms": plain_row[f"{key}_ms"],
+            "plain_ms": plain_row[f"{key}_plain_ms"],
+            "bound_ms": plain_row[f"{key}_bound_ms"],
+            "bound_by": plain_row[f"{key}_bound_by"],
+            "library_ms": plain_row[library],
+            **({"library_covers": sdpa_covers} if key != "fwd" else {}),
+            "softcap_50": {"ms": cap_row[f"{key}_ms"],
+                           "plain_ms": cap_row[f"{key}_plain_ms"],
+                           "bound_ms": cap_row[f"{key}_bound_ms"],
+                           "bound_by": cap_row[f"{key}_bound_by"],
+                           "library_ms": None},
+        })
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a): dq (B2) and dk/dv (B3), bf16
-// in, bf16 out, f32 accumulation.
+// Flash-attention backward for Hopper (sm_90a): dq (B2) and dk/dv (B3), and
+// the backward of the splash kernel B4 (dq and dk/dv with the logit softcap);
+// bf16 in, bf16 out, f32 accumulation.
 //
 // Replaces the Pallas TPU kernels `_bwd_dq_kernel` and `_bwd_dkv_kernel`
 // driven by `_flash_bwd_pallas` in ray_tpu/ops/flash_attention.py.  They
@@ -35,6 +36,17 @@
 // There are no atomics: B3 owns its dk/dv rows and loops over the group's
 // q heads inside the block, so the result is the same bits on every run.
 // It does not use `wgmma` or TMA yet, so it stays below the card's peak.
+//
+// B4's backward replaces `_flash_attention_dq_kernel` and
+// `_flash_attention_dkv_kernel` of jax's splash_attention_kernel.py, which
+// ray_tpu/ops/splash_attention.py builds.  It is the same device code,
+// compiled once more with the logit softcap on (`kCap`): the score is
+// recomputed uncapped, t = tanh(s / c) (as s * (1 / c), `tanhf`), P =
+// exp(c * t - lse) from the capped score, and dS gains the factor 1 - t^2
+// (d(c tanh(s / c)) / ds), i.e. dS = P * (dP - Delta) * (1 - t^2) * scale.
+// t is a per-element temporary, so no array stays live for it.  The splash
+// wrapper passes scale 1 (its q arrives scaled).  The softcap-free
+// instantiations are B2's and B3's code under their own kernel names.
 //
 // Registers: each warp owns 16 rows; its accumulators are 16 x D f32, i.e.
 // D / 2 registers per thread for each of dq (B2), dk and dv (B3).  B3 at
@@ -73,6 +85,7 @@ struct Params {
   __nv_bfloat16* dv;
   int seq, heads, kv_heads, causal;
   float scale;
+  float softcap, inv_softcap;  // read only by the kCap instantiations
   long long q_sb, q_ss, q_sh;  // element strides: batch, sequence, head
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -95,8 +108,8 @@ struct Smem {
 // B2: dq.  One block per (q tile of 64 rows, q head, batch); Q and dO stay
 // in shared memory, K/V tiles stream through up to the causal diagonal.
 // ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
+template <int D, bool kCap>
+__device__ __forceinline__ void dq_body(Params p) {
   constexpr int kT = Tile<D>::kElems;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -195,9 +208,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
         const int kpos = k0 + t * 8 + tig * 2 + (i % 2);
         const int r = i / 2;
         float x = s[t][i] * p.scale;
+        float dcap = 1.f;  // d(capped score) / d(score), with the cap on
+        if constexpr (kCap) {
+          const float th = tanhf(x * p.inv_softcap);
+          x = p.softcap * th;
+          dcap = 1.f - th * th;
+        }
         if (p.causal && rows[r] < kpos) x = kNegInf;
         const float pr = (live[r] && kpos < p.seq) ? expf(x - lse[r]) : 0.f;
-        s[t][i] = pr * (dp[t][i] - dlt[r]) * p.scale;
+        float ds = pr * (dp[t][i] - dlt[r]);
+        if constexpr (kCap) ds *= dcap;
+        s[t][i] = ds * p.scale;
       }
     }
 
@@ -235,8 +256,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
 // stream through: the group's reps q heads, each over the q tiles from the
 // causal diagonal on.  The block writes columns [dc, dc + DN) of dk and dv.
 // ---------------------------------------------------------------------------
-template <int D, int DN>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
+template <int D, int DN, bool kCap>
+__device__ __forceinline__ void dkv_body(Params p) {
   constexpr int kT = Tile<D>::kElems;
   constexpr int kSplits = D / DN;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -346,10 +367,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
         const int col = t * 8 + tig * 2 + (i % 2);
         const int qpos = q0 + col;
         float x = s[t][i] * p.scale;
+        float dcap = 1.f;  // d(capped score) / d(score), with the cap on
+        if constexpr (kCap) {
+          const float th = tanhf(x * p.inv_softcap);
+          x = p.softcap * th;
+          dcap = 1.f - th * th;
+        }
         if (p.causal && qpos < rows[i / 2]) x = kNegInf;
         const float pr = qpos < p.seq ? expf(x - cL[col]) : 0.f;
         s[t][i] = pr;
-        dp[t][i] = pr * (dp[t][i] - cD[col]) * p.scale;
+        float ds = pr * (dp[t][i] - cD[col]);
+        if constexpr (kCap) ds *= dcap;
+        dp[t][i] = ds * p.scale;
       }
     }
 
@@ -391,29 +420,53 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   }
 }
 
+// B2 and B3, and B4's dq and dk/dv: the same bodies under their own names.
 template <int D>
-cudaError_t launch_dq(const Params& p, int batch, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
+  dq_body<D, false>(p);
+}
+
+template <int D, bool kCap>
+__global__ void __launch_bounds__(kThreads) splash_bwd_dq_kernel(Params p) {
+  dq_body<D, kCap>(p);
+}
+
+template <int D, int DN>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
+  dkv_body<D, DN, false>(p);
+}
+
+template <int D, int DN, bool kCap>
+__global__ void __launch_bounds__(kThreads) splash_bwd_dkv_kernel(Params p) {
+  dkv_body<D, DN, kCap>(p);
+}
+
+// B3 at D = 256 writes half of the head dimension per block (see above).
+template <int D>
+constexpr int kDkvCols = D > 128 ? 128 : D;
+
+template <int D>
+cudaError_t launch_dq(void (*kernel)(Params), const Params& p, int batch,
+                      cudaStream_t stream) {
   const int smem = static_cast<int>(Smem<D>::kTiles);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.seq + kTileRows - 1) / kTileRows, p.heads, batch);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_dkv(const Params& p, int batch, cudaStream_t stream) {
-  constexpr int DN = D > 128 ? 128 : D;
+cudaError_t launch_dkv(void (*kernel)(Params), const Params& p, int batch,
+                       cudaStream_t stream) {
   const int smem = static_cast<int>(Smem<D>::kTiles + Smem<D>::kStats);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D, DN>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.seq + kTileRows - 1) / kTileRows, p.kv_heads,
-                  batch * (D / DN));
-  flash_bwd_dkv_kernel<D, DN><<<grid, kThreads, smem, stream>>>(p);
+                  batch * (D / kDkvCols<D>));
+  kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -445,9 +498,10 @@ Params make_params(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// Both entry points return a cudaError_t as int: 0 when the launch was
+// Every entry point returns a cudaError_t as int: 0 when the launch was
 // accepted.  Strides are element strides (batch, sequence, head).
 
+// B2.
 int flash_attention_bwd_dq_bf16(
     int device, const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int batch, int seq,
@@ -466,13 +520,14 @@ int flash_attention_bwd_dq_bf16(
   p.dq_sb = dq_sb; p.dq_ss = dq_ss; p.dq_sh = dq_sh;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 64: return static_cast<int>(launch_dq<64>(p, batch, s));
-    case 128: return static_cast<int>(launch_dq<128>(p, batch, s));
-    case 256: return static_cast<int>(launch_dq<256>(p, batch, s));
+    case 64: return static_cast<int>(launch_dq<64>(flash_bwd_dq_kernel<64>, p, batch, s));
+    case 128: return static_cast<int>(launch_dq<128>(flash_bwd_dq_kernel<128>, p, batch, s));
+    case 256: return static_cast<int>(launch_dq<256>(flash_bwd_dq_kernel<256>, p, batch, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// B3.
 int flash_attention_bwd_dkv_bf16(
     int device, const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int batch,
@@ -494,9 +549,80 @@ int flash_attention_bwd_dkv_bf16(
   p.dv_sb = dv_sb; p.dv_ss = dv_ss; p.dv_sh = dv_sh;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 64: return static_cast<int>(launch_dkv<64>(p, batch, s));
-    case 128: return static_cast<int>(launch_dkv<128>(p, batch, s));
-    case 256: return static_cast<int>(launch_dkv<256>(p, batch, s));
+    case 64: return static_cast<int>(launch_dkv<64>(flash_bwd_dkv_kernel<64, kDkvCols<64>>, p, batch, s));
+    case 128: return static_cast<int>(launch_dkv<128>(flash_bwd_dkv_kernel<128, kDkvCols<128>>, p, batch, s));
+    case 256: return static_cast<int>(launch_dkv<256>(flash_bwd_dkv_kernel<256, kDkvCols<256>>, p, batch, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// B4 (splash) dq: B2's arguments plus the softcap (0 turns the cap off).
+int splash_attention_bwd_dq_bf16(
+    int device, const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int batch, int seq,
+    int heads, int kv_heads, int head_dim, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long g_sb,
+    long long g_ss, long long g_sh, long long dq_sb, long long dq_ss,
+    long long dq_sh, int causal, float scale, float softcap, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long qs[3] = {q_sb, q_ss, q_sh}, ks[3] = {k_sb, k_ss, k_sh};
+  const long long vs[3] = {v_sb, v_ss, v_sh}, gs[3] = {g_sb, g_ss, g_sh};
+  Params p = make_params(q, k, v, dout, lse, delta, seq, heads, kv_heads,
+                         causal, scale, qs, ks, vs, gs);
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dq_sb = dq_sb; p.dq_ss = dq_ss; p.dq_sh = dq_sh;
+  const bool cap = softcap > 0.f;
+  p.softcap = softcap;
+  p.inv_softcap = cap ? 1.f / softcap : 0.f;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 128:
+      return static_cast<int>(
+          cap ? launch_dq<128>(splash_bwd_dq_kernel<128, true>, p, batch, s)
+              : launch_dq<128>(splash_bwd_dq_kernel<128, false>, p, batch, s));
+    case 256:
+      return static_cast<int>(
+          cap ? launch_dq<256>(splash_bwd_dq_kernel<256, true>, p, batch, s)
+              : launch_dq<256>(splash_bwd_dq_kernel<256, false>, p, batch, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// B4 (splash) dk/dv: B3's arguments plus the softcap (0 turns the cap off).
+int splash_attention_bwd_dkv_bf16(
+    int device, const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, int batch,
+    int seq, int heads, int kv_heads, int head_dim, long long q_sb,
+    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    long long g_sb, long long g_ss, long long g_sh, long long dk_sb,
+    long long dk_ss, long long dk_sh, long long dv_sb, long long dv_ss,
+    long long dv_sh, int causal, float scale, float softcap, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long qs[3] = {q_sb, q_ss, q_sh}, ks[3] = {k_sb, k_ss, k_sh};
+  const long long vs[3] = {v_sb, v_ss, v_sh}, gs[3] = {g_sb, g_ss, g_sh};
+  Params p = make_params(q, k, v, dout, lse, delta, seq, heads, kv_heads,
+                         causal, scale, qs, ks, vs, gs);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.dk_sb = dk_sb; p.dk_ss = dk_ss; p.dk_sh = dk_sh;
+  p.dv_sb = dv_sb; p.dv_ss = dv_ss; p.dv_sh = dv_sh;
+  const bool cap = softcap > 0.f;
+  p.softcap = softcap;
+  p.inv_softcap = cap ? 1.f / softcap : 0.f;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 128:
+      return static_cast<int>(
+          cap ? launch_dkv<128>(splash_bwd_dkv_kernel<128, kDkvCols<128>, true>, p, batch, s)
+              : launch_dkv<128>(splash_bwd_dkv_kernel<128, kDkvCols<128>, false>, p, batch, s));
+    case 256:
+      return static_cast<int>(
+          cap ? launch_dkv<256>(splash_bwd_dkv_kernel<256, kDkvCols<256>, true>, p, batch, s)
+              : launch_dkv<256>(splash_bwd_dkv_kernel<256, kDkvCols<256>, false>, p, batch, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

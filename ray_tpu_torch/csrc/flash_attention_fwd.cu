@@ -1,6 +1,7 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in, bf16 out + f32 lse.
+// Flash-attention forward for Hopper (sm_90a), bf16 in, bf16 out + f32 lse:
+// kernel B1 (flash) and the forward of kernel B4 (splash).
 //
-// Replaces the Pallas TPU kernel `_fwd_kernel` driven by `_flash_fwd` in
+// B1 replaces the Pallas TPU kernel `_fwd_kernel` driven by `_flash_fwd` in
 // ray_tpu/ops/flash_attention.py.  It computes the same function: causal or
 // full attention with an online softmax (running max m, denominator l and
 // numerator acc in f32), GQA K/V read in place through kv head h / (H / KV),
@@ -24,6 +25,19 @@
 // * K/V tiles past the causal diagonal are skipped (per block, and per warp
 //   within the diagonal tile), and the longest causal rows start first.
 // It does not use `wgmma` or TMA yet, so it stays below the card's peak.
+//
+// B4 replaces the forward of the splash kernel that ray_tpu/ops/splash_attention.py
+// builds (`_get_kernel`, upstream `flash_attention_kernel` of jax's
+// splash_attention_kernel.py).  It is the same device code, compiled once more
+// with the logit softcap on (`kCap`): the scaled f32 score s becomes
+// c * tanh(s / c) before the causal mask, and lse is taken over the capped
+// scores.  (s / c is computed as s * (1 / c), and tanh is `tanhf`, a few ulp
+// from the exact value; the splash wrapper passes scale 1 because its q
+// arrives scaled.)  The softcap-free instantiation is B1's code under its own
+// kernel name, so B1 keeps its instructions and a trace tells B4 from B1.  A
+// capped score costs one more special-function evaluation (tanh) beside the
+// softmax's exp: at the training shape the special-function units bound the
+// capped kernel about as tightly as the tensor cores do.
 //
 // Layout: q [B, S, H, D], k/v [B, S, KV, D] are read through element strides
 // (the innermost dimension must be contiguous, every other stride a multiple
@@ -57,14 +71,16 @@ struct Params {
   float* lse;
   int seq, heads, kv_heads, causal;
   float scale;
+  float softcap, inv_softcap;  // read only by the kCap instantiations
   long long q_sb, q_ss, q_sh;  // element strides: batch, sequence, head
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
+// The body of both kernels; kCap applies the logit softcap.
+template <int D, bool kCap>
+__device__ __forceinline__ void fwd_body(Params p) {
   constexpr int kLd = Smem<D>::kLd;
   constexpr int kTile = Smem<D>::kTile;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -156,6 +172,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
         const int kpos = k0 + t * 8 + tig * 2 + (i % 2);
         const int qpos = i < 2 ? row0 : row1;
         float x = s[t][i] * p.scale;
+        if constexpr (kCap) x = p.softcap * tanhf(x * p.inv_softcap);
         if (p.causal && qpos < kpos) x = kNegInf;
         if (kpos >= p.seq) x = -INFINITY;  // past the ragged edge: no column
         s[t][i] = x;
@@ -237,32 +254,32 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
 }
 
 template <int D>
-cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
+  fwd_body<D, false>(p);
+}
+
+template <int D, bool kCap>
+__global__ void __launch_bounds__(kThreads) splash_fwd_kernel(Params p) {
+  fwd_body<D, kCap>(p);
+}
+
+template <int D>
+cudaError_t launch(void (*kernel)(Params), const Params& p, int batch,
+                   cudaStream_t stream) {
   const int smem = static_cast<int>(Smem<D>::kBytes);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.seq + kBlockQ - 1) / kBlockQ, p.heads, batch);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Returns a cudaError_t as int: 0 when the launch was accepted.
-int flash_attention_fwd_bf16(int device, const void* q, const void* k,
-                             const void* v, void* out, void* lse, int batch,
-                             int seq, int heads, int kv_heads, int head_dim,
-                             long long q_sb, long long q_ss, long long q_sh,
-                             long long k_sb, long long k_ss, long long k_sh,
-                             long long v_sb, long long v_ss, long long v_sh,
-                             long long o_sb, long long o_ss, long long o_sh,
-                             int causal, float scale, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  Params p;
+Params make_params(const void* q, const void* k, const void* v, void* out,
+                   void* lse, int seq, int heads, int kv_heads, int causal,
+                   float scale, const long long* qs, const long long* ks,
+                   const long long* vs, const long long* os) {
+  Params p = {};
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
@@ -273,15 +290,73 @@ int flash_attention_fwd_bf16(int device, const void* q, const void* k,
   p.kv_heads = kv_heads;
   p.causal = causal;
   p.scale = scale;
-  p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
-  p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
-  p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
-  p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
+  p.q_sb = qs[0]; p.q_ss = qs[1]; p.q_sh = qs[2];
+  p.k_sb = ks[0]; p.k_ss = ks[1]; p.k_sh = ks[2];
+  p.v_sb = vs[0]; p.v_ss = vs[1]; p.v_sh = vs[2];
+  p.o_sb = os[0]; p.o_ss = os[1]; p.o_sh = os[2];
+  return p;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Both entry points return a cudaError_t as int: 0 when the launch was
+// accepted.  Strides are element strides (batch, sequence, head).
+
+// B1.
+int flash_attention_fwd_bf16(int device, const void* q, const void* k,
+                             const void* v, void* out, void* lse, int batch,
+                             int seq, int heads, int kv_heads, int head_dim,
+                             long long q_sb, long long q_ss, long long q_sh,
+                             long long k_sb, long long k_ss, long long k_sh,
+                             long long v_sb, long long v_ss, long long v_sh,
+                             long long o_sb, long long o_ss, long long o_sh,
+                             int causal, float scale, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long qs[3] = {q_sb, q_ss, q_sh}, ks[3] = {k_sb, k_ss, k_sh};
+  const long long vs[3] = {v_sb, v_ss, v_sh}, os[3] = {o_sb, o_ss, o_sh};
+  const Params p = make_params(q, k, v, out, lse, seq, heads, kv_heads,
+                               causal, scale, qs, ks, vs, os);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 64: return static_cast<int>(launch<64>(p, batch, s));
-    case 128: return static_cast<int>(launch<128>(p, batch, s));
-    case 256: return static_cast<int>(launch<256>(p, batch, s));
+    case 64: return static_cast<int>(launch<64>(flash_fwd_kernel<64>, p, batch, s));
+    case 128: return static_cast<int>(launch<128>(flash_fwd_kernel<128>, p, batch, s));
+    case 256: return static_cast<int>(launch<256>(flash_fwd_kernel<256>, p, batch, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// B4 (splash) forward: softcap 0 turns the cap off.
+int splash_attention_fwd_bf16(int device, const void* q, const void* k,
+                              const void* v, void* out, void* lse, int batch,
+                              int seq, int heads, int kv_heads, int head_dim,
+                              long long q_sb, long long q_ss, long long q_sh,
+                              long long k_sb, long long k_ss, long long k_sh,
+                              long long v_sb, long long v_ss, long long v_sh,
+                              long long o_sb, long long o_ss, long long o_sh,
+                              int causal, float scale, float softcap,
+                              void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long qs[3] = {q_sb, q_ss, q_sh}, ks[3] = {k_sb, k_ss, k_sh};
+  const long long vs[3] = {v_sb, v_ss, v_sh}, os[3] = {o_sb, o_ss, o_sh};
+  Params p = make_params(q, k, v, out, lse, seq, heads, kv_heads, causal,
+                         scale, qs, ks, vs, os);
+  const bool cap = softcap > 0.f;
+  p.softcap = softcap;
+  p.inv_softcap = cap ? 1.f / softcap : 0.f;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 128:
+      return static_cast<int>(
+          cap ? launch<128>(splash_fwd_kernel<128, true>, p, batch, s)
+              : launch<128>(splash_fwd_kernel<128, false>, p, batch, s));
+    case 256:
+      return static_cast<int>(
+          cap ? launch<256>(splash_fwd_kernel<256, true>, p, batch, s)
+              : launch<256>(splash_fwd_kernel<256, false>, p, batch, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -4,16 +4,21 @@ Counterpart of ``ray_tpu/models/transformer.py``:
 * Params are a plain nested dict with the JAX tree's keys; every block weight
   is stacked ``[L, ...]``, so a JAX tree converts leaf by leaf
   (``models/convert.py``).
-* Layers run as a Python loop over ``L`` where the JAX package scans; remat
-  is ``torch.utils.checkpoint`` around each layer.
+* Layers run as a Python loop over ``L`` where the JAX package scans.  A
+  layer is a list of steps over named values (``_layer_steps``), run by
+  ``models/remat.py``, which keeps for the backward what the remat policy
+  saves (the JAX package's ``checkpoint_name`` tags, or every product's
+  output under ``"dots"``) and recomputes the rest.
 * Norms compute in f32 and cast back; RoPE rotates halves, not interleaved
   pairs; GELU is the tanh approximation (``jax.nn.gelu``'s default).
+* Attention: ``attention_impl`` picks plain, flash (kernels B1-B3), splash
+  (kernel B4, with the logit softcap) or ``mha``'s own choice ("auto");
+  splash that declines a shape falls back to ``mha``, as in JAX.
 * The loss: ``causal_lm_loss`` with the blockwise LM head and cross entropy
   (``chunked_cross_entropy``, a ``torch.autograd.Function`` whose backward
   recomputes one chunk's logits at a time).
 
-MoE, splash attention and the remat policies that save named activations
-raise ``NotImplementedError``.
+MoE raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,17 +27,21 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import attend, mha
+from ..ops.attention import attend, flash_kernel_takes, mha
+from . import remat as rm
 from .config import TransformerConfig
 
 Params = Dict[str, Any]
 
-# The names the JAX package tags with checkpoint_name for its "save_acts" /
-# "save_mlp" remat policies (kept so the two packages name the same set).
+# The names the JAX package tags with checkpoint_name: q, k, v after RoPE,
+# the attention output, flash's lse (inside its vjp), the SwiGLU products
+# and the GELU MLP's pre-activation.  "save_acts" keeps all of them,
+# "save_mlp" the MLP's.
 REMAT_SAVE_NAMES = ("attn_q", "attn_k", "attn_v", "attn_out", "attn_lse",
                     "mlp_gate", "mlp_up", "mlp_pre")
+# flash attention's residuals (q, k, v, out, lse) carry these names
+FLASH_RESIDUALS = ("attn_q", "attn_k", "attn_v", "attn_out", "attn_lse")
 
 
 def _not_ported(what: str, item: str):
@@ -154,54 +163,175 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     return out.to(x.dtype)
 
 
-def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
-    """x: [B, S, H, D]; positions: [S]."""
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+          inverse: bool = False):
+    """x: [B, S, H, D]; positions: [S].  ``inverse`` rotates back (the
+    transpose, which is the rotation's backward)."""
     cos, sin = _rope_tables(positions, x.shape[-1], theta)
+    sin = -sin if inverse else sin
     return _rotate(x, cos[None, :, None, :], sin[None, :, None, :])
 
 
-def _attention_block(x, p, cfg: TransformerConfig, positions):
-    b, s, _ = x.shape
-    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    cast = x.dtype
-    q = x @ p["wq"].to(cast)
-    k = x @ p["wk"].to(cast)
-    v = x @ p["wv"].to(cast)
-    if "bq" in p:
-        q, k, v = (q + p["bq"].to(cast), k + p["bk"].to(cast),
-                   v + p["bv"].to(cast))
-    q = q.reshape(b, s, nh, hd)
-    k = k.reshape(b, s, nkv, hd)
-    v = v.reshape(b, s, nkv, hd)
-    if cfg.use_rope:
-        q = _rope(q, positions, cfg.rope_theta)
-        k = _rope(k, positions, cfg.rope_theta)
-    impl = cfg.attention_impl
+def _attention_fn(cfg: TransformerConfig, seq: int, is_cuda: bool):
+    """The attention step: (q, k, v) -> out, and the names its residuals
+    carry (flash's are tagged inside its vjp in JAX; splash passes no
+    ``residual_checkpoint_name``, so its residuals are unnamed)."""
+    impl, causal = cfg.attention_impl, cfg.causal
+    cap = cfg.attn_logit_softcap
+
+    def auto(q, k, v):
+        return mha(q, k, v, causal=causal, logit_softcap=cap)
+
     if impl == "splash":
-        raise _not_ported('attention_impl="splash"', "queue B, kernel B4")
+        from ..ops.splash_attention import splash_mha
+
+        def splash(q, k, v):
+            out = splash_mha(q, k, v, causal=causal, logit_softcap=cap)
+            return auto(q, k, v) if out is None else out  # declined
+        return splash, None
     if impl == "plain":
-        out = attend(q, k, v, causal=cfg.causal,
-                     logit_softcap=cfg.attn_logit_softcap)
-    elif impl == "flash" and cfg.attn_logit_softcap == 0.0:
+        return (lambda q, k, v: attend(q, k, v, causal=causal,
+                                       logit_softcap=cap)), None
+    if impl == "flash" and cap == 0.0:
         from ..ops.flash_attention import flash_attention
-        out = flash_attention(q, k, v, causal=cfg.causal)
-    else:  # "auto", or flash declined a softcap
-        out = mha(q, k, v, causal=cfg.causal,
-                  logit_softcap=cfg.attn_logit_softcap)
-    out = out.reshape(b, s, nh * hd) @ p["wo"].to(cast)
-    if "bo" in p:
-        out = out + p["bo"].to(cast)
-    return out
+        return (lambda q, k, v: flash_attention(q, k, v, causal=causal),
+                FLASH_RESIDUALS)
+    # "auto", or flash declined a softcap: mha picks flash or plain
+    names = (FLASH_RESIDUALS
+             if flash_kernel_takes(is_cuda, seq, cfg.head_dim, cap) else None)
+    return auto, names
+
+
+def _bias_grad(g: torch.Tensor, dtype) -> torch.Tensor:
+    return g.sum((0, 1)).to(dtype)
+
+
+def _norm_step(name: str, x: str, out: str, lp: Params,
+               cfg: TransformerConfig) -> rm.Step:
+    keys = tuple(sorted(lp[name]))       # ("bias", "scale") or ("scale",)
+
+    def fn(x, *p):
+        return _norm(x, dict(zip(keys, p)), cfg)
+    return rm.Step(name, fn, (x, *(f"{name}.{k}" for k in keys)), (out,))
+
+
+def _layer_steps(lp: Params, cfg: TransformerConfig, positions: torch.Tensor,
+                 lead: Tuple[int, int], is_cuda: bool) -> List[rm.Step]:
+    """One transformer block as steps over named values: the input "x",
+    the layer's params by path ("attn.wq", ...), the output "y".  Values
+    named as in the JAX package's checkpoint_name tags are kept by the
+    policies that save those names."""
+    b, s = lead
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    attn, mlp = lp["attn"], lp["mlp"]
+    theta = cfg.rope_theta
+    qkv_bias = "bq" in attn
+
+    def qkv(qd, kd, vd, *bias):
+        if qkv_bias:
+            qd, kd, vd = (t + bb.to(t.dtype) for t, bb in zip((qd, kd, vd),
+                                                              bias))
+        q, k, v = (qd.reshape(b, s, nh, hd), kd.reshape(b, s, nkv, hd),
+                   vd.reshape(b, s, nkv, hd))
+        if cfg.use_rope:
+            q, k = _rope(q, positions, theta), _rope(k, positions, theta)
+        return q, k, v
+
+    def qkv_bwd(gq, gk, gv):
+        if cfg.use_rope:
+            gq = _rope(gq, positions, theta, inverse=True)
+            gk = _rope(gk, positions, theta, inverse=True)
+        g = [t.reshape(b, s, -1) for t in (gq, gk, gv)]
+        if qkv_bias:
+            g += [_bias_grad(t, attn["bq"].dtype) for t in g]
+        return g
+
+    bo = ("attn.bo",) if "bo" in attn else ()
+    attention, residual_names = _attention_fn(cfg, s, is_cuda)
+    steps = [
+        _norm_step("attn_norm", "x", "attn_in", lp, cfg),
+        rm.Step("wq", rm.dot, ("attn_in", "attn.wq"), ("q_dot",), rm.DOT),
+        rm.Step("wk", rm.dot, ("attn_in", "attn.wk"), ("k_dot",), rm.DOT),
+        rm.Step("wv", rm.dot, ("attn_in", "attn.wv"), ("v_dot",), rm.DOT),
+        rm.Step("qkv", qkv, ("q_dot", "k_dot", "v_dot")
+                + (("attn.bq", "attn.bk", "attn.bv") if qkv_bias else ()),
+                ("attn_q", "attn_k", "attn_v"), rm.LINEAR, qkv_bwd),
+        rm.Step("attention", attention, ("attn_q", "attn_k", "attn_v"),
+                ("attn_out",), residual_names=residual_names),
+        rm.Step("wo", rm.dot, ("attn_out", "attn.wo"), ("attn_proj",),
+                rm.DOT),
+        rm.Step("attn_residual", _add, ("x", "attn_proj", *bo), ("x2",),
+                rm.LINEAR, _add_bwd(attn.get("bo"))),
+        _norm_step("mlp_norm", "x2", "mlp_in", lp, cfg),
+        *_mlp_steps(mlp, cfg),
+        rm.Step("mlp_residual", _add, ("x2", "mlp_out"), ("y",), rm.LINEAR,
+                _add_bwd(None)),
+    ]
+    return steps
+
+
+def _add(x, y, *bias):
+    """The residual add x + (y + bias), the bias optional."""
+    return x + (_bias_add(y, bias[0]) if bias else y)
+
+
+def _add_bwd(bias: Optional[torch.Tensor]):
+    if bias is None:
+        return lambda g: (g, g)
+    return lambda g: (g, g, _bias_grad(g, bias.dtype))
+
+
+def _bias_add(y, bias):
+    return y + bias.to(y.dtype)
+
+
+def _bias_add_bwd(bias: torch.Tensor):
+    return lambda g: (g, _bias_grad(g, bias.dtype))
+
+
+def _mlp_steps(mlp: Params, cfg: TransformerConfig) -> List[rm.Step]:
+    """The MLP: "mlp_in" (the norm'd input) -> "mlp_out"."""
+    if cfg.use_swiglu:
+        return [
+            rm.Step("w_gate", rm.dot, ("mlp_in", "mlp.w_gate"),
+                    ("mlp_gate",), rm.DOT),
+            rm.Step("w_in", rm.dot, ("mlp_in", "mlp.w_in"), ("mlp_up",),
+                    rm.DOT),
+            rm.Step("mlp_act", lambda gate, up: F.silu(gate) * up,
+                    ("mlp_gate", "mlp_up"), ("mlp_hidden",)),
+            rm.Step("w_out", rm.dot, ("mlp_hidden", "mlp.w_out"),
+                    ("mlp_out",), rm.DOT),
+        ]
+    return [
+        rm.Step("w_in", rm.dot, ("mlp_in", "mlp.w_in"), ("mlp_up_dot",),
+                rm.DOT),
+        rm.Step("mlp_bias", _bias_add, ("mlp_up_dot", "mlp.b_in"),
+                ("mlp_pre",), rm.LINEAR, _bias_add_bwd(mlp["b_in"])),
+        rm.Step("mlp_act", lambda pre: F.gelu(pre, approximate="tanh"),
+                ("mlp_pre",), ("mlp_hidden",)),
+        rm.Step("w_out", rm.dot, ("mlp_hidden", "mlp.w_out"),
+                ("mlp_proj",), rm.DOT),
+        rm.Step("mlp_bias_out", _bias_add, ("mlp_proj", "mlp.b_out"),
+                ("mlp_out",), rm.LINEAR, _bias_add_bwd(mlp["b_out"])),
+    ]
 
 
 def _mlp_block(x, p, cfg: TransformerConfig):
-    cast = x.dtype
-    if cfg.use_swiglu:
-        return (F.silu(x @ p["w_gate"].to(cast))
-                * (x @ p["w_in"].to(cast))) @ p["w_out"].to(cast)
-    hmid = F.gelu(x @ p["w_in"].to(cast) + p["b_in"].to(cast),
-                  approximate="tanh")
-    return hmid @ p["w_out"].to(cast) + p["b_out"].to(cast)
+    """The MLP half of a block alone (the decode path's): norm'd input ->
+    the MLP's output."""
+    values = rm.forward(_mlp_steps(p, cfg), {"mlp_in": x,
+                                             **_flat(p, "mlp.")})
+    return values["mlp_out"]
+
+
+def _flat(tree: Params, prefix: str = "") -> Dict[str, torch.Tensor]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -209,14 +339,15 @@ def _mlp_block(x, p, cfg: TransformerConfig):
 # ---------------------------------------------------------------------------
 
 def block_forward(x: torch.Tensor, lp: Params, cfg: TransformerConfig,
-                  positions: torch.Tensor):
-    """One transformer block: x [B, S, H] -> (x, moe aux loss)."""
+                  positions: torch.Tensor,
+                  policy: Union[rm.SavePolicy, None] = None):
+    """One transformer block: x [B, S, H] -> (x, moe aux loss).  ``policy``
+    (see ``remat_policy``) says what its backward keeps; None keeps all."""
     if cfg.num_experts > 1:
         raise _not_ported("MoE (num_experts > 1)", "queue A, ops/moe.py")
-    x = x + _attention_block(_norm(x, lp["attn_norm"], cfg), lp["attn"], cfg,
-                             positions)
-    out = _mlp_block(_norm(x, lp["mlp_norm"], cfg), lp["mlp"], cfg)
-    return x + out, torch.zeros((), dtype=torch.float32, device=x.device)
+    steps = _layer_steps(lp, cfg, positions, x.shape[:2], x.is_cuda)
+    y = rm.run(steps, {"x": x, **_flat(lp)}, "y", policy)
+    return y, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -229,21 +360,30 @@ def embed_tokens(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     return x
 
 
-def remat_policy(remat: Union[bool, str, None]) -> bool:
-    """Whether ``remat`` replays each layer in the backward.
+def remat_policy(remat: Union[bool, str, None]
+                 ) -> Tuple[bool, Optional[rm.SavePolicy]]:
+    """Map a remat spec to (enabled, what each layer keeps for its
+    backward); the rest is recomputed there (``models/remat.py``).
 
-    - False/None: no rematerialization;
-    - True / "full": save only each layer's input and replay the whole
-      block (``torch.utils.checkpoint``, JAX's ``nothing_saveable``).
-    "save_acts", "save_mlp" and "dots" keep named or matmul outputs through
-    the replay in JAX; the port has no such policy yet.
+    - False/None: no rematerialization (policy None: keep everything);
+    - True / "full": keep only each layer's input (``nothing_saveable``);
+    - "save_acts": keep the named values of ``REMAT_SAVE_NAMES`` (the
+      backward replays norms, elementwise work, the output projection and
+      any attention whose residuals are unnamed, such as splash's);
+    - "save_mlp": keep only the MLP's named values;
+    - "dots": keep every matrix product's output (``dots_saveable``).
     """
     if remat is None or remat is False:
-        return False
+        return False, None
     if remat is True or remat == "full":
-        return True
-    if remat in ("save_acts", "save_mlp", "dots"):
-        raise _not_ported(f"remat={remat!r}", "queue A, remat save policies")
+        return True, rm.SavePolicy()
+    if remat == "save_acts":
+        return True, rm.SavePolicy(names=frozenset(REMAT_SAVE_NAMES))
+    if remat == "save_mlp":
+        return True, rm.SavePolicy(
+            names=frozenset(("mlp_gate", "mlp_up", "mlp_pre")))
+    if remat == "dots":
+        return True, rm.SavePolicy(dots=True)
     raise ValueError(f"unknown remat policy {remat!r}")
 
 
@@ -254,19 +394,15 @@ def apply_trunk(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     """tokens: [B, S] -> (final hidden states [B, S, H], aux dict).
 
     The trunk stops before the LM head so the loss can run the head
-    blockwise (``chunked_cross_entropy``).  With ``remat`` each layer keeps
-    only its input for the backward and replays its forward there (the
-    flash forward runs again then)."""
-    enabled = remat_policy(remat)
+    blockwise (``chunked_cross_entropy``).  ``remat`` (``remat_policy``)
+    says what each layer keeps for the backward; the backward recomputes
+    the rest, the attention forward too when its residuals are not kept."""
+    _, policy = remat_policy(remat)
     x = embed_tokens(params, tokens, cfg, compute_dtype)
     positions = torch.arange(tokens.shape[1], device=x.device)
     aux = []
     for lp in unbind_layers(params["blocks"], cfg.num_layers):
-        if enabled:
-            x, a = checkpoint(block_forward, x, lp, cfg, positions,
-                              use_reentrant=False, preserve_rng_state=False)
-        else:
-            x, a = block_forward(x, lp, cfg, positions)
+        x, a = block_forward(x, lp, cfg, positions, policy)
         aux.append(a)
     x = _norm(x, params["final_norm"], cfg)
     return x, {"moe_aux_loss": torch.stack(aux).mean()}

@@ -19,12 +19,17 @@ tensors' device only: a CPU tensor takes the plain versions (which repeat
 the kernels' arithmetic tile by tile), a CUDA tensor launches the kernels or
 raises on what they do not take.  There is no fallback from one to the
 other.
+
+The same sources hold the splash kernel B4 (``ops/splash_attention.py``):
+B1-B3's device code with a logit softcap, behind entry points of its own.
+The plain versions here take ``softcap`` and ``scale`` for it; at their
+defaults (0, D^-0.5) they compute B1-B3's function.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,26 +39,33 @@ from .attention import NEG_INF
 KERNEL_HEAD_DIMS = (64, 128, 256)
 
 
+def _bind_entries(lib: ctypes.CDLL, flash: str, splash: str, head) -> None:
+    """argtypes of one flash entry point (``head`` then causal, scale and
+    the stream) and of its splash twin (the softcap before the stream)."""
+    getattr(lib, flash).argtypes = head + [ctypes.c_int, ctypes.c_float,
+                                           ctypes.c_void_p]
+    getattr(lib, splash).argtypes = head + [ctypes.c_int, ctypes.c_float,
+                                            ctypes.c_float, ctypes.c_void_p]
+    getattr(lib, flash).restype = getattr(lib, splash).restype = ctypes.c_int
+
+
 def _bind(lib: ctypes.CDLL) -> None:
-    fn = lib.flash_attention_fwd_bf16
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    _bind_entries(lib, "flash_attention_fwd_bf16", "splash_attention_fwd_bf16",
+                  [ctypes.c_int] + [ctypes.c_void_p] * 5
+                  + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12)
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
-    tail = [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-    dq = lib.flash_attention_bwd_dq_bf16
-    dq.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                   + [ctypes.c_longlong] * 15 + tail)
-    dq.restype = ctypes.c_int
-    dkv = lib.flash_attention_bwd_dkv_bf16
-    dkv.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                    + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 18 + tail)
-    dkv.restype = ctypes.c_int
+    _bind_entries(lib, "flash_attention_bwd_dq_bf16",
+                  "splash_attention_bwd_dq_bf16",
+                  [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                  + [ctypes.c_longlong] * 15)
+    _bind_entries(lib, "flash_attention_bwd_dkv_bf16",
+                  "splash_attention_bwd_dkv_bf16",
+                  [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                  + [ctypes.c_longlong] * 18)
     lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
 
@@ -103,7 +115,7 @@ def _flash_fwd(q, k, v, causal: bool = True, block_q: int = 512,
     return _flash_fwd_cuda(q, k, v, causal)
 
 
-def _check_kernel_inputs(q, k, v) -> None:
+def _check_kernel_inputs(q, k, v, head_dims=KERNEL_HEAD_DIMS) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -125,50 +137,75 @@ def _check_kernel_inputs(q, k, v) -> None:
                          f"{k.shape[1]}")
     if h % k.shape[2]:
         raise ValueError(f"{h} q heads do not group over {k.shape[2]} kv heads")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash kernel takes D in {KERNEL_HEAD_DIMS}, "
-                         f"got {d}")
+    if d not in head_dims:
+        raise ValueError(f"the kernel takes D in {head_dims}, got {d}")
+
+
+def _device_index(t: torch.Tensor) -> int:
+    return (t.device.index if t.device.index is not None
+            else torch.cuda.current_device())
 
 
 def _flash_fwd_cuda(q, k, v, causal: bool):
-    _check_kernel_inputs(q, k, v)
+    out, lse = _fwd_launch("flash_attention_fwd_bf16", q, k, v, causal,
+                           q.shape[-1] ** -0.5)
+    flash_attention.launches += 1
+    return out, lse
+
+
+def _fwd_launch(entry: str, q, k, v, causal: bool, scale: float, *softcap,
+                head_dims=KERNEL_HEAD_DIMS):
+    """Launch forward entry point ``entry`` (B1's, or B4's with its
+    ``softcap``) on the card -> (out, lse); raises when it is refused."""
+    _check_kernel_inputs(q, k, v, head_dims)
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if b * s == 0:
         return out, lse
     lib = _build.load("flash_attention_fwd", _bind)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_attention_fwd_bf16(
-        q.device.index if q.device.index is not None
-        else torch.cuda.current_device(),
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, s, h, k.shape[2], d,
+    err = getattr(lib, entry)(
+        _device_index(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), b, s, h, k.shape[2], d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        int(causal), d ** -0.5, stream)
+        int(causal), scale, *softcap,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         msg = lib.flash_attention_error_string(err).decode()
-        raise RuntimeError(f"flash_attention_fwd launch failed: {msg} ({err})")
-    flash_attention.launches += 1
+        raise RuntimeError(f"{entry} launch failed: {msg} ({err})")
     return out, lse
 
 
+def _scores_and_dcap(sc: torch.Tensor, softcap: float):
+    """Scaled scores -> (capped scores, d(capped) / d(scores) or None):
+    the logit softcap c·tanh(s/c) in JAX's splash order, tanh(s / c) * c;
+    softcap 0 leaves the scores as they are."""
+    if not softcap:
+        return sc, None
+    t = torch.tanh(sc / softcap)
+    return t * softcap, 1 - t * t
+
+
 def flash_attention_reference(q, k, v, causal: bool = True,
-                              block_q: int = 512, block_kv: int = 512
+                              block_q: int = 512, block_kv: int = 512,
+                              softcap: float = 0.0,
+                              scale: Optional[float] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel's function -> (out, lse).
 
     Walks q tiles and, inside each, K/V tiles up to the causal diagonal with
     the online softmax: scores are the f32 product of the inputs (as the
-    kernel's f32 accumulation gives them), P is cast to the input dtype
-    before P·V and summed in f32.  Ragged tiles are cut short, not padded.
+    kernel's f32 accumulation gives them) times ``scale`` (default D^-0.5),
+    capped at ``softcap`` (0: off) before the mask; P is cast to the input
+    dtype before P·V and summed in f32.  Ragged tiles are cut short, not
+    padded.
     """
     b, s, h, d = q.shape
     if k.shape[1] != s:
         raise ValueError(f"flash attention needs Sq == Skv, got {s} and "
                          f"{k.shape[1]}")
     reps = h // k.shape[2]
-    scale = d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
     block_q = min(block_q, s)
     block_kv = min(block_kv, s)
     qt = q.transpose(1, 2).float()                          # [B, H, S, D]
@@ -188,7 +225,8 @@ def flash_attention_reference(q, k, v, causal: bool = True,
         for k0 in range(0, kv_end, block_kv):
             kb = kt[:, :, k0:k0 + block_kv]
             vb = vt[:, :, k0:k0 + block_kv]
-            sc = torch.matmul(qb, kb.transpose(-1, -2)) * scale
+            sc, _ = _scores_and_dcap(
+                torch.matmul(qb, kb.transpose(-1, -2)) * scale, softcap)
             if causal:
                 k_pos = k0 + torch.arange(kb.shape[2], device=q.device)
                 sc = sc.masked_fill(q_pos[:, None] < k_pos[None, :], NEG_INF)
@@ -237,8 +275,9 @@ def _kernel_strides(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-def _check_bwd_inputs(q, k, v, dout, lse, delta) -> None:
-    _check_kernel_inputs(q, k, v)
+def _check_bwd_inputs(q, k, v, dout, lse, delta,
+                      head_dims=KERNEL_HEAD_DIMS) -> None:
+    _check_kernel_inputs(q, k, v, head_dims)
     if (dout.shape != q.shape or dout.dtype != q.dtype
             or dout.device != q.device):
         raise ValueError(f"dout {dout.dtype} {tuple(dout.shape)} on "
@@ -256,32 +295,60 @@ def _check_bwd_inputs(q, k, v, dout, lse, delta) -> None:
                              f"{tuple(t.shape)} on {t.device}")
 
 
-def _bwd_launch(name: str, fn, q, *args) -> None:
-    err = fn(q.device.index if q.device.index is not None
-             else torch.cuda.current_device(), *args,
-             torch.cuda.current_stream(q.device).cuda_stream)
+def _dq_launch(entry: str, q, k, v, dout, lse, delta, causal: bool,
+               scale: float, *softcap,
+               head_dims=KERNEL_HEAD_DIMS) -> torch.Tensor:
+    """Launch dq entry point ``entry`` (B2's, or B4's with its
+    ``softcap``) on the card; raises when it is refused."""
+    _check_bwd_inputs(q, k, v, dout, lse, delta, head_dims)
+    b, s, h, d = q.shape
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if b * s == 0:
+        return dq
+    lib = _build.load("flash_attention_bwd", _bind_bwd)
+    _bwd_check(entry, lib, getattr(lib, entry)(
+        _device_index(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b,
+        s, h, k.shape[2], d, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *dout.stride()[:3], *dq.stride()[:3], int(causal),
+        scale, *softcap, torch.cuda.current_stream(q.device).cuda_stream))
+    return dq
+
+
+def _dkv_launch(entry: str, q, k, v, dout, lse, delta, causal: bool,
+                scale: float, *softcap, head_dims=KERNEL_HEAD_DIMS
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch dk/dv entry point ``entry`` (B3's, or B4's with its
+    ``softcap``) on the card; raises when it is refused."""
+    _check_bwd_inputs(q, k, v, dout, lse, delta, head_dims)
+    b, s, h, d = q.shape
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    if b * s == 0:
+        return dk, dv
+    lib = _build.load("flash_attention_bwd", _bind_bwd)
+    _bwd_check(entry, lib, getattr(lib, entry)(
+        _device_index(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, s, h, k.shape[2], d, *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3],
+        *dk.stride()[:3], *dv.stride()[:3], int(causal), scale, *softcap,
+        torch.cuda.current_stream(q.device).cuda_stream))
+    return dk, dv
+
+
+def _bwd_check(entry: str, lib: ctypes.CDLL, err: int) -> None:
     if err:
-        lib = _build.load("flash_attention_bwd", _bind_bwd)
         msg = lib.flash_attention_bwd_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
+        raise RuntimeError(f"{entry} launch failed: {msg} ({err})")
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta,
                            causal: bool = True) -> torch.Tensor:
     """Kernel B2 on the card: dq [B, S, H, D] from q, k, v, dO (all bf16),
     lse and Δ ([B, H, S] f32).  ``launches`` counts its launches."""
-    _check_bwd_inputs(q, k, v, dout, lse, delta)
-    b, s, h, d = q.shape
-    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    if b * s == 0:
-        return dq
-    lib = _build.load("flash_attention_bwd", _bind_bwd)
-    _bwd_launch("flash_attention_bwd_dq", lib.flash_attention_bwd_dq_bf16, q,
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, s, h,
-                k.shape[2], d, *q.stride()[:3], *k.stride()[:3],
-                *v.stride()[:3], *dout.stride()[:3], *dq.stride()[:3],
-                int(causal), d ** -0.5)
+    dq = _dq_launch("flash_attention_bwd_dq_bf16", q, k, v, dout, lse, delta,
+                    causal, q.shape[-1] ** -0.5)
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -293,19 +360,8 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel B3 on the card: (dk, dv) [B, S, KV, D], each summed over the
     q heads of its GQA group.  ``launches`` counts its launches."""
-    _check_bwd_inputs(q, k, v, dout, lse, delta)
-    b, s, h, d = q.shape
-    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
-    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    if b * s == 0:
-        return dk, dv
-    lib = _build.load("flash_attention_bwd", _bind_bwd)
-    _bwd_launch("flash_attention_bwd_dkv", lib.flash_attention_bwd_dkv_bf16,
-                q, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), b, s, h, k.shape[2], d, *q.stride()[:3],
-                *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3],
-                *dk.stride()[:3], *dv.stride()[:3], int(causal), d ** -0.5)
+    dk, dv = _dkv_launch("flash_attention_bwd_dkv_bf16", q, k, v, dout, lse,
+                         delta, causal, q.shape[-1] ** -0.5)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -315,18 +371,20 @@ flash_attention_bwd_dkv.launches = 0
 
 def flash_attention_bwd_reference(q, k, v, out, lse, dout,
                                   causal: bool = True, block_q: int = 512,
-                                  block_kv: int = 512):
+                                  block_kv: int = 512, softcap: float = 0.0,
+                                  scale: Optional[float] = None):
     """Plain PyTorch version of B2 and B3 -> (dq, dk, dv) in the layouts of
     q, k and v.
 
     dO is cast to the input dtype and Δ = rowsum(dO∘O) is taken in f32, as
     ``_flash_bwd_pallas`` does; products take operands of the input dtype
     and sum in f32, and P and dS are cast to the input dtype before the
-    products that consume them, as the kernels do.  Ragged tiles are cut
-    short, not padded.
+    products that consume them, as the kernels do.  With ``softcap`` c > 0
+    the scores are capped as in the forward and dS gains 1 - tanh²(s/c),
+    s the uncapped scaled score.  Ragged tiles are cut short, not padded.
     """
     args = _bwd_reference_args(q, k, v, out, lse, dout, causal, block_q,
-                               block_kv)
+                               block_kv, softcap, scale)
     dq = _bwd_dq_reference(*args)
     dk, dv = _bwd_dkv_reference(*args)
     return (dq.to(q.dtype).transpose(1, 2), dk.to(k.dtype).transpose(1, 2),
@@ -334,10 +392,12 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout,
 
 
 def _bwd_reference_args(q, k, v, out, lse, dout, causal: bool = True,
-                        block_q: int = 512, block_kv: int = 512):
+                        block_q: int = 512, block_kv: int = 512,
+                        softcap: float = 0.0, scale: Optional[float] = None):
     """The arguments of ``_bwd_dq_reference`` / ``_bwd_dkv_reference``:
     q, k, v and dO (cast to the input dtype) as f32 [B, heads, S, D], lse
-    and Δ as f32 [B, H, S], then causal, scale, tiles and the input dtype."""
+    and Δ as f32 [B, H, S], then causal, scale (default D^-0.5), tiles, the
+    input dtype and the softcap."""
     s, d = q.shape[1], q.shape[3]
     if k.shape[1] != s:
         raise ValueError(f"flash attention needs Sq == Skv, got {s} and "
@@ -345,11 +405,12 @@ def _bwd_reference_args(q, k, v, out, lse, dout, causal: bool = True,
     qt, kt, vt, gt = (x.transpose(1, 2).float()
                       for x in (q, k, v, dout.to(q.dtype)))
     return (qt, kt, vt, gt, lse.float(), _delta(out, dout), causal,
-            d ** -0.5, min(block_q, s), min(block_kv, s), q.dtype)
+            d ** -0.5 if scale is None else scale, min(block_q, s),
+            min(block_kv, s), q.dtype, softcap)
 
 
 def _bwd_dq_reference(qt, kt, vt, gt, lse, delta, causal, scale, block_q,
-                      block_kv, dtype):
+                      block_kv, dtype, softcap=0.0):
     """``_bwd_dq_kernel`` tile by tile: for each q tile, dq = Σ dS·K over
     the K/V tiles up to the causal diagonal.  [B, H, S, D] f32 in and out."""
     b, h, s, d = qt.shape
@@ -367,20 +428,24 @@ def _bwd_dq_reference(qt, kt, vt, gt, lse, delta, causal, scale, block_q,
         kv_end = min(s, q0 + nq) if causal else s
         for k0 in range(0, kv_end, block_kv):
             kb, vb = kh[:, :, k0:k0 + block_kv], vh[:, :, k0:k0 + block_kv]
-            sc = torch.matmul(qb, kb.transpose(-1, -2)) * scale
+            sc, dcap = _scores_and_dcap(
+                torch.matmul(qb, kb.transpose(-1, -2)) * scale, softcap)
             if causal:
                 k_pos = k0 + torch.arange(kb.shape[2], device=qt.device)
                 sc = sc.masked_fill(q_pos[:, None] < k_pos[None, :], NEG_INF)
             p = torch.exp(sc - lse_b)
             dp = torch.matmul(gb, vb.transpose(-1, -2))
-            ds = p * (dp - dlt_b) * scale
+            ds = p * (dp - dlt_b)
+            if dcap is not None:
+                ds = ds * dcap
+            ds = ds * scale
             acc = acc + torch.matmul(ds.to(dtype).float(), kb)
         dq[:, :, q0:q0 + nq] = acc
     return dq
 
 
 def _bwd_dkv_reference(qt, kt, vt, gt, lse, delta, causal, scale, block_q,
-                       block_kv, dtype):
+                       block_kv, dtype, softcap=0.0):
     """``_bwd_dkv_kernel`` tile by tile: for each kv tile, dv = Σ Pᵀ·dO and
     dk = Σ dSᵀ·Q over the group's ``reps`` q heads (outer) and the q tiles
     from the causal diagonal on (inner).  -> [B, KV, S, D] f32 each."""
@@ -404,7 +469,8 @@ def _bwd_dkv_reference(qt, kt, vt, gt, lse, delta, causal, scale, block_q,
                 nq = qb.shape[2]
                 lse_b = lse[:, r::reps, None, q0:q0 + nq]
                 dlt_b = delta[:, r::reps, None, q0:q0 + nq]
-                s_t = torch.matmul(kb, qb.transpose(-1, -2)) * scale
+                s_t, dcap = _scores_and_dcap(
+                    torch.matmul(kb, qb.transpose(-1, -2)) * scale, softcap)
                 if causal:
                     q_pos = q0 + torch.arange(nq, device=qt.device)
                     s_t = s_t.masked_fill(q_pos[None, :] < k_pos[:, None],
@@ -412,7 +478,10 @@ def _bwd_dkv_reference(qt, kt, vt, gt, lse, delta, causal, scale, block_q,
                 p_t = torch.exp(s_t - lse_b)
                 dv_acc = dv_acc + torch.matmul(p_t.to(dtype).float(), gb)
                 dp_t = torch.matmul(vb, gb.transpose(-1, -2))
-                ds_t = p_t * (dp_t - dlt_b) * scale
+                ds_t = p_t * (dp_t - dlt_b)
+                if dcap is not None:
+                    ds_t = ds_t * dcap
+                ds_t = ds_t * scale
                 dk_acc = dk_acc + torch.matmul(ds_t.to(dtype).float(), qb)
         dk[:, :, k0:k0 + nk] = dk_acc
         dv[:, :, k0:k0 + nk] = dv_acc

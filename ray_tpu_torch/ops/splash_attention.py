@@ -1,0 +1,216 @@
+"""Splash attention: kernel B4, written by hand for Hopper, and its plain
+PyTorch versions.
+
+Counterpart of ``ray_tpu/ops/splash_attention.py``, which wraps the upstream
+Pallas splash kernel.  What splash adds over flash attention there is a
+logit softcap (scores s become c·tanh(s/c) before the mask), native GQA,
+skipping of fully masked tiles and tile sizes of their own for the
+backward.  On the card, B4 is the flash kernels' device code compiled once
+more with the softcap (``csrc/flash_attention_fwd.cu``,
+``csrc/flash_attention_bwd.cu``: its own entry points and kernel names); it
+reads GQA k/v in place and skips the tiles past the causal diagonal, with
+the kernels' own 64-row tiles.
+
+Layout as in the rest of ``ops/``: q ``[B, S, H, D]``, k/v ``[B, S, KV,
+D]``, output ``[B, S, H, D]`` in q's dtype.  As upstream, the kernel
+applies no softmax scale: ``splash_mha`` multiplies q by D^-0.5 in q's
+dtype first.
+
+Dispatch contract (``splash_mha``): the attention output, or **None** after
+one RuntimeWarning per process when the shape does not tile for splash
+(head dim or sequence not a multiple of 128, heads not a multiple of kv
+heads); the caller then falls back to ``mha``.  A CUDA tensor whose kernel
+does not build or launch, or a shape the kernel has no instantiation for
+(head dim 384, say), raises: nothing gives way to the plain version.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Optional, Tuple
+
+import torch
+
+from . import flash_attention as fa
+
+__all__ = ["splash_mha", "splash_supported", "DEFAULT_BLOCK"]
+
+#: Forward/backward tile edge of the plain versions when the sequence
+#: allows it; shrunk to the largest multiple of 128 that divides it.
+DEFAULT_BLOCK = 512
+#: Head dims B4 is instantiated for (splash takes multiples of 128).
+KERNEL_HEAD_DIMS = (128, 256)
+
+_warned = False
+
+
+def _warn_once(reason: str) -> None:
+    global _warned
+    if not _warned:
+        _warned = True
+        warnings.warn(
+            "splash attention unavailable (%s); falling back to the "
+            "flash/plain attention path" % reason,
+            RuntimeWarning, stacklevel=3)
+
+
+def _pick_block(seq: int, cap: int) -> int:
+    """Largest multiple of 128 that is <= cap and divides seq."""
+    best = 128
+    b = 128
+    while b <= min(cap, seq):
+        if seq % b == 0:
+            best = b
+        b += 128
+    return best
+
+
+def splash_supported(seq_q: int, seq_kv: int, num_heads: int,
+                     num_kv_heads: int, head_dim: int) -> Optional[str]:
+    """None when the shape tiles for the splash kernel, else the reason."""
+    if head_dim % 128 != 0:
+        return f"head_dim={head_dim} not a multiple of 128"
+    if seq_q % 128 != 0 or seq_kv % 128 != 0:
+        return f"seq ({seq_q}, {seq_kv}) not a multiple of 128"
+    if num_kv_heads < 1 or num_heads % num_kv_heads != 0:
+        return f"heads {num_heads} not a multiple of kv heads {num_kv_heads}"
+    return None
+
+
+class _SplashAttention(torch.autograd.Function):
+    """out = splash(qs, k, v) on a pre-scaled q; the backward recomputes P
+    from lse: Δ = rowsum(O∘dO) in f32, then B4's dq and dk/dv."""
+
+    @staticmethod
+    def forward(ctx, qs, k, v, causal, softcap, blocks):
+        out, lse = _splash_fwd(qs, k, v, causal, softcap, *blocks[:2])
+        ctx.save_for_backward(qs, k, v, out, lse)
+        ctx.causal, ctx.softcap, ctx.blocks = causal, softcap, blocks
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qs, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _splash_bwd(qs, k, v, out, lse, dout, ctx.causal,
+                                 ctx.softcap, *ctx.blocks[2:])
+        return dq, dk, dv, None, None, None
+
+
+def splash_attention(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool = True, softcap: float = 0.0,
+                     blocks: Tuple[int, int, int, int] = (512,) * 4
+                     ) -> torch.Tensor:
+    """The splash kernel's function on a pre-scaled ``qs`` [B, S, H, D] and
+    k/v [B, S, KV, D] -> out [B, S, H, D]; differentiable in all three.
+
+    ``blocks`` = (block_q, block_kv, block_q_bwd, block_kv_bwd) tile the
+    plain versions (CPU tensors); the CUDA kernels tile by 64 rows, a size
+    their shared-memory and register budgets fix.  ``launches`` counts B4's
+    forward launches (``splash_attention_bwd_dq.launches`` and
+    ``splash_attention_bwd_dkv.launches`` its backward's).
+    """
+    return _SplashAttention.apply(qs, k, v, causal, float(softcap),
+                                  tuple(blocks))
+
+
+splash_attention.launches = 0
+
+
+def _splash_fwd(qs, k, v, causal: bool, softcap: float, block_q: int,
+                block_kv: int):
+    """-> (out [B, S, H, D], lse [B, H, S] f32)."""
+    if qs.device.type == "cpu":
+        return fa.flash_attention_reference(qs, k, v, causal, block_q,
+                                            block_kv, softcap, 1.0)
+    if qs.device.type != "cuda":
+        raise ValueError(f"splash attention runs on cpu or cuda, not "
+                         f"{qs.device}")
+    out, lse = fa._fwd_launch("splash_attention_fwd_bf16", qs, k, v, causal,
+                              1.0, softcap, head_dims=KERNEL_HEAD_DIMS)
+    splash_attention.launches += 1
+    return out, lse
+
+
+def _splash_bwd(qs, k, v, out, lse, dout, causal: bool, softcap: float,
+                block_q: int, block_kv: int):
+    """-> (dq [B, S, H, D], dk, dv [B, S, KV, D])."""
+    if qs.device.type == "cpu":
+        return fa.flash_attention_bwd_reference(qs, k, v, out, lse, dout,
+                                                causal, block_q, block_kv,
+                                                softcap, 1.0)
+    if qs.device.type != "cuda":
+        raise ValueError(f"splash attention runs on cpu or cuda, not "
+                         f"{qs.device}")
+    delta = fa._delta(out, dout)
+    g = fa._kernel_strides(dout.to(qs.dtype))
+    dq = splash_attention_bwd_dq(qs, k, v, g, lse, delta, causal, softcap)
+    dk, dv = splash_attention_bwd_dkv(qs, k, v, g, lse, delta, causal,
+                                      softcap)
+    return dq, dk, dv
+
+
+def splash_attention_bwd_dq(qs, k, v, dout, lse, delta, causal: bool = True,
+                            softcap: float = 0.0) -> torch.Tensor:
+    """B4's dq on the card from a pre-scaled qs, k, v, dO (bf16), lse and Δ
+    ([B, H, S] f32).  ``launches`` counts its launches."""
+    dq = fa._dq_launch("splash_attention_bwd_dq_bf16", qs, k, v, dout, lse,
+                       delta, causal, 1.0, softcap,
+                       head_dims=KERNEL_HEAD_DIMS)
+    splash_attention_bwd_dq.launches += 1
+    return dq
+
+
+splash_attention_bwd_dq.launches = 0
+
+
+def splash_attention_bwd_dkv(qs, k, v, dout, lse, delta, causal: bool = True,
+                             softcap: float = 0.0
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B4's dk and dv on the card, each summed over the q heads of its GQA
+    group.  ``launches`` counts its launches."""
+    dk, dv = fa._dkv_launch("splash_attention_bwd_dkv_bf16", qs, k, v, dout,
+                            lse, delta, causal, 1.0, softcap,
+                            head_dims=KERNEL_HEAD_DIMS)
+    splash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+splash_attention_bwd_dkv.launches = 0
+
+
+def splash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               causal: bool = True, logit_softcap: float = 0.0,
+               mesh=None, batch_axes: Tuple[str, ...] = ("dp", "fsdp"),
+               manual: bool = False, interpret: Optional[bool] = None,
+               block_q: int = DEFAULT_BLOCK, block_kv: int = DEFAULT_BLOCK,
+               block_q_bwd: Optional[int] = None,
+               block_kv_bwd: Optional[int] = None
+               ) -> Optional[torch.Tensor]:
+    """Splash attention over [B, S, H, D] q and [B, S, KV, D] k/v.
+
+    Returns None (after one RuntimeWarning per process) when the shape does
+    not tile for splash; the caller is expected to fall back to ``mha``.
+    The block sizes tile the plain versions (CPU tensors), forward and
+    backward apart; on the card the kernel's own tiles apply.  ``mesh``
+    must be None (one card; sharding is ROADMAP A5); ``batch_axes``,
+    ``manual`` and ``interpret`` are accepted for the JAX signature and
+    ignored: there is no shard_map and no interpret mode here.
+    """
+    del batch_axes, manual, interpret
+    if mesh is not None:
+        raise NotImplementedError(
+            "splash_mha over a device mesh is not ported to ray_tpu_torch "
+            "yet (ROADMAP: queue A5, DDP / FSDP)")
+    b, seq_q, num_heads, head_dim = q.shape
+    seq_kv, num_kv = k.shape[1], k.shape[2]
+    reason = splash_supported(seq_q, seq_kv, num_heads, num_kv, head_dim)
+    if reason is not None:
+        _warn_once(reason)
+        return None
+    blocks = (_pick_block(seq_q, block_q), _pick_block(seq_kv, block_kv),
+              _pick_block(seq_q, block_q_bwd or block_q),
+              _pick_block(seq_kv, block_kv_bwd or block_kv))
+    # the kernel applies no softmax scale itself; fold 1/sqrt(D) into q
+    qs = q * (head_dim ** -0.5)
+    out = splash_attention(qs, k, v, causal, logit_softcap, blocks)
+    return out.to(q.dtype)

@@ -196,7 +196,8 @@ def make_train_step(cfg: TransformerConfig, mesh, optimizer: Optimizer,
     (default: the card), which must be where the state lives.  The state is
     updated in place and returned.  Metrics: ``loss``, ``moe_aux_loss``,
     ``tokens``, ``grad_norm`` (of the unclipped grads) and ``total_loss``,
-    as 0-d device tensors.
+    as 0-d device tensors.  ``remat``: False/None, True/"full",
+    "save_acts", "save_mlp" or "dots" (``transformer.remat_policy``).
     """
     _single_card(mesh, sp_axis)
     if grad_quant_enabled:
@@ -205,7 +206,7 @@ def make_train_step(cfg: TransformerConfig, mesh, optimizer: Optimizer,
     if zero_sharded_update:
         raise _not_ported("the ZeRO-sharded update",
                           "queue A9, parallel/zero.py")
-    transformer.remat_policy(remat)  # unknown / unported policies raise now
+    transformer.remat_policy(remat)  # an unknown policy raises now
     dev = device_mod.resolve(device)
 
     def step(state: TrainState, batch: Dict[str, Any]):

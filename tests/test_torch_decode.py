@@ -10,6 +10,7 @@ tied embeddings) and Qwen's QKV bias.  Logits and cache rows agree within
 """
 
 import dataclasses
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -247,12 +248,18 @@ def test_gelu_is_the_tanh_approximation():
 
 
 def test_not_ported_options_raise():
+    """MoE still raises.  attention_impl="splash" is ported: on the tiny
+    config (head dim 16) splash declines the shape and the model gives the
+    "auto" config's logits, as the JAX package falls back."""
     tc = tcfg.tiny()
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttr.init_params(gen, tcfg.tiny(experts=4))
     params = ttr.init_params(gen, tc)
     splash = dataclasses.replace(tc, attention_impl="splash")
-    with pytest.raises(NotImplementedError, match="splash"):
-        ttr.apply(params, torch.zeros((1, 8), dtype=torch.int32), splash,
-                  compute_dtype=torch.float32)
+    toks = torch.zeros((1, 8), dtype=torch.int32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)   # the decline
+        got = ttr.apply(params, toks, splash, compute_dtype=torch.float32)[0]
+    want = ttr.apply(params, toks, tc, compute_dtype=torch.float32)[0]
+    assert torch.equal(got, want)

@@ -44,10 +44,10 @@ def test_every_module_imports_with_jax_and_ray_tpu_blocked():
     res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    # models.{config,convert,decode,transformer}, ops.{_build,attention,
-    # flash_attention}, parallel.train_step, serve.llm, device and the four
-    # subpackages
-    assert int(res.stdout.split()[-1]) >= 14, res.stdout
+    # models.{config,convert,decode,remat,transformer}, ops.{_build,
+    # attention,flash_attention,splash_attention}, parallel.train_step,
+    # serve.llm, device and the four subpackages
+    assert int(res.stdout.split()[-1]) >= 16, res.stdout
 
 
 def _import_roots(path: Path):
@@ -118,3 +118,46 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     with pytest.raises(RuntimeError, match="kernel path"):
         fa._flash_fwd(_T(), None, None)
     assert called == {"cuda": True}
+
+
+def test_cuda_tensor_never_takes_the_splash_plain_version(monkeypatch):
+    """Splash's forward and backward dispatch on the tensor's device too: a
+    CUDA tensor reaches B4's launchers, never the plain versions."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import splash_attention as sa
+
+    reached = []
+
+    def launcher(name):
+        def fake(*a, **k):
+            reached.append(name)
+            raise RuntimeError("kernel path")
+        return fake
+
+    def no_plain(*a, **k):
+        raise AssertionError("plain version reached for a CUDA tensor")
+
+    class _FakeCuda:
+        type = "cuda"
+
+    class _T:
+        device = _FakeCuda()
+        dtype = torch.bfloat16
+
+    monkeypatch.setattr(fa, "_fwd_launch", launcher("fwd"))
+    monkeypatch.setattr(fa, "_delta", lambda out, dout: None)
+    monkeypatch.setattr(fa, "_kernel_strides", lambda t: t)
+    monkeypatch.setattr(sa, "splash_attention_bwd_dq", launcher("dq"))
+    monkeypatch.setattr(fa, "flash_attention_reference", no_plain)
+    monkeypatch.setattr(fa, "flash_attention_bwd_reference", no_plain)
+    with pytest.raises(RuntimeError, match="kernel path"):
+        sa._splash_fwd(_T(), None, None, True, 50.0, 512, 512)
+
+    class _G(_T):
+        def to(self, dtype):
+            return self
+
+    with pytest.raises(RuntimeError, match="kernel path"):
+        sa._splash_bwd(_T(), None, None, None, None, _G(), True, 50.0, 512,
+                       512)
+    assert reached == ["fwd", "dq"]

@@ -145,10 +145,84 @@ def test_remat_gives_the_same_grads():
 
 @pytest.mark.parametrize("policy", ["save_acts", "save_mlp", "dots"])
 def test_remat_save_policies_are_not_ported(policy):
-    with pytest.raises(NotImplementedError, match="remat save policies"):
-        ttr.remat_policy(policy)
+    """The save policies, once refused, now run: loss and grads within 1e-4
+    of JAX's under the same policy, and bit for bit the port's own
+    remat=False (every policy runs the same steps with the same backward
+    arithmetic; only what is kept differs).  An unknown name still
+    raises."""
+    jc, tc = _cfgs(FLAGS["tiny"])
+    params_np = _params_np(jc)
+    batch = _batch(jc.vocab_size)
+    jl, _, jg = _jax_loss_and_grads(jc, params_np, batch, remat=policy)
+    tl, _, tg = _torch_loss_and_grads(tc, params_np, batch, remat=policy)
+    l0, _, g0 = _torch_loss_and_grads(tc, params_np, batch, remat=False)
+    assert tl == pytest.approx(jl, rel=1e-5)
+    _assert_grads_close(jg, tg)
+    assert tl == l0
+    assert all(torch.equal(a, b) for a, b in zip(tg, g0))
     with pytest.raises(ValueError, match="unknown remat"):
         ttr.remat_policy("bogus")
+
+
+# What each layer's backward runs again, per policy and attention: the
+# JAX policy's saved set decides it.  Flash's residuals are named
+# (attn_q/k/v/out/lse), so "save_acts" keeps them and never replays flash;
+# splash's are not, so its forward runs again.
+_ALL = {"attn_norm", "wq", "wk", "wv", "qkv", "attention", "wo",
+        "attn_residual", "mlp_norm", "w_gate", "w_in", "mlp_act"}
+_REPLAYED = {
+    ("full", "splash"): _ALL,
+    ("full", "flash"): _ALL,
+    ("save_acts", "splash"): {"attn_norm", "attention", "wo",
+                              "attn_residual", "mlp_norm", "mlp_act"},
+    ("save_acts", "flash"): {"attn_norm", "wo", "attn_residual", "mlp_norm",
+                             "mlp_act"},
+    ("save_mlp", "splash"): _ALL - {"w_gate", "w_in"},
+    ("dots", "splash"): {"attn_norm", "qkv", "attention", "attn_residual",
+                         "mlp_norm", "mlp_act"},
+    (False, "splash"): set(),
+}
+_KEPT = {
+    ("full", "splash"): set(),
+    ("full", "flash"): set(),
+    ("save_acts", "splash"): {"attn_q", "attn_k", "attn_v", "attn_out",
+                              "mlp_gate", "mlp_up"},
+    ("save_acts", "flash"): {"attn_out", "mlp_gate", "mlp_up"},
+    ("save_mlp", "splash"): {"mlp_gate", "mlp_up"},
+    ("dots", "splash"): {"q_dot", "k_dot", "v_dot", "attn_proj", "mlp_gate",
+                         "mlp_up"},
+    # the products' inputs; the norms', attention's and the activation's
+    # kept graphs hold the rest
+    (False, "splash"): {"attn_in", "attn_out", "mlp_in", "mlp_hidden"},
+}
+
+
+@pytest.mark.parametrize("policy,impl", list(_REPLAYED),
+                         ids=[f"{p}-{i}" for p, i in _REPLAYED])
+def test_remat_policy_keeps_and_replays_what_jax_saves(policy, impl):
+    """Per policy: the values each layer keeps for its backward (flash's
+    graph holds q, k, v, out and lse under "save_acts"), and the steps the
+    backward runs again, counted per layer; no product is replayed under
+    "save_acts" but the output projection (its output is not named), none
+    at all under "dots"."""
+    from ray_tpu_torch.models import remat as rm
+    _, tc = _cfgs({"attention_impl": impl}, hidden=256, heads=2, seq=128)
+    tc = dataclasses.replace(tc, num_kv_heads=1)
+    params = ttr.init_params(torch.Generator().manual_seed(0), tc)
+    lp = ttr.unbind_layers(params["blocks"], tc.num_layers)[0]
+    steps = ttr._layer_steps(lp, tc, torch.arange(128), (1, 128), False)
+    plan = rm._Plan(steps, ("x", *ttr._flat(lp)), "y",
+                    ttr.remat_policy(policy)[1])
+    assert set(plan.kept) == _KEPT[policy, impl]
+    for leaf in tts._leaves(params):
+        leaf.requires_grad_(True)
+    rm.replays.clear()
+    total, _ = ttr.causal_lm_loss(
+        params, {"tokens": torch.randint(0, tc.vocab_size, (1, 129))}, tc,
+        compute_dtype=torch.float32, remat=policy)
+    assert not rm.replays      # the forward replays nothing
+    torch.autograd.grad(total, tts._leaves(params))
+    assert rm.replays == {n: tc.num_layers for n in _REPLAYED[policy, impl]}
 
 
 def test_flash_model_loss_and_grads_match_jax_interpret():
@@ -165,6 +239,28 @@ def test_flash_model_loss_and_grads_match_jax_interpret():
     assert tflash.flash_attention.launches == calls   # CPU: no kernel
     assert tl == pytest.approx(jl, rel=1e-5)
     _assert_grads_close(jg, tg)
+
+
+def test_remat_backward_frees_each_layers_recompute():
+    """What a layer's backward recomputes is freed when that backward
+    returns, not when the garbage collector next runs: with the collector
+    off, no recompute state outlives the backward."""
+    import gc
+    from ray_tpu_torch.models import remat as rm
+    jc, tc = _cfgs({})
+    params = _torch_params(_params_np(jc))
+    total, _ = ttr.causal_lm_loss(
+        params, {k: torch.from_numpy(v) for k, v in
+                 _batch(tc.vocab_size).items()}, tc,
+        compute_dtype=torch.float32, remat="full")
+    gc.collect()
+    gc.disable()
+    try:
+        torch.autograd.grad(total, tts._leaves(params))
+        left = [o for o in gc.get_objects() if isinstance(o, rm._Recompute)]
+    finally:
+        gc.enable()
+    assert not left
 
 
 def _jax_opt_state(state):
@@ -217,10 +313,14 @@ def test_train_step_refuses_what_is_not_ported():
     opt = tts.make_optimizer()
     for kw, match in ((dict(sp_axis="sp"), "ring attention"),
                       (dict(grad_quant_enabled=True), "A9"),
-                      (dict(zero_sharded_update=True), "A9"),
-                      (dict(remat="save_mlp"), "remat save policies")):
+                      (dict(zero_sharded_update=True), "A9")):
         with pytest.raises(NotImplementedError, match=match):
             tts.make_train_step(tc, None, opt, None, device="cpu", **kw)
+    # the remat save policies are ported now; an unknown one raises
+    for remat in ("save_acts", "save_mlp", "dots"):
+        tts.make_train_step(tc, None, opt, None, device="cpu", remat=remat)
+    with pytest.raises(ValueError, match="unknown remat"):
+        tts.make_train_step(tc, None, opt, None, device="cpu", remat="x")
     with pytest.raises(NotImplementedError, match="mesh"):
         tts.init_sharded_state(tc, object(), opt, device="cpu")
 
