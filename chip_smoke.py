@@ -12,10 +12,11 @@ script exits non-zero:
 3. Kernel B1 (flash forward) against its plain PyTorch version on the card,
    at the shapes the serving path gives it (Llama-3-8B prefill: B=8,
    S=2048 and S=1024, H=32, KV=8, D=128, causal), plus D=64 non-causal,
-   D=256 and a ragged S.  Times of the kernel, the plain version and one
-   library call (``scaled_dot_product_attention``, a yardstick the port
-   never calls) with CUDA events, beside the least time the card could take
-   (bound).
+   D=256, a ragged S (1000, and 1088: 64 rows past a 128-row tile) and q,
+   k, v as head slices of one fused tensor (strided views).  Times of the
+   kernel, the plain version and one library call
+   (``scaled_dot_product_attention``, a yardstick the port never calls)
+   with CUDA events, beside the least time the card could take (bound).
 4. Kernels B2 (dq) and B3 (dk/dv) against their plain versions on the same
    residuals, at the training path's shape (llama_1b: B=8, S=2048, H=16,
    KV=8, D=128, causal) and the serving shape (B=8, S=1024, H=32, KV=8),
@@ -38,8 +39,10 @@ script exits non-zero:
    seed 0.  Launch counts are zeroed just before and read just after: B1
    twice per layer and step (forward and remat replay), B2 and B3 once.
    Loss finite and falling; one step's loss and gradients through the
-   kernels against the same step through the kernels' plain versions; the
-   chunked LM-head loss timed alone; one step profiled (torch.profiler).
+   kernels against the same step through the kernels' plain versions; that
+   loss gap read again on four batches, against the plain version on 512-,
+   128- and 64-column tiles (a reading, no limit); the chunked LM-head loss
+   timed alone; one step profiled (torch.profiler).
 7. Kernel B4 (splash: B1-B3's code with the logit softcap, on a q scaled
    by D^-0.5 beforehand) forward, dq and dk/dv against their plain
    versions at the training shape with softcap 0 and 50 (Gemma-2's cap),
@@ -93,7 +96,10 @@ GRAD_RTOL = 2e-2
 # loss within this absolute difference, every gradient leaf within this
 # relative L2 difference (bf16 rounding of P / dS at other tile boundaries
 # reaches every layer's gradient through the residual stream; the loss, a
-# mean over 16k tokens, differed by 1.2e-5 on an H100)
+# mean over 16k tokens, differed by 1.2e-5 on an H100 with the first-slice
+# forward and by 1.888e-4 with the wgmma forward; loss_gaps reads up to
+# 2.3e-4 on other batches, and as much between plain versions that round P
+# at other tile widths)
 STEP_LOSS_ATOL = 2e-4
 STEP_GRAD_REL_L2 = 5e-2
 # the same comparison on the splash path: B4 and its plain versions on a q
@@ -108,6 +114,16 @@ SPLASH_STEP_LOSS_ATOL = 1e-3
 # share of the logits' std: the rms and the largest of 2 x 128256 differences
 LOGITS_RMS = 0.05
 LOGITS_MAX = 0.25
+
+# the forward kernel's design (flash_attention_fwd.cu: wgmma products on
+# TMA-loaded tiles, a producer warpgroup and mbarriers)
+FWD_DESIGN = "wgmma+tma"
+# the flash step comparison's loss gap read again on more batches (numpy
+# seeds; 0 is the training batch) with the loss alone, against the plain
+# version at its default tile width (512) and at these: 128, the kernel's
+# K/V tile, and 64, the first-slice kernel's
+GAP_SEEDS = (0, 1, 2, 3)
+GAP_BLOCKS = (512, 128, 64)
 
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048
 TRAIN_STEPS, TRAIN_UNTIMED = 8, 2
@@ -186,23 +202,31 @@ def check_flash(dev):
     import torch
     from ray_tpu_torch.ops import flash_attention as fa
 
-    cases = [  # (B, S, H, KV, D, causal, timed)
-        (8, 2048, 32, 8, 128, True, True),    # bucket-2048 prefill batch
-        (8, 1024, 32, 8, 128, True, True),    # bucket-1024 prefill batch
-        (8, 2048, 16, 8, 128, True, True),    # llama_1b training batch
-        (2, 1024, 16, 4, 64, False, False),
-        (2, 1000, 32, 8, 128, True, False),   # ragged edge
-        (1, 1024, 8, 2, 256, True, False),
+    cases = [  # (B, S, H, KV, D, causal, timed, strided)
+        (8, 2048, 32, 8, 128, True, True, False),   # bucket-2048 prefill
+        (8, 1024, 32, 8, 128, True, True, False),   # bucket-1024 prefill
+        (8, 2048, 16, 8, 128, True, True, False),   # llama_1b training batch
+        (2, 1024, 16, 4, 64, False, False, False),
+        (2, 1000, 32, 8, 128, True, False, False),  # ragged edge
+        (2, 1088, 32, 8, 128, True, False, False),  # 64 past a 128-row tile
+        (1, 1024, 8, 2, 256, True, False, False),
+        # q, k, v as head slices of one fused [B, S, H + 2 KV, D] tensor
+        (2, 1088, 32, 8, 128, True, False, True),
     ]
     gen = torch.Generator(device=dev).manual_seed(0)
     results = []
-    for b, s, h, kv, d, causal, timed in cases:
-        q = torch.randn((b, s, h, d), generator=gen, device=dev,
-                        dtype=torch.bfloat16)
-        k = torch.randn((b, s, kv, d), generator=gen, device=dev,
-                        dtype=torch.bfloat16)
-        v = torch.randn((b, s, kv, d), generator=gen, device=dev,
-                        dtype=torch.bfloat16)
+    for b, s, h, kv, d, causal, timed, strided in cases:
+        if strided:
+            qkv = torch.randn((b, s, h + 2 * kv, d), generator=gen,
+                              device=dev, dtype=torch.bfloat16)
+            q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
+        else:
+            q = torch.randn((b, s, h, d), generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            k = torch.randn((b, s, kv, d), generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            v = torch.randn((b, s, kv, d), generator=gen, device=dev,
+                            dtype=torch.bfloat16)
         out, lse = fa._flash_fwd(q, k, v, causal)
         torch.cuda.synchronize()
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal)
@@ -210,8 +234,9 @@ def check_flash(dev):
         lse_err = (lse - ref_lse).abs().max().item()
         bound, bound_by = attention_bound_ms(b, s, h, kv, d, causal)
         row = {"shape": [b, s, h, kv, d], "causal": causal,
-               "max_abs_err": err, "lse_max_abs_err": lse_err,
-               "bound_ms": bound, "bound_by": bound_by}
+               "strided": strided, "max_abs_err": err,
+               "lse_max_abs_err": lse_err, "bound_ms": bound,
+               "bound_by": bound_by}
         if timed:
             row["ms"] = time_ms(lambda: fa._flash_fwd(q, k, v, causal), 10)
             row["plain_ms"] = time_ms(
@@ -221,8 +246,8 @@ def check_flash(dev):
         if not (err <= OUT_ATOL and lse_err <= LSE_ATOL):
             raise AssertionError(
                 f"flash kernel disagrees with its plain version at "
-                f"{row['shape']} causal={causal}: out {err} (atol {OUT_ATOL})"
-                f", lse {lse_err} (atol {LSE_ATOL})")
+                f"{row['shape']} causal={causal} strided={strided}: out {err}"
+                f" (atol {OUT_ATOL}), lse {lse_err} (atol {LSE_ATOL})")
         results.append(row)
         del q, k, v, out, lse, ref_out, ref_lse
     torch.cuda.empty_cache()
@@ -635,17 +660,18 @@ def where_time_goes(eng, cfg, prompts, dev):
                                    for e in top}}))
 
 
-def plain_attention():
-    """Attention through the kernels' plain versions, forward (B1's) and
-    backward (B2's and B3's), as a differentiable function with ``mha``'s
-    signature."""
+def plain_attention(block: int = 512):
+    """Attention through the kernels' plain versions, forward (B1's, on
+    ``block`` x ``block`` tiles) and backward (B2's and B3's), as a
+    differentiable function with ``mha``'s signature."""
     import torch
     from ray_tpu_torch.ops import flash_attention as fa
 
     class Plain(torch.autograd.Function):
         @staticmethod
         def forward(ctx, q, k, v, causal):
-            out, lse = fa.flash_attention_reference(q, k, v, causal)
+            out, lse = fa.flash_attention_reference(q, k, v, causal,
+                                                    block, block)
             ctx.save_for_backward(q, k, v, out, lse)
             ctx.causal = causal
             return out
@@ -782,6 +808,7 @@ def train_llama(dev, splash: bool = False):
     compare_train_step(state, batch, cfg, dev, remat, plain,
                        SPLASH_STEP_LOSS_ATOL if splash else STEP_LOSS_ATOL)
     if not splash:
+        loss_gaps(state, cfg, dev)
         time_lm_head_loss(state, cfg, dev)
     profile_step(step, state, batch,
                  "train_step_splash" if splash else "train_step")
@@ -877,6 +904,43 @@ def compare_train_step(state, batch, cfg, dev, remat, plain_entry,
     del kern, plain
 
 
+def loss_gaps(state, cfg, dev):
+    """Where the flash step comparison's loss gap comes from: the loss alone
+    (no backward) on the batches of ``GAP_SEEDS``, through B1 and through its
+    plain version on tiles of each width in ``GAP_BLOCKS``.  The plain
+    version rounds P to bf16 per tile, relative to the running max, as the
+    kernel does per 128-column K/V tile.  A reading, not a check: the limit
+    stays ``compare_train_step``'s on the training batch."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.models import transformer
+
+    def loss(tokens):
+        with torch.no_grad():
+            _, metrics = transformer.causal_lm_loss(
+                state.params, {"tokens": tokens}, cfg, remat=False)
+        return metrics["loss"].item()
+
+    rows = []
+    for seed in GAP_SEEDS:
+        tokens = torch.from_numpy(
+            np.random.default_rng(seed).integers(
+                0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))
+            .astype(np.int32)).to(dev)
+        row = {"seed": seed, "kernel": loss(tokens)}
+        for block in GAP_BLOCKS:
+            with patched(transformer, "mha", plain_attention(block)):
+                row[f"plain_{block}"] = loss(tokens)
+        for block in GAP_BLOCKS:
+            row[f"kernel_minus_plain_{block}"] = (row["kernel"]
+                                                  - row[f"plain_{block}"])
+        for block in GAP_BLOCKS[1:]:
+            row[f"plain_{block}_minus_plain_512"] = (row[f"plain_{block}"]
+                                                     - row["plain_512"])
+        rows.append(row)
+    log("step_loss_gaps " + json.dumps(rows))
+
+
 def time_lm_head_loss(state, cfg, dev):
     """The loss layer alone: ``chunked_cross_entropy`` (LM head + cross
     entropy, chunks of 512) forward and backward at the training shape,
@@ -932,8 +996,14 @@ def main() -> int:
         for name, text in _build.build_logs.items():
             for line in text.splitlines():
                 if ("registers" in line or "spill" in line or "error" in line
-                        or "entry function" in line):
+                        or "entry function" in line or "(C75" in line):
                     log(f"  nvcc[{name}] {line.strip()}")
+        # the forward's warp specialisation rests on setmaxnreg, which
+        # ptxas drops with warning C7508 when the roles reconverge
+        fwd_log = _build.build_logs.get("flash_attention_fwd", "")
+        if "C7508" in fwd_log:
+            raise AssertionError("ptxas ignored setmaxnreg in "
+                                 "flash_attention_fwd.cu (C7508)")
 
     with phase("flash_forward_kernel"):
         flash_rows = check_flash(dev)
@@ -959,6 +1029,7 @@ def main() -> int:
         "route": "cuda",
         "source": "ray_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:42",
+        "design": FWD_DESIGN,
         "launches": serve_launches + train_launches["flash_attention_fwd"],
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_attention_fwd"]},
@@ -1011,6 +1082,7 @@ def main() -> int:
             "source": "ray_tpu_torch/csrc/flash_attention_"
                       + ("fwd.cu" if key == "fwd" else "bwd.cu"),
             "replaces": "ray_tpu/ops/splash_attention.py:87",
+            **({"design": FWD_DESIGN} if key == "fwd" else {}),
             "launches": splash_launches[f"splash_attention_{name}"],
             "max_abs_err": max(r[e] for r in splash_rows for e in errs),
             "ms": plain_row[f"{key}_ms"],

@@ -94,8 +94,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash attention. q: [B, S, H, D], k/v: [B, S, KV, D] -> [B, S, H, D].
 
     Differentiable in q, k and v.  ``block_q``/``block_kv`` are the plain
-    versions' tiles; the CUDA kernels tile by 64 rows, a size their
-    shared-memory and register budgets fix.  ``launches`` counts B1's
+    versions' tiles; the CUDA kernels fix their own (the forward 128 q rows
+    against 128 K/V rows, 64 at D=256; the backward 64 by 64), sizes their
+    shared-memory and register budgets set.  ``launches`` counts B1's
     launches (``flash_attention_bwd_dq.launches`` and
     ``flash_attention_bwd_dkv.launches`` count B2's and B3's).
     """
@@ -128,6 +129,13 @@ def _check_kernel_inputs(q, k, v, head_dims=KERNEL_HEAD_DIMS) -> None:
                 or t.data_ptr() % 16):
             raise ValueError(f"{name} needs a contiguous last dim, strides "
                              f"that are multiples of 8 and 16-byte alignment")
+        # the forward reads through TMA maps, whose byte strides are nonzero
+        # and below 2**40 (a dimension of size 1 is never stepped over)
+        if any(n > 1 and not 0 < 2 * st < 1 << 40
+               for n, st in zip(t.shape[:3], t.stride()[:3])):
+            raise ValueError(f"{name} has a stride the kernel's TMA maps "
+                             f"cannot take (0, a broadcast, or 2**40 bytes "
+                             f"or more): {t.stride()}")
     b, s, h, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "

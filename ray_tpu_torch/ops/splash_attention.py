@@ -104,9 +104,10 @@ def splash_attention(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k/v [B, S, KV, D] -> out [B, S, H, D]; differentiable in all three.
 
     ``blocks`` = (block_q, block_kv, block_q_bwd, block_kv_bwd) tile the
-    plain versions (CPU tensors); the CUDA kernels tile by 64 rows, a size
-    their shared-memory and register budgets fix.  ``launches`` counts B4's
-    forward launches (``splash_attention_bwd_dq.launches`` and
+    plain versions (CPU tensors); the CUDA kernels fix their own tiles
+    (``flash_attention``'s), sizes their shared-memory and register budgets
+    set.  ``launches`` counts B4's forward launches
+    (``splash_attention_bwd_dq.launches`` and
     ``splash_attention_bwd_dkv.launches`` its backward's).
     """
     return _SplashAttention.apply(qs, k, v, causal, float(softcap),

@@ -4,7 +4,8 @@ Inputs are made with numpy from a seed and handed to both packages; the
 comparison is in float32.  The JAX flash kernel runs in Pallas interpret
 mode on the CPU, as tests/test_ops.py runs it; the port's flash wrapper
 runs its plain version there (CPU tensors).  Tolerances: 2e-5 on attention
-outputs (tests/test_ops.py's), 1e-5 on lse.
+outputs (tests/test_ops.py's), 1e-5 on lse, and 2^-8 (a bf16 ulp below 1)
+on outputs from bf16 inputs.
 """
 
 import jax.numpy as jnp
@@ -67,6 +68,27 @@ def test_flash_small_blocks_match_jax_interpret(causal):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
 
 
+@pytest.mark.parametrize("block", [64, 128])
+def test_flash_reference_rounds_p_per_tile_as_jax_bf16(block):
+    """bf16 inputs: the plain version on block x block tiles rounds P to
+    bf16 where the JAX kernel on the same tiles does, so out agrees to a
+    bf16 ulp of its values (< 1) and lse to 1e-5."""
+    q, k, v = (a.astype(jnp.bfloat16) for a in _j(*_qkv(S=256)))
+    want = jflash.flash_attention(q, k, v, causal=True, block_q=block,
+                                  block_kv=block, interpret=True)
+    want_lse = jflash._flash_fwd(*(a.swapaxes(1, 2) for a in (q, k, v)),
+                                 True, block, block, True)[1]
+    tq, tk, tv = (torch.from_numpy(np.array(a.astype(jnp.float32)))
+                  .bfloat16() for a in (q, k, v))
+    got, got_lse = tflash.flash_attention_reference(tq, tk, tv, True, block,
+                                                    block)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=2 ** -8)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
+                               atol=1e-5)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_lse_matches_jax(causal):
     q, k, v = _qkv()
@@ -124,3 +146,17 @@ def test_kernel_input_checks_raise(change, match):
     k = torch.zeros((1, change.get("skv", 32), kv, d), dtype=dt)
     with pytest.raises(ValueError, match=match):
         tflash._check_kernel_inputs(q, k, k.clone())
+
+
+def test_kernel_input_checks_raise_on_strides_tma_cannot_take():
+    """The forward reads q/k/v through TMA maps: a broadcast kv head
+    (stride 0) raises before any launch, while a head slice of a fused
+    [B, S, H + 2 KV, D] tensor (real, non-contiguous strides) passes."""
+    q = torch.zeros((1, 32, 4, 64), dtype=torch.bfloat16)
+    k = torch.zeros((1, 32, 1, 64), dtype=torch.bfloat16).expand(1, 32, 2, 64)
+    with pytest.raises(ValueError, match="stride"):
+        tflash._check_kernel_inputs(q, k, k.contiguous())
+    with pytest.raises(ValueError, match="stride"):
+        tflash._check_kernel_inputs(q, k.contiguous(), k)
+    qkv = torch.zeros((1, 32, 8, 64), dtype=torch.bfloat16)
+    tflash._check_kernel_inputs(qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:])

@@ -39,7 +39,8 @@ def _rel_err(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal,S,D", [(True, 1024, 128), (False, 256, 64),
-                                        (True, 1000, 128), (True, 192, 256)])
+                                        (True, 1000, 128), (True, 192, 256),
+                                        (True, 1088, 128), (False, 200, 128)])
 def test_flash_kernel_matches_plain_on_card(cuda_device, causal, S, D):
     """bf16 on the card: out within 2e-2, lse within 1e-3 of the plain
     version (bf16 rounding of P at other tile boundaries)."""
@@ -49,6 +50,24 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, causal, S, D):
     torch.cuda.synchronize()
     assert tflash.flash_attention.launches == before + 1
     ref_out, ref_lse = tflash.flash_attention_reference(q, k, v, causal)
+    assert (out.float() - ref_out.float()).abs().max().item() < 2e-2
+    assert (lse - ref_lse).abs().max().item() < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_kernel_on_strided_views_matches_plain_on_card(cuda_device, D):
+    """q, k and v as head slices of one fused [B, S, H + 2 KV, D] tensor
+    (non-contiguous, as a fused qkv projection leaves them): the kernel's
+    TMA maps follow the strides, and out and lse match the plain version on
+    the same views."""
+    H, KV = 8, 2
+    qkv = _inputs(cuda_device, 2, 1088, H + 2 * KV, 1, D)[0]
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    assert not q.is_contiguous()
+    out, lse = tflash._flash_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = tflash.flash_attention_reference(q, k, v, True)
     assert (out.float() - ref_out.float()).abs().max().item() < 2e-2
     assert (lse - ref_lse).abs().max().item() < 1e-3
 

@@ -45,6 +45,15 @@ def _fresh_jax_kernels():
     jsa._get_kernel.cache_clear()
 
 
+@pytest.fixture(autouse=True)
+def _no_traced_jax_kernels_left_behind():
+    """Empty the JAX package's splash kernel cache after every test too: a
+    kernel this file built under a trace would otherwise reach the JAX
+    package's own tests run later in the same process."""
+    yield
+    _fresh_jax_kernels()
+
+
 def _jax_out_and_vjp(q, k, v, g, causal, softcap):
     _fresh_jax_kernels()
 

@@ -88,6 +88,28 @@ def test_splash_kernels_match_plain_on_card(cuda_device, causal, S, H, KV,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+def test_splash_forward_on_strided_views_matches_plain_on_card(cuda_device,
+                                                                softcap):
+    """q, k and v as head slices of one fused [B, S, H + 2 KV, D] tensor:
+    B4's forward follows the strides through its TMA maps, and out and lse
+    match the plain version on the same views."""
+    H, KV, D = 8, 2, 128
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    qkv = torch.randn((2, 1024, H + 2 * KV, D), generator=g,
+                      device=cuda_device, dtype=torch.bfloat16)
+    qkv[:, :, :H] *= D ** -0.5   # splash_mha scales q beforehand
+    qs, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    assert not (qs.is_contiguous() or k.is_contiguous())
+    out, lse = tsplash._splash_fwd(qs, k, v, True, softcap, 128, 128)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = tflash.flash_attention_reference(
+        qs, k, v, True, 128, 128, softcap, 1.0)
+    assert (out.float() - ref_out.float()).abs().max().item() < OUT_ATOL
+    assert (lse - ref_lse).abs().max().item() < LSE_ATOL
+
+
+@pytest.mark.cuda
 def test_requires_grad_through_splash_mha_gives_kernel_gradients(cuda_device):
     """A card tensor that requires grad goes through B4 forward and
     backward (and not B1-B3), and its gradients match the plain versions'
