@@ -8,7 +8,8 @@ script exits non-zero:
 
 1. The card's name and power limit (``nvidia-smi``); TF32 off for float32
    matmuls and convolutions, so the plain versions compute in full f32.
-2. Build every CUDA source of the port with nvcc (all at once), timed.
+2. Build every CUDA source of the port with nvcc (all at once), timed;
+   fail if ptxas dropped a `setmaxnreg` (warning C7508) in any of them.
 3. Kernel B1 (flash forward) against its plain PyTorch version on the card,
    at the shapes the serving path gives it (Llama-3-8B prefill: B=8,
    S=2048 and S=1024, H=32, KV=8, D=128, causal), plus D=64 non-causal,
@@ -20,8 +21,10 @@ script exits non-zero:
 4. Kernels B2 (dq) and B3 (dk/dv) against their plain versions on the same
    residuals, at the training path's shape (llama_1b: B=8, S=2048, H=16,
    KV=8, D=128, causal) and the serving shape (B=8, S=1024, H=32, KV=8),
-   plus D=64 non-causal with KV=H, D=256 and a ragged S; each run twice and
-   required to give the same bits.  Times beside the bounds, the plain
+   plus D=64 non-causal with KV=H, D=256, a ragged S (1000, and 1088: 64
+   rows past a 128-row kv tile) and strided views (q, k, v as head slices
+   of one fused tensor, dO a transposed view); each run twice and required
+   to give the same bits.  Times beside the bounds, the plain
    versions' and the backward of ``scaled_dot_product_attention`` (one
    library call for B2 + B3 together).
 5. The serving path at full width: ``LLMEngine`` on Llama-3-8B (32 layers,
@@ -95,12 +98,15 @@ GRAD_RTOL = 2e-2
 # through the kernels against attention through their plain versions: the
 # loss within this absolute difference, every gradient leaf within this
 # relative L2 difference (bf16 rounding of P / dS at other tile boundaries
-# reaches every layer's gradient through the residual stream; the loss, a
-# mean over 16k tokens, differed by 1.2e-5 on an H100 with the first-slice
-# forward and by 1.888e-4 with the wgmma forward; loss_gaps reads up to
-# 2.3e-4 on other batches, and as much between plain versions that round P
-# at other tile widths)
-STEP_LOSS_ATOL = 2e-4
+# reaches every layer's gradient through the residual stream).  The loss, a
+# mean over 16k tokens after 8 steps through the kernels, is a forward
+# quantity on a shared state: on an H100 it differed by 1.888e-4 with the
+# wgmma forward, by 1.29e-4 to 2.34e-4 on four batches (loss_gaps), and the
+# plain version against itself, rounding P at other tile widths, by up to
+# 2.22e-4, so the loss limit is the splash path's, above that noise; a
+# wrong kernel moves the loss by orders of magnitude more.  The gradients'
+# limit and the kernels' own GRAD_RTOL hold the backward.
+STEP_LOSS_ATOL = 1e-3
 STEP_GRAD_REL_L2 = 5e-2
 # the same comparison on the splash path: B4 and its plain versions on a q
 # rounded to bf16 after scaling read |dloss| 2.30e-4 at the first step and
@@ -115,9 +121,10 @@ SPLASH_STEP_LOSS_ATOL = 1e-3
 LOGITS_RMS = 0.05
 LOGITS_MAX = 0.25
 
-# the forward kernel's design (flash_attention_fwd.cu: wgmma products on
-# TMA-loaded tiles, a producer warpgroup and mbarriers)
-FWD_DESIGN = "wgmma+tma"
+# the design of the forward and dk/dv kernels (flash_attention_fwd.cu,
+# flash_attention_bwd_dkv.cu: wgmma products on TMA-loaded tiles, a
+# producer warpgroup and mbarriers)
+HOPPER_DESIGN = "wgmma+tma"
 # the flash step comparison's loss gap read again on more batches (numpy
 # seeds; 0 is the training batch) with the loss alone, against the plain
 # version at its default tile width (512) and at these: 128, the kernel's
@@ -293,20 +300,31 @@ def check_flash_bwd(dev):
     import torch
     from ray_tpu_torch.ops import flash_attention as fa
 
-    cases = [  # (B, S, H, KV, D, causal, timed)
-        (8, 2048, 16, 8, 128, True, True),    # llama_1b training batch
-        (8, 1024, 32, 8, 128, True, True),    # serving shape, reps 4
-        (2, 1024, 16, 16, 64, False, False),
-        (1, 1024, 8, 2, 256, True, False),
-        (2, 1000, 32, 8, 128, True, False),   # ragged edge
+    cases = [  # (B, S, H, KV, D, causal, timed, strided)
+        (8, 2048, 16, 8, 128, True, True, False),    # llama_1b training batch
+        (8, 1024, 32, 8, 128, True, True, False),    # serving shape, reps 4
+        (2, 1024, 16, 16, 64, False, False, False),
+        (1, 1024, 8, 2, 256, True, False, False),
+        (2, 1000, 32, 8, 128, True, False, False),   # ragged edge
+        (2, 1088, 32, 8, 128, True, False, False),   # 64 past a kv tile
+        # q, k, v as head slices of one fused [B, S, H + 2 KV, D] tensor,
+        # dO a transposed view of a [B, H, S, D] tensor
+        (2, 1088, 32, 8, 128, True, False, True),
     ]
     gen = torch.Generator(device=dev).manual_seed(1)
     results = []
-    for b, s, h, kv, d, causal, timed in cases:
-        q, k, v, dout = (torch.randn(shape, generator=gen, device=dev,
-                                     dtype=torch.bfloat16)
-                         for shape in ((b, s, h, d), (b, s, kv, d),
-                                       (b, s, kv, d), (b, s, h, d)))
+    for b, s, h, kv, d, causal, timed, strided in cases:
+        if strided:
+            qkv = torch.randn((b, s, h + 2 * kv, d), generator=gen,
+                              device=dev, dtype=torch.bfloat16)
+            q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
+            dout = torch.randn((b, h, s, d), generator=gen, device=dev,
+                               dtype=torch.bfloat16).transpose(1, 2)
+        else:
+            q, k, v, dout = (torch.randn(shape, generator=gen, device=dev,
+                                         dtype=torch.bfloat16)
+                             for shape in ((b, s, h, d), (b, s, kv, d),
+                                           (b, s, kv, d), (b, s, h, d)))
         out, lse = fa._flash_fwd(q, k, v, causal)
         delta = fa._delta(out, dout)
 
@@ -325,7 +343,7 @@ def check_flash_bwd(dev):
                                                 causal)
         bounds = attention_bwd_bounds_ms(b, s, h, kv, d, causal)
         row = {"shape": [b, s, h, kv, d], "causal": causal,
-               "bitwise_repeatable": same_bits}
+               "strided": strided, "bitwise_repeatable": same_bits}
         for name, a, w in zip(("dq", "dk", "dv"), got, want):
             diff = (a.float() - w.float()).abs().max().item()
             row[f"{name}_max_abs_err"] = diff
@@ -350,7 +368,8 @@ def check_flash_bwd(dev):
                if not (row[f"{n}_finite"] and row[f"{n}_rel_err"] <= GRAD_RTOL)]
         if bad or not same_bits:
             raise AssertionError(
-                f"backward kernels at {row['shape']} causal={causal}: "
+                f"backward kernels at {row['shape']} causal={causal} "
+                f"strided={strided}: "
                 f"{bad} exceed {GRAD_RTOL} of the plain version's largest "
                 f"magnitude (or are not finite); bitwise repeatable: "
                 f"{same_bits}")
@@ -998,12 +1017,14 @@ def main() -> int:
                 if ("registers" in line or "spill" in line or "error" in line
                         or "entry function" in line or "(C75" in line):
                     log(f"  nvcc[{name}] {line.strip()}")
-        # the forward's warp specialisation rests on setmaxnreg, which
-        # ptxas drops with warning C7508 when the roles reconverge
-        fwd_log = _build.build_logs.get("flash_attention_fwd", "")
-        if "C7508" in fwd_log:
-            raise AssertionError("ptxas ignored setmaxnreg in "
-                                 "flash_attention_fwd.cu (C7508)")
+        # the forward's and dk/dv's warp specialisation rests on
+        # setmaxnreg, which ptxas drops with warning C7508 when the roles
+        # reconverge
+        dropped = [name for name, text in _build.build_logs.items()
+                   if "C7508" in text]
+        if dropped:
+            raise AssertionError(f"ptxas ignored setmaxnreg in {dropped} "
+                                 f"(C7508)")
 
     with phase("flash_forward_kernel"):
         flash_rows = check_flash(dev)
@@ -1029,7 +1050,7 @@ def main() -> int:
         "route": "cuda",
         "source": "ray_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:42",
-        "design": FWD_DESIGN,
+        "design": HOPPER_DESIGN,
         "launches": serve_launches + train_launches["flash_attention_fwd"],
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_attention_fwd"]},
@@ -1055,8 +1076,9 @@ def main() -> int:
     }, {
         "name": "flash_attention_bwd_dkv",
         "route": "cuda",
-        "source": "ray_tpu_torch/csrc/flash_attention_bwd.cu",
+        "source": "ray_tpu_torch/csrc/flash_attention_bwd_dkv.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:248",
+        "design": HOPPER_DESIGN,
         "launches": train_launches["flash_attention_bwd_dkv"],
         "max_abs_err": max(max(r["dk_max_abs_err"], r["dv_max_abs_err"])
                            for r in bwd_rows),
@@ -1071,18 +1093,18 @@ def main() -> int:
     # the capped kernel's numbers beside them, where no library call
     # computes the same function
     plain_row, cap_row = splash_rows[0], splash_rows[1]
-    for name, key, errs in (("fwd", "fwd", ("max_abs_err",)),
-                            ("bwd_dq", "dq", ("dq_max_abs_err",)),
-                            ("bwd_dkv", "dkv", ("dk_max_abs_err",
-                                                "dv_max_abs_err"))):
+    for name, key, errs, source in (
+            ("fwd", "fwd", ("max_abs_err",), "fwd"),
+            ("bwd_dq", "dq", ("dq_max_abs_err",), "bwd"),
+            ("bwd_dkv", "dkv", ("dk_max_abs_err", "dv_max_abs_err"),
+             "bwd_dkv")):
         library = "sdpa_fwd_ms" if key == "fwd" else "sdpa_bwd_ms"
         kernels.append({
             "name": f"splash_attention_{name}",
             "route": "cuda",
-            "source": "ray_tpu_torch/csrc/flash_attention_"
-                      + ("fwd.cu" if key == "fwd" else "bwd.cu"),
+            "source": f"ray_tpu_torch/csrc/flash_attention_{source}.cu",
             "replaces": "ray_tpu/ops/splash_attention.py:87",
-            **({"design": FWD_DESIGN} if key == "fwd" else {}),
+            **({"design": HOPPER_DESIGN} if key != "dq" else {}),
             "launches": splash_launches[f"splash_attention_{name}"],
             "max_abs_err": max(r[e] for r in splash_rows for e in errs),
             "ms": plain_row[f"{key}_ms"],

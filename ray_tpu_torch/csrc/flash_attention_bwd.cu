@@ -1,77 +1,59 @@
-// Flash-attention backward for Hopper (sm_90a): dq (B2) and dk/dv (B3), and
-// the backward of the splash kernel B4 (dq and dk/dv with the logit softcap);
-// bf16 in, bf16 out, f32 accumulation.
+// Flash-attention backward, dq, for Hopper (sm_90a): kernel B2 and the dq of
+// the splash kernel B4; bf16 in, bf16 out, f32 accumulation.  (dk and dv,
+// kernel B3 and B4's dk/dv, are flash_attention_bwd_dkv.cu.)
 //
-// Replaces the Pallas TPU kernels `_bwd_dq_kernel` and `_bwd_dkv_kernel`
-// driven by `_flash_bwd_pallas` in ray_tpu/ops/flash_attention.py.  They
-// compute the same function from the forward's residuals: with scores
+// B2 replaces the Pallas TPU kernel `_bwd_dq_kernel` driven by
+// `_flash_bwd_pallas` in ray_tpu/ops/flash_attention.py.  It computes the
+// same function from the forward's residuals: with scores
 // S = Q K^T * D^-0.5 (causal positions masked with -1e30, not -inf),
 // P = exp(S - lse) recomputed from the forward's log-sum-exp, dP = dO V^T,
 // Delta = rowsum(dO * O) (computed by the caller in f32) and
-// dS = P * (dP - Delta) * D^-0.5:
-//   B2: dq = dS K;
-//   B3: dv = P^T dO and dk = dS^T Q, summed over the q tiles and over the
-//       `reps` q heads of a GQA group that share one kv head.
-// P (before P^T dO) and dS (before dS K and dS^T Q) are cast to bf16, as the
-// TPU kernels cast them to the input dtype; every sum is f32.
+// dS = P * (dP - Delta) * D^-0.5: dq = dS K.  dS is cast to bf16 before
+// dS K, as the TPU kernel casts it to the input dtype; every sum is f32.
 //
 // What bounds it on the card: at the training path's shape (S = 2048,
-// D = 128) B2 does 6 and B3 8 operations per (q, k) pair and head against
-// a few bytes per row, i.e. hundreds of operations per byte: both kernels
-// are bound by tensor-core operations.  What the design does about it:
+// D = 128) it does 6 operations per (q, k) pair and head dim against a few
+// bytes per row, i.e. hundreds of operations per byte: it is bound by
+// tensor-core operations.  What the design does about it:
 // * scores, probabilities and dS never leave the chip: one 64 x 64 tile
 //   lives in registers at a time, as mma.sync C fragments that are re-packed
 //   in registers as the A operand of the next product (no shared-memory
 //   round trip);
 // * every product runs on the tensor cores (mma.sync m16n8k16); the
-//   transposed operands (K for dS K, dO for P^T dO, Q for dS^T Q) come from
-//   ldmatrix.trans on the row-major tiles, so no transposed copy exists in
-//   device memory;
-// * the streamed tiles (K/V in B2, Q/dO in B3) are double-buffered with
-//   cp.async, so the next tile loads during the current tile's products;
-// * tiles past the causal diagonal are skipped: B2 stops its K/V loop at
-//   the diagonal (per block, and per warp within the diagonal tile) and
-//   starts the longest rows first; B3 starts its q loop at the diagonal and
-//   starts the kv tiles with the most q tiles first.
-// There are no atomics: B3 owns its dk/dv rows and loops over the group's
-// q heads inside the block, so the result is the same bits on every run.
+//   transposed operand (K for dS K) comes from ldmatrix.trans on the
+//   row-major tile, so no transposed copy exists in device memory;
+// * the streamed K/V tiles are double-buffered with cp.async, so the next
+//   tile loads during the current tile's products;
+// * tiles past the causal diagonal are skipped: the K/V loop stops at the
+//   diagonal (per block, and per warp within the diagonal tile) and the
+//   longest rows start first.
 // It does not use `wgmma` or TMA yet, so it stays below the card's peak.
 //
-// B4's backward replaces `_flash_attention_dq_kernel` and
-// `_flash_attention_dkv_kernel` of jax's splash_attention_kernel.py, which
-// ray_tpu/ops/splash_attention.py builds.  It is the same device code,
-// compiled once more with the logit softcap on (`kCap`): the score is
-// recomputed uncapped, t = tanh(s / c) (as s * (1 / c), `tanhf`), P =
-// exp(c * t - lse) from the capped score, and dS gains the factor 1 - t^2
-// (d(c tanh(s / c)) / ds), i.e. dS = P * (dP - Delta) * (1 - t^2) * scale.
-// t is a per-element temporary, so no array stays live for it.  The splash
-// wrapper passes scale 1 (its q arrives scaled).  The softcap-free
-// instantiations are B2's and B3's code under their own kernel names.
+// B4's dq replaces `_flash_attention_dq_kernel` of jax's
+// splash_attention_kernel.py, which ray_tpu/ops/splash_attention.py builds.
+// It is the same device code, compiled once more with the logit softcap on
+// (`kCap`): the score is recomputed uncapped, t = tanh(s / c) (as
+// s * (1 / c), `tanhf`), P = exp(c * t - lse) from the capped score, and dS
+// gains the factor 1 - t^2 (d(c tanh(s / c)) / ds), i.e.
+// dS = P * (dP - Delta) * (1 - t^2) * scale.  t is a per-element temporary,
+// so no array stays live for it.  The splash wrapper passes scale 1 (its q
+// arrives scaled).  The softcap-free instantiations are B2's code under its
+// own kernel name.
 //
-// Registers: each warp owns 16 rows; its accumulators are 16 x D f32, i.e.
-// D / 2 registers per thread for each of dq (B2), dk and dv (B3).  B3 at
-// D = 256 would need 256 accumulator registers per thread, above the 255 a
-// thread may have, so at D = 256 each B3 block writes one half of the head
-// dimension (DN = 128 columns of dk and dv) and the grid has two blocks per
-// kv tile, each recomputing S^T and dP^T over all 256 columns.  (Shared
-// memory cannot take the accumulators instead: the six tiles at D = 256
-// already use 198 of the 227 KB.)
+// Registers: each warp owns 16 rows; its accumulator is 16 x D f32, i.e.
+// D / 2 registers per thread.
 //
-// Layout: q, dO, dq [B, S, H, D] and k, v, dk, dv [B, S, KV, D] through
-// element strides (innermost dimension contiguous, every other stride a
-// multiple of 8, base pointers 16-byte aligned); lse and Delta are
-// contiguous [B, H, S] f32.  Rows past S (the ragged edge) load as zeros,
-// get P = 0 explicitly (their lse and Delta are not defined) and are not
-// written.
+// Layout: q, dO, dq [B, S, H, D] and k, v [B, S, KV, D] through element
+// strides (innermost dimension contiguous, every other stride a multiple of
+// 8, base pointers 16-byte aligned); lse and Delta are contiguous [B, H, S]
+// f32.  Rows past S (the ragged edge) load as zeros, get P = 0 explicitly
+// (their lse and Delta are not defined) and are not written.
 
 #include "flash_common.cuh"
 
 namespace {
 
 using namespace flash;
-
-static_assert(kThreads == 2 * kTileRows,
-              "B3 loads a tile's lse and Delta with one thread per value");
 
 struct Params {
   const __nv_bfloat16* q;
@@ -81,8 +63,6 @@ struct Params {
   const float* lse;
   const float* delta;
   __nv_bfloat16* dq;
-  __nv_bfloat16* dk;
-  __nv_bfloat16* dv;
   int seq, heads, kv_heads, causal;
   float scale;
   float softcap, inv_softcap;  // read only by the kCap instantiations
@@ -91,17 +71,13 @@ struct Params {
   long long v_sb, v_ss, v_sh;
   long long g_sb, g_ss, g_sh;
   long long dq_sb, dq_ss, dq_sh;
-  long long dk_sb, dk_ss, dk_sh;
-  long long dv_sb, dv_ss, dv_sh;
 };
 
-// Both kernels hold six tiles (two resident, two streamed and
-// double-buffered); B3 adds the streamed tiles' lse and Delta.
+// Six tiles: two resident, two streamed and double-buffered.
 template <int D>
 struct Smem {
   static constexpr size_t kTiles = 6 * Tile<D>::kBytes;
-  static constexpr size_t kStats = 2 * 2 * kTileRows * sizeof(float);
-  static_assert(kTiles + kStats <= 232448, "above the 227 KB a block may use");
+  static_assert(kTiles <= 232448, "above the 227 KB a block may use");
 };
 
 // ---------------------------------------------------------------------------
@@ -250,177 +226,7 @@ __device__ __forceinline__ void dq_body(Params p) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// B3: dk and dv.  One block per (kv tile of 64 rows, kv head, batch, column
-// half at D = 256); K and V stay in shared memory, (q head, q tile) pairs
-// stream through: the group's reps q heads, each over the q tiles from the
-// causal diagonal on.  The block writes columns [dc, dc + DN) of dk and dv.
-// ---------------------------------------------------------------------------
-template <int D, int DN, bool kCap>
-__device__ __forceinline__ void dkv_body(Params p) {
-  constexpr int kT = Tile<D>::kElems;
-  constexpr int kSplits = D / DN;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = sK + kT;
-  __nv_bfloat16* sQ = sV + kT;      // two buffers
-  __nv_bfloat16* sG = sQ + 2 * kT;  // two buffers
-  float* sL = reinterpret_cast<float*>(smem + Smem<D>::kTiles);  // two
-  float* sD = sL + 2 * kTileRows;                                 // two
-
-  // Lowest kv tiles first: under causal masking they loop over the most
-  // q tiles.
-  const int kt = blockIdx.x;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z / kSplits;
-  const int dc = (blockIdx.z % kSplits) * DN;
-  const int reps = p.heads / p.kv_heads;
-  const int k0 = kt * kTileRows;
-  const int lane = threadIdx.x % 32;
-  const int wr = threadIdx.x / 32 * 16;
-  const int g = lane / 4;
-  const int tig = lane % 4;
-  const int rows[2] = {k0 + wr + g, k0 + wr + g + 8};  // this thread's kv rows
-
-  const int n_q = (p.seq + kTileRows - 1) / kTileRows;
-  const int first = p.causal ? kt : 0;  // q tiles before the diagonal: masked
-  const int n_live = n_q - first;
-  const int n_it = reps * n_live;
-
-  load_tile<D>(sK, p.k + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.seq);
-  load_tile<D>(sV, p.v + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.seq);
-
-  // Start loading step `it` (q head hk * reps + it / n_live, q tile
-  // first + it % n_live) into buffer `buf`: Q and dO with cp.async, lse and
-  // Delta with plain loads (zeros past S).
-  auto stage = [&](int it, int buf) {
-    const int h = hk * reps + it / n_live;
-    const int q0 = (first + it % n_live) * kTileRows;
-    load_tile<D>(sQ + buf * kT, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, q0,
-                 p.seq);
-    load_tile<D>(sG + buf * kT, p.g + b * p.g_sb + h * p.g_sh, p.g_ss, q0,
-                 p.seq);
-    const long long stat0 = ((long long)b * p.heads + h) * p.seq;
-    const int c = threadIdx.x % kTileRows;
-    const bool valid = q0 + c < p.seq;
-    if (threadIdx.x < kTileRows) {
-      sL[buf * kTileRows + c] = valid ? p.lse[stat0 + q0 + c] : 0.f;
-    } else {
-      sD[buf * kTileRows + c] = valid ? p.delta[stat0 + q0 + c] : 0.f;
-    }
-  };
-  stage(0, 0);
-  cp_async_commit();
-
-  float dk[DN / 8][4], dv[DN / 8][4];
-#pragma unroll
-  for (int n = 0; n < DN / 8; ++n) {
-    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
-    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
-  }
-
-  for (int it = 0; it < n_it; ++it) {
-    cp_async_wait_all();
-    __syncthreads();  // step it landed; every warp is done with step it - 1
-    if (it + 1 < n_it) stage(it + 1, (it + 1) % 2);
-    cp_async_commit();
-
-    const int buf = it % 2;
-    const int q0 = (first + it % n_live) * kTileRows;
-    const __nv_bfloat16* cQ = sQ + buf * kT;
-    const __nv_bfloat16* cG = sG + buf * kT;
-    const float* cL = sL + buf * kTileRows;
-    const float* cD = sD + buf * kTileRows;
-
-    // S^T = K Q^T and dP^T = V dO^T: 16 kv rows x 64 q columns per warp.
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
-      dp[t][0] = dp[t][1] = dp[t][2] = dp[t][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t ak[4], av[4];
-      load_a<D>(ak, sK, wr, kk);
-      load_a<D>(av, sV, wr, kk);
-#pragma unroll
-      for (int t = 0; t < 8; t += 2) {
-        uint32_t bq[4], bg[4];
-        load_b_rows<D>(bq, cQ, t * 8, kk);
-        mma_bf16(s[t], ak, bq[0], bq[1]);
-        mma_bf16(s[t + 1], ak, bq[2], bq[3]);
-        load_b_rows<D>(bg, cG, t * 8, kk);
-        mma_bf16(dp[t], av, bg[0], bg[1]);
-        mma_bf16(dp[t + 1], av, bg[2], bg[3]);
-      }
-    }
-
-    // P^T = exp(S^T - lse) into s (0 where masked or past S) and
-    // dS^T = P^T (dP^T - Delta) scale into dp.  A thread holds q columns
-    // q0 + 8t + 2tig + {0, 1} of its two kv rows; lse and Delta are per
-    // column here.
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = t * 8 + tig * 2 + (i % 2);
-        const int qpos = q0 + col;
-        float x = s[t][i] * p.scale;
-        float dcap = 1.f;  // d(capped score) / d(score), with the cap on
-        if constexpr (kCap) {
-          const float th = tanhf(x * p.inv_softcap);
-          x = p.softcap * th;
-          dcap = 1.f - th * th;
-        }
-        if (p.causal && qpos < rows[i / 2]) x = kNegInf;
-        const float pr = qpos < p.seq ? expf(x - cL[col]) : 0.f;
-        s[t][i] = pr;
-        float ds = pr * (dp[t][i] - cD[col]);
-        if constexpr (kCap) ds *= dcap;
-        dp[t][i] = ds * p.scale;
-      }
-    }
-
-    // dv += P^T dO and dk += dS^T Q over columns [dc, dc + DN): P^T and
-    // dS^T in bf16 as A operands, dO and Q read transposed.
-#pragma unroll
-    for (int kk = 0; kk < kTileRows / 16; ++kk) {
-      uint32_t ap[4], as[4];
-      pack_a(ap, s[2 * kk], s[2 * kk + 1]);
-      pack_a(as, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < DN / 8; n += 2) {
-        uint32_t bg[4], bq[4];
-        load_b_cols<D>(bg, cG, kk * 16, dc + n * 8);
-        mma_bf16(dv[n], ap, bg[0], bg[1]);
-        mma_bf16(dv[n + 1], ap, bg[2], bg[3]);
-        load_b_cols<D>(bq, cQ, kk * 16, dc + n * 8);
-        mma_bf16(dk[n], as, bq[0], bq[1]);
-        mma_bf16(dk[n + 1], as, bq[2], bq[3]);
-      }
-    }
-  }
-  cp_async_wait_all();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= p.seq) continue;
-    __nv_bfloat16* dkd =
-        p.dk + b * p.dk_sb + rows[r] * p.dk_ss + hk * p.dk_sh + dc;
-    __nv_bfloat16* dvd =
-        p.dv + b * p.dv_sb + rows[r] * p.dv_ss + hk * p.dv_sh + dc;
-#pragma unroll
-    for (int n = 0; n < DN / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dkd + n * 8 + tig * 2) =
-          __floats2bfloat162_rn(dk[n][2 * r], dk[n][2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dvd + n * 8 + tig * 2) =
-          __floats2bfloat162_rn(dv[n][2 * r], dv[n][2 * r + 1]);
-    }
-  }
-}
-
-// B2 and B3, and B4's dq and dk/dv: the same bodies under their own names.
+// B2 and B4's dq: the same body under their own names.
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   dq_body<D, false>(p);
@@ -431,20 +237,6 @@ __global__ void __launch_bounds__(kThreads) splash_bwd_dq_kernel(Params p) {
   dq_body<D, kCap>(p);
 }
 
-template <int D, int DN>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
-  dkv_body<D, DN, false>(p);
-}
-
-template <int D, int DN, bool kCap>
-__global__ void __launch_bounds__(kThreads) splash_bwd_dkv_kernel(Params p) {
-  dkv_body<D, DN, kCap>(p);
-}
-
-// B3 at D = 256 writes half of the head dimension per block (see above).
-template <int D>
-constexpr int kDkvCols = D > 128 ? 128 : D;
-
 template <int D>
 cudaError_t launch_dq(void (*kernel)(Params), const Params& p, int batch,
                       cudaStream_t stream) {
@@ -453,19 +245,6 @@ cudaError_t launch_dq(void (*kernel)(Params), const Params& p, int batch,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.seq + kTileRows - 1) / kTileRows, p.heads, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_dkv(void (*kernel)(Params), const Params& p, int batch,
-                       cudaStream_t stream) {
-  const int smem = static_cast<int>(Smem<D>::kTiles + Smem<D>::kStats);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.seq + kTileRows - 1) / kTileRows, p.kv_heads,
-                  batch * (D / kDkvCols<D>));
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -527,35 +306,6 @@ int flash_attention_bwd_dq_bf16(
   }
 }
 
-// B3.
-int flash_attention_bwd_dkv_bf16(
-    int device, const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int batch,
-    int seq, int heads, int kv_heads, int head_dim, long long q_sb,
-    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long g_sb, long long g_ss, long long g_sh, long long dk_sb,
-    long long dk_ss, long long dk_sh, long long dv_sb, long long dv_ss,
-    long long dv_sh, int causal, float scale, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long qs[3] = {q_sb, q_ss, q_sh}, ks[3] = {k_sb, k_ss, k_sh};
-  const long long vs[3] = {v_sb, v_ss, v_sh}, gs[3] = {g_sb, g_ss, g_sh};
-  Params p = make_params(q, k, v, dout, lse, delta, seq, heads, kv_heads,
-                         causal, scale, qs, ks, vs, gs);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
-  p.dk_sb = dk_sb; p.dk_ss = dk_ss; p.dk_sh = dk_sh;
-  p.dv_sb = dv_sb; p.dv_ss = dv_ss; p.dv_sh = dv_sh;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 64: return static_cast<int>(launch_dkv<64>(flash_bwd_dkv_kernel<64, kDkvCols<64>>, p, batch, s));
-    case 128: return static_cast<int>(launch_dkv<128>(flash_bwd_dkv_kernel<128, kDkvCols<128>>, p, batch, s));
-    case 256: return static_cast<int>(launch_dkv<256>(flash_bwd_dkv_kernel<256, kDkvCols<256>>, p, batch, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 // B4 (splash) dq: B2's arguments plus the softcap (0 turns the cap off).
 int splash_attention_bwd_dq_bf16(
     int device, const void* q, const void* k, const void* v, const void* dout,
@@ -586,43 +336,6 @@ int splash_attention_bwd_dq_bf16(
       return static_cast<int>(
           cap ? launch_dq<256>(splash_bwd_dq_kernel<256, true>, p, batch, s)
               : launch_dq<256>(splash_bwd_dq_kernel<256, false>, p, batch, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// B4 (splash) dk/dv: B3's arguments plus the softcap (0 turns the cap off).
-int splash_attention_bwd_dkv_bf16(
-    int device, const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int batch,
-    int seq, int heads, int kv_heads, int head_dim, long long q_sb,
-    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long g_sb, long long g_ss, long long g_sh, long long dk_sb,
-    long long dk_ss, long long dk_sh, long long dv_sb, long long dv_ss,
-    long long dv_sh, int causal, float scale, float softcap, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long qs[3] = {q_sb, q_ss, q_sh}, ks[3] = {k_sb, k_ss, k_sh};
-  const long long vs[3] = {v_sb, v_ss, v_sh}, gs[3] = {g_sb, g_ss, g_sh};
-  Params p = make_params(q, k, v, dout, lse, delta, seq, heads, kv_heads,
-                         causal, scale, qs, ks, vs, gs);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
-  p.dk_sb = dk_sb; p.dk_ss = dk_ss; p.dk_sh = dk_sh;
-  p.dv_sb = dv_sb; p.dv_ss = dv_ss; p.dv_sh = dv_sh;
-  const bool cap = softcap > 0.f;
-  p.softcap = softcap;
-  p.inv_softcap = cap ? 1.f / softcap : 0.f;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 128:
-      return static_cast<int>(
-          cap ? launch_dkv<128>(splash_bwd_dkv_kernel<128, kDkvCols<128>, true>, p, batch, s)
-              : launch_dkv<128>(splash_bwd_dkv_kernel<128, kDkvCols<128>, false>, p, batch, s));
-    case 256:
-      return static_cast<int>(
-          cap ? launch_dkv<256>(splash_bwd_dkv_kernel<256, kDkvCols<256>, true>, p, batch, s)
-              : launch_dkv<256>(splash_bwd_dkv_kernel<256, kDkvCols<256>, false>, p, batch, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -132,17 +132,6 @@ struct Barriers {
   uint64_t v_full[kStages], v_empty[kStages];
 };
 
-// The n-th tile of this block: rounds of gridDim.x tiles of the walk in
-// tile_at, taken in block order in even rounds and in reverse in odd ones,
-// so that a block given one of the largest tiles of a round gets one of the
-// smallest of the next (the walk goes from large to small tiles).  Past the
-// end of the walk every later n is past it too.
-__device__ __forceinline__ int block_tile(int n) {
-  const int g = gridDim.x;
-  return n * g + (n % 2 ? g - 1 - static_cast<int>(blockIdx.x)
-                        : static_cast<int>(blockIdx.x));
-}
-
 // A work tile: 128 q rows of one (head, batch) and the K/V tiles they see.
 struct Tile {
   int h, b, q0, n_kv;
@@ -200,7 +189,7 @@ __device__ __forceinline__ void produce(const Params& p,
   using C = Cfg<D>;
   constexpr int kN = C::kBlockN;
   int it = 0;  // K/V stage uses so far
-  for (int n = 0, i; (i = block_tile(n)) < p.n_tiles; ++n) {
+  for (int n = 0, i; (i = snake_tile(n)) < p.n_tiles; ++n) {
     const Tile tile = tile_at<D>(p, i);
     const int kvh = tile.h / (p.heads / p.kv_heads);
     for (int j = 0; j < tile.n_kv; ++j, ++it) {
@@ -485,7 +474,7 @@ __device__ __forceinline__ void consume(const Params& p, const CUtensorMap* to,
 }
 
 // The body of both kernels; kCap applies the logit softcap.  The grid is
-// persistent, one block per SM walking its tiles (block_tile), so one
+// persistent, one block per SM walking its tiles (snake_tile), so one
 // tile's loads run under the previous tile's products and epilogue instead
 // of after a new block's start-up.
 template <int D, bool kCap>
@@ -534,7 +523,7 @@ __device__ __forceinline__ void fwd_body(const Params& p,
     // takes one more at the end
     if (wg == 1) named_barrier_arrive(kTurnBarrier, kConsumers);
     int it = 0;  // K/V stage uses so far, as the producer counts them
-    for (int n = 0, i; (i = block_tile(n)) < p.n_tiles; ++n) {
+    for (int n = 0, i; (i = snake_tile(n)) < p.n_tiles; ++n) {
       const Tile tile = tile_at<D>(p, i);
       consume<D, kCap>(p, to, sQ, sK, sV, bar, wg, tile, n % C::kQBufs,
                        (n / C::kQBufs) & 1, it);

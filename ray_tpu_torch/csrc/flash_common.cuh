@@ -1,8 +1,9 @@
-// Device helpers of the flash-attention backward (flash_attention_bwd.cu):
+// Device helpers of the flash-attention dq kernel (flash_attention_bwd.cu):
 // cp.async tile loads into padded shared tiles, ldmatrix fragment loads and
-// the bf16 mma.sync m16n8k16 product.  The forward (flash_attention_fwd.cu,
-// built on hopper_common.cuh) takes only the mask value and the bf16 packing
-// from here.
+// the bf16 mma.sync m16n8k16 product.  The forward and the dk/dv kernel
+// (flash_attention_fwd.cu, flash_attention_bwd_dkv.cu, built on
+// hopper_common.cuh) take only the mask value and the bf16 packing from
+// here.
 //
 // Fragment layout of mma.sync m16n8k16 (lane = 4 * g + tig):
 // * A (16 x 16, row-major): a[0] rows g, cols 2tig..+1; a[1] rows g + 8,

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
 // mbarriers, TMA tensor-map loads and stores, wgmma shared-memory
 // descriptors and products, register reallocation (setmaxnreg), named
-// barriers, and the host-side tensor-map encoder.
+// barriers, the persistent grid's tile walk, and the host-side tensor-map
+// encoder.
 //
 // Shared-memory tiles are what TMA writes under CU_TENSOR_MAP_SWIZZLE_128B:
 // a tile of R rows x 64 bf16 columns (one 128-byte row each) whose 16-byte
@@ -292,6 +293,20 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   if constexpr (N == 64) wgmma_rs_m64n64(d, a, b);
   else if constexpr (N == 128) wgmma_rs_m64n128(d, a, b);
   else wgmma_rs_m64n256(d, a, b);
+}
+
+// --------------------------------------------------------- persistent grid
+
+// The n-th work tile of this block in a persistent grid: rounds of gridDim.x
+// tiles of the walk 0, 1, 2, ..., taken in block order in even rounds and in
+// reverse in odd ones ("snake"), so that when the walk runs from the longest
+// tiles to the shortest, a block given one of the longest of a round gets
+// one of the shortest of the next.  Past the end of the walk every later n
+// is past it too.
+__device__ __forceinline__ int snake_tile(int n) {
+  const int g = gridDim.x;
+  return n * g + (n % 2 ? g - 1 - static_cast<int>(blockIdx.x)
+                        : static_cast<int>(blockIdx.x));
 }
 
 // ------------------------------------------------------------ host side

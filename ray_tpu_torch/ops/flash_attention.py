@@ -8,10 +8,10 @@ what the Pallas kernels compute:
   over K/V tiles in f32, causal tiles past the diagonal skipped, GQA K/V
   read in place, P cast to the input dtype for the P·V product; it returns
   out and the log-sum-exp ``lse``.
-* B2 and B3 (``csrc/flash_attention_bwd.cu``, ``_bwd_dq_kernel`` and
-  ``_bwd_dkv_kernel``): dq, and dk/dv folded over the q heads of a GQA
-  group, with P recomputed from ``lse`` and Δ = rowsum(dO∘O) computed here
-  in f32, as ``_flash_bwd_pallas`` does.
+* B2 (``csrc/flash_attention_bwd.cu``, ``_bwd_dq_kernel``) and B3
+  (``csrc/flash_attention_bwd_dkv.cu``, ``_bwd_dkv_kernel``): dq, and dk/dv
+  folded over the q heads of a GQA group, with P recomputed from ``lse``
+  and Δ = rowsum(dO∘O) computed here in f32, as ``_flash_bwd_pallas`` does.
 
 ``flash_attention`` is a ``torch.autograd.Function``: its forward saves q,
 k, v, out and lse, and its backward runs B2 and B3.  Dispatch is by the
@@ -57,17 +57,22 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attention_error_string.restype = ctypes.c_char_p
 
 
-def _bind_bwd(lib: ctypes.CDLL) -> None:
+def _bind_bwd_dq(lib: ctypes.CDLL) -> None:
     _bind_entries(lib, "flash_attention_bwd_dq_bf16",
                   "splash_attention_bwd_dq_bf16",
                   [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                   + [ctypes.c_longlong] * 15)
+    lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+
+
+def _bind_bwd_dkv(lib: ctypes.CDLL) -> None:
     _bind_entries(lib, "flash_attention_bwd_dkv_bf16",
                   "splash_attention_bwd_dkv_bf16",
                   [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                   + [ctypes.c_longlong] * 18)
-    lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
-    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    lib.flash_attention_bwd_dkv_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_bwd_dkv_error_string.restype = ctypes.c_char_p
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -95,9 +100,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Differentiable in q, k and v.  ``block_q``/``block_kv`` are the plain
     versions' tiles; the CUDA kernels fix their own (the forward 128 q rows
-    against 128 K/V rows, 64 at D=256; the backward 64 by 64), sizes their
-    shared-memory and register budgets set.  ``launches`` counts B1's
-    launches (``flash_attention_bwd_dq.launches`` and
+    against 128 K/V rows, 64 at D=256; dq 64 by 64; dk/dv 128 kv rows, 64
+    at D=256, against 64 q rows), sizes their shared-memory and register
+    budgets set.  ``launches`` counts B1's launches
+    (``flash_attention_bwd_dq.launches`` and
     ``flash_attention_bwd_dkv.launches`` count B2's and B3's).
     """
     return _FlashAttention.apply(q, k, v, causal, block_q, block_kv)
@@ -129,10 +135,7 @@ def _check_kernel_inputs(q, k, v, head_dims=KERNEL_HEAD_DIMS) -> None:
                 or t.data_ptr() % 16):
             raise ValueError(f"{name} needs a contiguous last dim, strides "
                              f"that are multiples of 8 and 16-byte alignment")
-        # the forward reads through TMA maps, whose byte strides are nonzero
-        # and below 2**40 (a dimension of size 1 is never stepped over)
-        if any(n > 1 and not 0 < 2 * st < 1 << 40
-               for n, st in zip(t.shape[:3], t.stride()[:3])):
+        if not _tma_strides(t):
             raise ValueError(f"{name} has a stride the kernel's TMA maps "
                              f"cannot take (0, a broadcast, or 2**40 bytes "
                              f"or more): {t.stride()}")
@@ -147,6 +150,14 @@ def _check_kernel_inputs(q, k, v, head_dims=KERNEL_HEAD_DIMS) -> None:
         raise ValueError(f"{h} q heads do not group over {k.shape[2]} kv heads")
     if d not in head_dims:
         raise ValueError(f"the kernel takes D in {head_dims}, got {d}")
+
+
+def _tma_strides(t: torch.Tensor) -> bool:
+    """Whether the kernels' TMA maps can step over ``t``'s [B, S, heads]
+    dimensions: byte strides nonzero (no broadcast) and below 2**40; a
+    dimension of size 1 is never stepped over."""
+    return all(n <= 1 or 0 < 2 * st < 1 << 40
+               for n, st in zip(t.shape[:3], t.stride()[:3]))
 
 
 def _device_index(t: torch.Tensor) -> int:
@@ -276,9 +287,10 @@ def _flash_bwd(q, k, v, out, lse, dout, causal: bool = True,
 
 def _kernel_strides(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when the kernels can read it through its strides, else a
-    contiguous copy (autograd may hand over a dO of any layout)."""
+    contiguous copy (autograd may hand over a dO of any layout: the gradient
+    of ``out.sum()`` is an expanded tensor, stride 0 everywhere)."""
     if (t.stride(-1) == 1 and not any(st % 8 for st in t.stride()[:3])
-            and t.data_ptr() % 16 == 0):
+            and t.data_ptr() % 16 == 0 and _tma_strides(t)):
         return t
     return t.contiguous()
 
@@ -292,8 +304,9 @@ def _check_bwd_inputs(q, k, v, dout, lse, delta,
                          f"{dout.device} does not match q {q.dtype} "
                          f"{tuple(q.shape)} on {q.device}")
     if _kernel_strides(dout) is not dout:
-        raise ValueError("dout needs a contiguous last dim, strides that are "
-                         "multiples of 8 and 16-byte alignment")
+        raise ValueError("dout needs a contiguous last dim, nonzero strides "
+                         "that are multiples of 8 and below 2**40 bytes, and "
+                         "16-byte alignment")
     b, s, h, _ = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
         if (t.device != q.device or t.dtype != torch.float32
@@ -313,13 +326,14 @@ def _dq_launch(entry: str, q, k, v, dout, lse, delta, causal: bool,
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     if b * s == 0:
         return dq
-    lib = _build.load("flash_attention_bwd", _bind_bwd)
-    _bwd_check(entry, lib, getattr(lib, entry)(
+    lib = _build.load("flash_attention_bwd", _bind_bwd_dq)
+    err = getattr(lib, entry)(
         _device_index(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b,
         s, h, k.shape[2], d, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *dout.stride()[:3], *dq.stride()[:3], int(causal),
-        scale, *softcap, torch.cuda.current_stream(q.device).cuda_stream))
+        scale, *softcap, torch.cuda.current_stream(q.device).cuda_stream)
+    _bwd_check(entry, lib.flash_attention_bwd_error_string, err)
     return dq
 
 
@@ -334,20 +348,21 @@ def _dkv_launch(entry: str, q, k, v, dout, lse, delta, causal: bool,
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     if b * s == 0:
         return dk, dv
-    lib = _build.load("flash_attention_bwd", _bind_bwd)
-    _bwd_check(entry, lib, getattr(lib, entry)(
+    lib = _build.load("flash_attention_bwd_dkv", _bind_bwd_dkv)
+    err = getattr(lib, entry)(
         _device_index(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, s, h, k.shape[2], d, *q.stride()[:3],
         *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3],
         *dk.stride()[:3], *dv.stride()[:3], int(causal), scale, *softcap,
-        torch.cuda.current_stream(q.device).cuda_stream))
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _bwd_check(entry, lib.flash_attention_bwd_dkv_error_string, err)
     return dk, dv
 
 
-def _bwd_check(entry: str, lib: ctypes.CDLL, err: int) -> None:
+def _bwd_check(entry: str, error_string, err: int) -> None:
     if err:
-        msg = lib.flash_attention_bwd_error_string(err).decode()
+        msg = error_string(err).decode()
         raise RuntimeError(f"{entry} launch failed: {msg} ({err})")
 
 

@@ -7,9 +7,9 @@ logit softcap (scores s become c·tanh(s/c) before the mask), native GQA,
 skipping of fully masked tiles and tile sizes of their own for the
 backward.  On the card, B4 is the flash kernels' device code compiled once
 more with the softcap (``csrc/flash_attention_fwd.cu``,
-``csrc/flash_attention_bwd.cu``: its own entry points and kernel names); it
-reads GQA k/v in place and skips the tiles past the causal diagonal, with
-the kernels' own 64-row tiles.
+``csrc/flash_attention_bwd.cu``, ``csrc/flash_attention_bwd_dkv.cu``: its
+own entry points and kernel names); it reads GQA k/v in place and skips the
+tiles past the causal diagonal, with the kernels' own tiles.
 
 Layout as in the rest of ``ops/``: q ``[B, S, H, D]``, k/v ``[B, S, KV,
 D]``, output ``[B, S, H, D]`` in q's dtype.  As upstream, the kernel

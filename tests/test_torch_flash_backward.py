@@ -142,14 +142,30 @@ def test_cuda_backward_never_takes_the_plain_version(monkeypatch):
     (dict(dout_dtype=torch.float32), "dout"),
     (dict(lse_shape=(1, 4, 16)), "lse"),
     (dict(delta_dtype=torch.bfloat16), "delta"),
+    # stride 0, as the gradient of out.sum() arrives: no TMA map reads it
+    (dict(dout_expanded=True), "dout"),
 ])
 def test_backward_kernel_input_checks_raise(change, match):
     """What the backward kernels do not take raises before any launch."""
     q = torch.zeros((1, 32, 4, 64), dtype=torch.bfloat16)
     k = torch.zeros((1, 32, 2, 64), dtype=torch.bfloat16)
     dout = torch.zeros_like(q, dtype=change.get("dout_dtype", torch.bfloat16))
+    if change.get("dout_expanded"):
+        dout = torch.ones((), dtype=torch.bfloat16).expand(q.shape)
     lse = torch.zeros(change.get("lse_shape", (1, 4, 32)))
     delta = torch.zeros((1, 4, 32), dtype=change.get("delta_dtype",
                                                      torch.float32))
     with pytest.raises(ValueError, match=match):
         tflash._check_bwd_inputs(q, k, k.clone(), dout, lse, delta)
+
+
+def test_kernel_strides_copies_a_broadcast_dout():
+    """An expanded dO (stride 0, the gradient of ``out.sum()``) comes back
+    as a contiguous copy, which the kernels' TMA maps can read; a dO they
+    can read through its strides comes back as it is."""
+    dout = torch.ones((), dtype=torch.bfloat16).expand(1, 64, 4, 64)
+    got = tflash._kernel_strides(dout)
+    assert got is not dout and got.is_contiguous()
+    assert torch.equal(got, dout)
+    view = torch.zeros((1, 4, 64, 64), dtype=torch.bfloat16).transpose(1, 2)
+    assert tflash._kernel_strides(view) is view

@@ -83,7 +83,8 @@ def _kernel_bwd(q, k, v, out, lse, dout, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal,S,H,KV,D", [
     (True, 1024, 8, 2, 128), (False, 256, 8, 8, 64), (True, 1000, 8, 2, 128),
-    (False, 320, 4, 2, 256), (True, 192, 4, 1, 256)])
+    (False, 320, 4, 2, 256), (True, 192, 4, 1, 256),
+    (True, 1088, 8, 2, 128)])
 def test_flash_backward_kernels_match_plain_on_card(cuda_device, causal, S,
                                                     H, KV, D):
     """B2 and B3 against the plain backward on the same residuals, and two
@@ -105,6 +106,52 @@ def test_flash_backward_kernels_match_plain_on_card(cuda_device, causal, S,
     again = _kernel_bwd(q, k, v, out, lse, dout, causal)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_backward_kernels_on_strided_views_match_plain_on_card(
+        cuda_device, D):
+    """q, k and v as head slices of one fused [B, S, H + 2 KV, D] tensor
+    and dO as a transposed view of a [B, H, S, D] tensor: B2 and B3 read
+    them through their strides (B3 through TMA maps), match the plain
+    backward on the same views and repeat bit for bit."""
+    H, KV, S = 8, 2, 1088
+    qkv = _inputs(cuda_device, 2, S, H + 2 * KV, 1, D)[0]
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    dout = torch.randn((2, H, S, D), generator=g, device=cuda_device,
+                       dtype=torch.bfloat16).transpose(1, 2)
+    assert not (q.is_contiguous() or dout.is_contiguous())
+    out, lse = tflash._flash_fwd(q, k, v, True)
+    got = _kernel_bwd(q, k, v, out, lse, dout, True)
+    want = tflash.flash_attention_bwd_reference(q, k, v, out, lse, dout, True)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a).all(), name
+        assert _rel_err(a, b) < GRAD_RTOL, (name, _rel_err(a, b))
+    again = _kernel_bwd(q, k, v, out, lse, dout, True)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_sum_of_bf16_output_backward_on_card(cuda_device):
+    """``out.sum().backward()`` hands the backward a dO expanded from one
+    scalar (stride 0), which no TMA map can read: the wrapper copies it,
+    and the gradients match the plain version's."""
+    q, k, v, _ = _inputs(cuda_device, 2, 1024, 8, 2, 128, seed=2)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    out = tflash.flash_attention(q, k, v, causal=True)
+    assert out.dtype == torch.bfloat16
+    out.sum().backward()
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        ref_out, ref_lse = tflash.flash_attention_reference(q, k, v, True)
+        want = tflash.flash_attention_bwd_reference(
+            q, k, v, ref_out, ref_lse, torch.ones_like(ref_out), True)
+    for name, t, b in zip(("dq", "dk", "dv"), (q, k, v), want):
+        assert torch.isfinite(t.grad).all(), name
+        assert _rel_err(t.grad, b) < GRAD_RTOL, (name, _rel_err(t.grad, b))
 
 
 @pytest.mark.cuda

@@ -110,6 +110,41 @@ def test_splash_forward_on_strided_views_matches_plain_on_card(cuda_device,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+def test_splash_dkv_on_strided_views_matches_plain_on_card(cuda_device,
+                                                           softcap):
+    """B4's dk/dv on q, k and v as head slices of one fused tensor and dO
+    as a transposed view: read through the TMA maps' strides, within
+    GRAD_RTOL of the plain version on the same views, bit for bit the same
+    on a second run."""
+    H, KV, D, S = 8, 2, 128, 1024
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    qkv = torch.randn((2, S, H + 2 * KV, D), generator=g,
+                      device=cuda_device, dtype=torch.bfloat16)
+    qkv[:, :, :H] *= D ** -0.5   # splash_mha scales q beforehand
+    qs, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    dout = torch.randn((2, H, S, D), generator=g, device=cuda_device,
+                       dtype=torch.bfloat16).transpose(1, 2)
+    out, lse = tsplash._splash_fwd(qs, k, v, True, softcap, 128, 128)
+    delta = tflash._delta(out, dout)
+
+    def dkv():
+        got = tsplash.splash_attention_bwd_dkv(qs, k, v, dout, lse, delta,
+                                               True, softcap)
+        torch.cuda.synchronize()
+        return got
+
+    got = dkv()
+    want = tflash.flash_attention_bwd_reference(qs, k, v, out, lse, dout,
+                                                True, 128, 128, softcap,
+                                                1.0)[1:]
+    for name, a, b in zip(("dk", "dv"), got, want):
+        assert torch.isfinite(a).all(), name
+        assert _rel_err(a, b) < GRAD_RTOL, (name, _rel_err(a, b))
+    assert all(torch.equal(a, b) for a, b in zip(got, dkv()))
+
+
+@pytest.mark.cuda
 def test_requires_grad_through_splash_mha_gives_kernel_gradients(cuda_device):
     """A card tensor that requires grad goes through B4 forward and
     backward (and not B1-B3), and its gradients match the plain versions'
