@@ -9,7 +9,8 @@ script exits non-zero:
 1. The card's name and power limit (``nvidia-smi``); TF32 off for float32
    matmuls and convolutions, so the plain versions compute in full f32.
 2. Build every CUDA source of the port with nvcc (all at once), timed;
-   fail if ptxas dropped a `setmaxnreg` (warning C7508) in any of them.
+   print ptxas's registers and spills for every kernel instantiation; fail
+   if ptxas dropped a `setmaxnreg` (warning C7508) in any of them.
 3. Kernel B1 (flash forward) against its plain PyTorch version on the card,
    at the shapes the serving path gives it (Llama-3-8B prefill: B=8,
    S=2048 and S=1024, H=32, KV=8, D=128, causal), plus D=64 non-causal,
@@ -21,10 +22,11 @@ script exits non-zero:
 4. Kernels B2 (dq) and B3 (dk/dv) against their plain versions on the same
    residuals, at the training path's shape (llama_1b: B=8, S=2048, H=16,
    KV=8, D=128, causal) and the serving shape (B=8, S=1024, H=32, KV=8),
-   plus D=64 non-causal with KV=H, D=256, a ragged S (1000, and 1088: 64
-   rows past a 128-row kv tile) and strided views (q, k, v as head slices
-   of one fused tensor, dO a transposed view); each run twice and required
-   to give the same bits.  Times beside the bounds, the plain
+   plus D=64 non-causal with KV=H, D=256 (GQA reps 4 at S=1088 too), a
+   ragged S (1000, and 1088: 64 rows past a 128-row tile; 64, where a q
+   tile's upper warpgroup has no row) and strided views (q, k, v as head
+   slices of one fused tensor, dO a transposed view); each run twice and
+   required to give the same bits.  Times beside the bounds, the plain
    versions' and the backward of ``scaled_dot_product_attention`` (one
    library call for B2 + B3 together).
 5. The serving path at full width: ``LLMEngine`` on Llama-3-8B (32 layers,
@@ -48,8 +50,9 @@ script exits non-zero:
    timed alone; one step profiled (torch.profiler).
 7. Kernel B4 (splash: B1-B3's code with the logit softcap, on a q scaled
    by D^-0.5 beforehand) forward, dq and dk/dv against their plain
-   versions at the training shape with softcap 0 and 50 (Gemma-2's cap),
-   at D=256 and non-causal; the backward run twice and required to give
+   versions at the training shape with softcap 0 and 50 (Gemma-2's cap;
+   there q is scaled further, so that the scores reach the cap), at D=256
+   and non-causal; the backward run twice and required to give
    the same bits.  Times beside bounds that count the special-function
    units too (an exp per kept score, and a tanh with the cap, at 16 per
    clock per SM at the card's maximum SM clock), beside the plain versions'
@@ -87,6 +90,12 @@ PEAK_BYTES_S = 3.35e12
 # special-function units (exp, tanh): 16 results per clock per SM, 132 SMs
 SFU_PER_CLOCK = 16 * 132
 SPLASH_SOFTCAP = 50.0   # Gemma-2's attention logit softcap
+# with a softcap c, q is scaled further so that the scores' std is c / 4:
+# the largest of a row's scores reach about c, where tanh bends and the
+# backward's factor (1 - t^2) falls to about a half.  On scores of std 1 a
+# kernel that dropped that factor, or the cap, from dq would still land
+# inside GRAD_RTOL (at c = 50 both differ from 1 by under 0.4%).
+CAP_SCORE_STD = 0.25
 
 OUT_ATOL = 2e-2      # bf16 out: P rounds to bf16 at other tile boundaries
 LSE_ATOL = 1e-3      # f32 lse: same terms summed in another order
@@ -121,9 +130,9 @@ SPLASH_STEP_LOSS_ATOL = 1e-3
 LOGITS_RMS = 0.05
 LOGITS_MAX = 0.25
 
-# the design of the forward and dk/dv kernels (flash_attention_fwd.cu,
-# flash_attention_bwd_dkv.cu: wgmma products on TMA-loaded tiles, a
-# producer warpgroup and mbarriers)
+# the design of every kernel body (flash_attention_fwd.cu,
+# flash_attention_bwd.cu, flash_attention_bwd_dkv.cu: wgmma products on
+# TMA-loaded tiles, a producer warpgroup and mbarriers)
 HOPPER_DESIGN = "wgmma+tma"
 # the flash step comparison's loss gap read again on more batches (numpy
 # seeds; 0 is the training batch) with the loss alone, against the plain
@@ -310,6 +319,10 @@ def check_flash_bwd(dev):
         # q, k, v as head slices of one fused [B, S, H + 2 KV, D] tensor,
         # dO a transposed view of a [B, H, S, D] tensor
         (2, 1088, 32, 8, 128, True, False, True),
+        # dq's edges: a q tile whose upper warpgroup has no live row; GQA
+        # reps 4 at D=256 past a 1024-row boundary
+        (2, 64, 8, 2, 128, True, False, False),
+        (1, 1088, 16, 4, 256, True, False, False),
     ]
     gen = torch.Generator(device=dev).manual_seed(1)
     results = []
@@ -401,7 +414,8 @@ def splash_bounds_ms(b, s, h, kv, d, causal, softcap, clock_hz):
 
 def check_splash(dev, clock_hz):
     """Phase 7: kernel B4 (forward, dq, dk/dv) against its plain versions
-    on a q scaled by D^-0.5 in bf16, as ``splash_mha`` scales it."""
+    on a q scaled by D^-0.5 in bf16, as ``splash_mha`` scales it, and with
+    a softcap c by c · CAP_SCORE_STD besides."""
     import torch
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops import splash_attention as sa
@@ -420,7 +434,7 @@ def check_splash(dev, clock_hz):
                                      dtype=torch.bfloat16)
                          for shape in ((b, s, h, d), (b, s, kv, d),
                                        (b, s, kv, d), (b, s, h, d)))
-        qs = q * d ** -0.5
+        qs = q * (d ** -0.5 * (cap * CAP_SCORE_STD if cap else 1.0))
         blk = sa._pick_block(s, sa.DEFAULT_BLOCK)
         out, lse = sa._splash_fwd(qs, k, v, causal, cap, blk, blk)
         delta = fa._delta(out, dout)
@@ -1017,9 +1031,8 @@ def main() -> int:
                 if ("registers" in line or "spill" in line or "error" in line
                         or "entry function" in line or "(C75" in line):
                     log(f"  nvcc[{name}] {line.strip()}")
-        # the forward's and dk/dv's warp specialisation rests on
-        # setmaxnreg, which ptxas drops with warning C7508 when the roles
-        # reconverge
+        # every kernel's warp specialisation rests on setmaxnreg, which
+        # ptxas drops with warning C7508 when the roles reconverge
         dropped = [name for name, text in _build.build_logs.items()
                    if "C7508" in text]
         if dropped:
@@ -1065,6 +1078,7 @@ def main() -> int:
         "route": "cuda",
         "source": "ray_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:201",
+        "design": HOPPER_DESIGN,
         "launches": train_launches["flash_attention_bwd_dq"],
         "max_abs_err": max(r["dq_max_abs_err"] for r in bwd_rows),
         "ms": bwd_row["dq_ms"],
@@ -1104,7 +1118,7 @@ def main() -> int:
             "route": "cuda",
             "source": f"ray_tpu_torch/csrc/flash_attention_{source}.cu",
             "replaces": "ray_tpu/ops/splash_attention.py:87",
-            **({"design": HOPPER_DESIGN} if key != "dq" else {}),
+            "design": HOPPER_DESIGN,
             "launches": splash_launches[f"splash_attention_{name}"],
             "max_abs_err": max(r[e] for r in splash_rows for e in errs),
             "ms": plain_row[f"{key}_ms"],

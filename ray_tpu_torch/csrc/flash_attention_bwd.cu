@@ -5,260 +5,564 @@
 // B2 replaces the Pallas TPU kernel `_bwd_dq_kernel` driven by
 // `_flash_bwd_pallas` in ray_tpu/ops/flash_attention.py.  It computes the
 // same function from the forward's residuals: with scores
-// S = Q K^T * D^-0.5 (causal positions masked with -1e30, not -inf),
-// P = exp(S - lse) recomputed from the forward's log-sum-exp, dP = dO V^T,
-// Delta = rowsum(dO * O) (computed by the caller in f32) and
-// dS = P * (dP - Delta) * D^-0.5: dq = dS K.  dS is cast to bf16 before
-// dS K, as the TPU kernel casts it to the input dtype; every sum is f32.
-//
-// What bounds it on the card: at the training path's shape (S = 2048,
-// D = 128) it does 6 operations per (q, k) pair and head dim against a few
-// bytes per row, i.e. hundreds of operations per byte: it is bound by
-// tensor-core operations.  What the design does about it:
-// * scores, probabilities and dS never leave the chip: one 64 x 64 tile
-//   lives in registers at a time, as mma.sync C fragments that are re-packed
-//   in registers as the A operand of the next product (no shared-memory
-//   round trip);
-// * every product runs on the tensor cores (mma.sync m16n8k16); the
-//   transposed operand (K for dS K) comes from ldmatrix.trans on the
-//   row-major tile, so no transposed copy exists in device memory;
-// * the streamed K/V tiles are double-buffered with cp.async, so the next
-//   tile loads during the current tile's products;
-// * tiles past the causal diagonal are skipped: the K/V loop stops at the
-//   diagonal (per block, and per warp within the diagonal tile) and the
-//   longest rows start first.
-// It does not use `wgmma` or TMA yet, so it stays below the card's peak.
+// S = Q K^T * scale (scale = D^-0.5; causal positions masked, i.e.
+// P = exp(-1e30 - lse) = 0), P = exp(S - lse) recomputed from the forward's
+// natural-log lse, dP = dO V^T, Delta = rowsum(dO * O) (computed by the
+// caller in f32) and dS = P * (dP - Delta) * scale: dq = dS K.  dS is cast
+// to bf16 before dS K, as the TPU kernel casts it to the input dtype; every
+// sum is f32.
 //
 // B4's dq replaces `_flash_attention_dq_kernel` of jax's
 // splash_attention_kernel.py, which ray_tpu/ops/splash_attention.py builds.
 // It is the same device code, compiled once more with the logit softcap on
-// (`kCap`): the score is recomputed uncapped, t = tanh(s / c) (as
-// s * (1 / c), `tanhf`), P = exp(c * t - lse) from the capped score, and dS
-// gains the factor 1 - t^2 (d(c tanh(s / c)) / ds), i.e.
-// dS = P * (dP - Delta) * (1 - t^2) * scale.  t is a per-element temporary,
-// so no array stays live for it.  The splash wrapper passes scale 1 (its q
-// arrives scaled).  The softcap-free instantiations are B2's code under its
-// own kernel name.
+// (`kCap`): t = tanh(s / c) of the recomputed scaled score s (as
+// s * (1 / c), `tanhf`, as the forward computes it), P = exp(c * t - lse),
+// and dS gains the factor 1 - t^2 (d(c tanh(s / c)) / ds).  The splash
+// wrapper passes scale 1 (its q arrives scaled).  The softcap-free
+// instantiations are B2's code under its own kernel name, so a trace tells
+// B4 from B2.
 //
-// Registers: each warp owns 16 rows; its accumulator is 16 x D f32, i.e.
-// D / 2 registers per thread.
+// What bounds it on the card: 6 operations per (q, k) pair and head dim
+// (three products) against a few bytes per row, i.e. hundreds of operations
+// per byte at the training shape (S = 2048, D = 128): tensor-core
+// operations bound it.  With the cap, a tanh beside each exp loads the
+// special-function units too.
 //
-// Layout: q, dO, dq [B, S, H, D] and k, v [B, S, KV, D] through element
-// strides (innermost dimension contiguous, every other stride a multiple of
-// 8, base pointers 16-byte aligned); lse and Delta are contiguous [B, H, S]
-// f32.  Rows past S (the ragged edge) load as zeros, get P = 0 explicitly
-// (their lse and Delta are not defined) and are not written.
+// The design this one replaced, the training slice's, ran the three
+// products on Ampere's `mma.sync` m16n8k16 with 64 q rows per block, one
+// warp per 16 rows, each warp reading its Q and dO and every K/V tile
+// through ldmatrix (K twice: as rows for S, transposed for dS K), every
+// thread issuing `cp.async` and waiting at a block barrier per tile,
+// per-element masks on every tile and one block per (q tile, head, batch):
+// 1.350 ms for B2 and 1.335 ms for B4's dq at the training shape (B=8,
+// S=2048, H=16, KV=8, D=128, causal), 15% of the bound, and 1.716 ms with
+// the cap, on an H100 80GB HBM3 at 700 W (PERF.md's kernel table).  This
+// design is built from what only Hopper has (hopper_common.cuh), on the
+// forward's pattern (flash_attention_fwd.cu):
+// * a work tile is 128 q rows of one (q head, batch), taken by two consumer
+//   warpgroups of 64 rows, each holding its own 64 x D dQ accumulator in
+//   registers; a producer warpgroup hands its registers to them with
+//   `setmaxnreg` (24 against 240), inside one if/else that never
+//   reconverges;
+// * one producer thread loads Q and dO of the tile once by TMA and keeps a
+//   ring of four K/V stages of 64 kv rows filled, each guarded by a full and
+//   an empty mbarrier, so each stage in shared memory serves 128 q rows.
+//   lse and Delta are constant over a tile: each consumer thread loads its
+//   two rows' values once, at tile start (lse times log2 e);
+// * all three products are `wgmma`, each warpgroup on its 64 q rows:
+//   S = Q.K^T and dP = dO.V^T (m64n64k16, both operands K-major in
+//   128-byte-swizzled shared memory) and dQ += dS.K (m64nDk16, A from
+//   registers: the S accumulators turned into dS and packed to bf16 are the
+//   A fragment, the forward's P trick; B the same K stage read MN-major,
+//   transpose bit set).  K is read twice from one shared tile, with no
+//   transposed copy anywhere;
+// * a warpgroup's dQ product of stage j runs on the tensor cores while it
+//   computes dS of stage j + 1: S and dP of stage j + 1 go out with it, and
+//   dS of j + 1 is packed only once the dQ product has landed (the dQ
+//   accumulators, S, dP and packed dS are 144 registers under products in
+//   flight at D = 128, inside the consumers' 240; with more, ptxas
+//   serializes the products: warning C7512).  The two warpgroups' products
+//   fill each other's gaps;
+// * dS runs in registers in the log2 domain (one multiply by
+//   scale * log2 e, `exp2f`), and the causal and ragged compares run only
+//   on the stages that need them: the stage on a warpgroup's diagonal and
+//   the last, ragged one.  The K/V walk stops at the tile's diagonal; a
+//   stage whose kv rows all lie past a warpgroup's q rows (the lower
+//   warpgroup's last stage under the causal mask, every stage of a
+//   warpgroup whose rows all lie past S) is waited for and released, never
+//   computed, so the two warpgroups' ring phases never drift;
+// * the grid is persistent, one block per SM walking its work tiles from
+//   the longest (under causal masking the last q tiles of S walk the most
+//   stages) to the shortest, every other round in reverse ("snake"), with
+//   the q heads of a GQA group next to each other so that the K/V stages
+//   they share hit L2; a tile's first K/V stages load while the previous
+//   tile's epilogue runs;
+// * the epilogue writes dq in bf16 into the warpgroup's own Q rows of
+//   shared memory, in the swizzled layout, and TMA stores copy it out (rows
+//   past S are dropped by the map).
+// One block owns each dq tile and sums in a fixed order (the K/V stages),
+// with no atomics: the result is the same bits on every run.
+//
+// D = 256: 128 rows of Q and dO (128 KB) leave room for a single 64 KB K/V
+// stage.  So a work tile there is 64 q rows, and both consumer warpgroups
+// take all of them, each writing one half of dq's columns (DN = 128): each
+// recomputes S and dP over all 256 columns, with two stages, as the dk/dv
+// kernel does.
+//
+// Layout: q, dO [B, S, H, D] and k, v [B, S, KV, D] are read, and dq
+// [B, S, H, D] written, through 4-D TMA maps built per launch from their
+// element strides (the innermost dimension contiguous, every other stride a
+// nonzero multiple of 8 elements, every base pointer 16-byte aligned); lse
+// and Delta are contiguous [B, H, S] f32.
 
-#include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
-using namespace flash;
+using namespace hopper;
+
+constexpr int kBlockN = 64;  // kv rows per K/V stage
+constexpr int kWarpgroupThreads = 128;
+constexpr int kConsumers = 2 * kWarpgroupThreads;
+constexpr int kThreads = kConsumers + kWarpgroupThreads;  // + the producer
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;  // 128 * 24 + 256 * 240 = 384 * 168
+// named barriers: 1 + wg for a warpgroup's epilogue, kBothBarrier for both
+constexpr int kBothBarrier = 3;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Cfg {
+  // D = 256: both warpgroups on the same 64 q rows, each on half of D
+  static constexpr bool kSplitCols = D > 128;
+  static constexpr int kBlockM = kSplitCols ? 64 : 128;  // q rows per tile
+  static constexpr int kCols = kSplitCols ? D / 2 : D;   // per warpgroup
+  static constexpr int kChunks = D / 64;  // 64-column swizzle atoms
+  static constexpr int kStages = kSplitCols ? 2 : 4;
+  static constexpr int kQElems = kBlockM * D;   // Q (and dO) of a tile
+  static constexpr int kKVElems = kBlockN * D;  // K (and V) of a stage
+  static constexpr uint32_t kQBytes = 2 * 2 * kQElems;     // Q and dO
+  static constexpr uint32_t kStageBytes = 2 * 2 * kKVElems;  // K and V
+  // Q, dO, the K ring, the V ring; 1 KB to align the tiles to 1024 bytes
+  static constexpr size_t kSmem = kQBytes + kStages * kStageBytes + 1024;
+  static_assert(D % 64 == 0 && D <= 256, "head dims 64, 128, 256");
+  static_assert(kSmem <= 232448, "above the 227 KB a block may use");
+};
+
+constexpr int kMaxStages = 4;
+static_assert(Cfg<64>::kStages <= kMaxStages &&
+              Cfg<128>::kStages <= kMaxStages &&
+              Cfg<256>::kStages <= kMaxStages, "the barriers' ring");
 
 struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* g;  // dO
   const float* lse;
   const float* delta;
-  __nv_bfloat16* dq;
-  int seq, heads, kv_heads, causal;
+  int batch, seq, heads, kv_heads, causal;
+  int n_tiles;                 // q tiles x heads x batch
   float scale;
+  float score_log2;            // from a (capped) score to log2 units
   float softcap, inv_softcap;  // read only by the kCap instantiations
-  long long q_sb, q_ss, q_sh;  // element strides: batch, sequence, head
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  long long g_sb, g_ss, g_sh;
-  long long dq_sb, dq_ss, dq_sh;
 };
 
-// Six tiles: two resident, two streamed and double-buffered.
+struct Barriers {
+  uint64_t full[kMaxStages], empty[kMaxStages];
+  uint64_t q_full, q_empty;
+};
+
+// A work tile: q rows [q0, q0 + kBlockM) of head h and batch b, and the
+// K/V stages they see.
+struct Tile {
+  int h, b, q0, n_kv;
+};
+
+// Tile i of the grid's walk: the highest q tiles of every (head, batch)
+// first, since under causal masking they walk the most K/V stages; inside
+// a round the heads of one batch in order, so a GQA group's q heads, which
+// read the same K/V stages, run side by side.
 template <int D>
-struct Smem {
-  static constexpr size_t kTiles = 6 * Tile<D>::kBytes;
-  static_assert(kTiles <= 232448, "above the 227 KB a block may use");
-};
+__device__ __forceinline__ Tile tile_at(const Params& p, int i) {
+  constexpr int kM = Cfg<D>::kBlockM;
+  const int hb = p.heads * p.batch;
+  const int n_qt = (p.seq + kM - 1) / kM;
+  Tile t;
+  t.q0 = (n_qt - 1 - i / hb) * kM;
+  t.h = i % hb % p.heads;
+  t.b = i % hb / p.heads;
+  t.n_kv = (p.seq + kBlockN - 1) / kBlockN;
+  // K/V stages strictly after this q tile's diagonal are fully masked
+  if (p.causal) t.n_kv = min(t.n_kv, (t.q0 + kM) / kBlockN);
+  return t;
+}
 
-// ---------------------------------------------------------------------------
-// B2: dq.  One block per (q tile of 64 rows, q head, batch); Q and dO stay
-// in shared memory, K/V tiles stream through up to the causal diagonal.
-// ---------------------------------------------------------------------------
-template <int D, bool kCap>
-__device__ __forceinline__ void dq_body(Params p) {
-  constexpr int kT = Tile<D>::kElems;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sG = sQ + kT;
-  __nv_bfloat16* sK = sG + kT;      // two buffers
-  __nv_bfloat16* sV = sK + 2 * kT;  // two buffers
+// The K/V stages a warpgroup whose q rows start at wg_row0 computes: the
+// first n_run of the tile's; the rest lie wholly past its causal diagonal
+// (all of them when its rows lie past S).
+__device__ __forceinline__ int run_stages(const Params& p, const Tile& tile,
+                                          int wg_row0) {
+  if (wg_row0 >= p.seq) return 0;
+  return p.causal ? min(tile.n_kv, wg_row0 / kBlockN + 1) : tile.n_kv;
+}
 
-  // Highest q tiles first: under causal masking they loop over the most
-  // K/V tiles, so they should not be the stragglers of the grid.
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (p.heads / p.kv_heads);
-  const int q0 = qt * kTileRows;
-  const int lane = threadIdx.x % 32;
-  const int wr = threadIdx.x / 32 * 16;  // this warp's first row in the tile
-  const int g = lane / 4;                // mma fragment row (and row + 8)
-  const int tig = lane % 4;              // mma fragment column pair
-  const int rows[2] = {q0 + wr + g, q0 + wr + g + 8};
-
-  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* gb = p.g + b * p.g_sb + h * p.g_sh;
-  const __nv_bfloat16* kb = p.k + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* vb = p.v + b * p.v_sb + kvh * p.v_sh;
-
-  int n_kv = (p.seq + kTileRows - 1) / kTileRows;
-  if (p.causal) n_kv = min(n_kv, qt + 1);  // tiles past the diagonal: masked
-
-  load_tile<D>(sQ, qb, p.q_ss, q0, p.seq);
-  load_tile<D>(sG, gb, p.g_ss, q0, p.seq);
-  load_tile<D>(sK, kb, p.k_ss, 0, p.seq);
-  load_tile<D>(sV, vb, p.v_ss, 0, p.seq);
-  cp_async_commit();
-
-  // lse and Delta of this thread's two rows; rows past S read nothing.
-  const long long stat0 = ((long long)b * p.heads + h) * p.seq;
-  bool live[2];
-  float lse[2], dlt[2];
+// The producer: one thread issues every copy of the block, tile after
+// tile.  K/V stage uses are counted across tiles, so the ring runs on from
+// one tile into the next: a tile's first stages go out before its Q and dO,
+// whose buffers free only when the consumers have stored the previous
+// tile's dq from them.
+template <int D>
+__device__ __forceinline__ void produce(
+    const Params& p, const CUtensorMap* tq, const CUtensorMap* tk,
+    const CUtensorMap* tv, const CUtensorMap* tg, __nv_bfloat16* sQ,
+    __nv_bfloat16* sG, __nv_bfloat16* sK, __nv_bfloat16* sV, Barriers& bar) {
+  using C = Cfg<D>;
+  const int reps = p.heads / p.kv_heads;
+  int it = 0;  // K/V stage uses so far
+  for (int n = 0, i; (i = snake_tile(n)) < p.n_tiles; ++n) {
+    const Tile tile = tile_at<D>(p, i);
+    const int kvh = tile.h / reps;
+    const int q_after = min(C::kStages, tile.n_kv) - 1;
+    for (int j = 0; j < tile.n_kv; ++j, ++it) {
+      const int st = it % C::kStages;
+      // a fresh barrier counts as having completed the phase before phase 0
+      mbar_wait(&bar.empty[st], ((it / C::kStages) & 1) ^ 1);
+      mbar_arrive_expect_tx(&bar.full[st], C::kStageBytes);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    live[r] = rows[r] < p.seq;
-    lse[r] = live[r] ? p.lse[stat0 + rows[r]] : 0.f;
-    dlt[r] = live[r] ? p.delta[stat0 + rows[r]] : 0.f;
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int j = 0; j < n_kv; ++j) {
-    cp_async_wait_all();
-    __syncthreads();  // tile j landed; every warp is done with tile j - 1
-    if (j + 1 < n_kv) {
-      const int nb = (j + 1) % 2;
-      load_tile<D>(sK + nb * kT, kb, p.k_ss, (j + 1) * kTileRows, p.seq);
-      load_tile<D>(sV + nb * kT, vb, p.v_ss, (j + 1) * kTileRows, p.seq);
-    }
-    cp_async_commit();
-
-    const int k0 = j * kTileRows;
-    // every row of this warp lies before the tile: fully masked, skip
-    if (p.causal && k0 > q0 + wr + 15) continue;
-    const __nv_bfloat16* cK = sK + (j % 2) * kT;
-    const __nv_bfloat16* cV = sV + (j % 2) * kT;
-
-    // S = Q K^T and dP = dO V^T: 16 rows x 64 columns per warp each.
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
-      dp[t][0] = dp[t][1] = dp[t][2] = dp[t][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t aq[4], ag[4];
-      load_a<D>(aq, sQ, wr, kk);
-      load_a<D>(ag, sG, wr, kk);
-#pragma unroll
-      for (int t = 0; t < 8; t += 2) {
-        uint32_t bk[4], bv[4];
-        load_b_rows<D>(bk, cK, t * 8, kk);
-        mma_bf16(s[t], aq, bk[0], bk[1]);
-        mma_bf16(s[t + 1], aq, bk[2], bk[3]);
-        load_b_rows<D>(bv, cV, t * 8, kk);
-        mma_bf16(dp[t], ag, bv[0], bv[1]);
-        mma_bf16(dp[t + 1], ag, bv[2], bv[3]);
+      for (int c = 0; c < C::kChunks; ++c) {
+        tma_load_4d(sK + st * C::kKVElems + c * kBlockN * 64, tk,
+                    &bar.full[st], c * 64, kvh, j * kBlockN, tile.b);
+        tma_load_4d(sV + st * C::kKVElems + c * kBlockN * 64, tv,
+                    &bar.full[st], c * 64, kvh, j * kBlockN, tile.b);
       }
-    }
-
-    // P = exp(S - lse), 0 where masked or past S; dS = P (dP - Delta) scale,
-    // into s.  A thread holds columns k0 + 8t + 2tig + {0, 1} of its rows.
+      if (j == q_after) {
+        mbar_wait(&bar.q_empty, (n & 1) ^ 1);
+        mbar_arrive_expect_tx(&bar.q_full, C::kQBytes);
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kpos = k0 + t * 8 + tig * 2 + (i % 2);
-        const int r = i / 2;
-        float x = s[t][i] * p.scale;
-        float dcap = 1.f;  // d(capped score) / d(score), with the cap on
-        if constexpr (kCap) {
-          const float th = tanhf(x * p.inv_softcap);
-          x = p.softcap * th;
-          dcap = 1.f - th * th;
+        for (int c = 0; c < C::kChunks; ++c) {
+          tma_load_4d(sQ + c * C::kBlockM * 64, tq, &bar.q_full, c * 64,
+                      tile.h, tile.q0, tile.b);
+          tma_load_4d(sG + c * C::kBlockM * 64, tg, &bar.q_full, c * 64,
+                      tile.h, tile.q0, tile.b);
         }
-        if (p.causal && rows[r] < kpos) x = kNegInf;
-        const float pr = (live[r] && kpos < p.seq) ? expf(x - lse[r]) : 0.f;
-        float ds = pr * (dp[t][i] - dlt[r]);
-        if constexpr (kCap) ds *= dcap;
-        s[t][i] = ds * p.scale;
       }
-    }
-
-    // dq += dS K: dS in bf16 as the A operand, K read transposed.
-#pragma unroll
-    for (int kk = 0; kk < kTileRows / 16; ++kk) {
-      uint32_t a[4];
-      pack_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t bk[4];
-        load_b_cols<D>(bk, cK, kk * 16, n * 8);
-        mma_bf16(acc[n], a, bk[0], bk[1]);
-        mma_bf16(acc[n + 1], a, bk[2], bk[3]);
-      }
-    }
-  }
-  cp_async_wait_all();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (!live[r]) continue;
-    __nv_bfloat16* dst = p.dq + b * p.dq_sb + rows[r] * p.dq_ss + h * p.dq_sh;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8 + tig * 2) =
-          __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
     }
   }
 }
+
+// dS of one stage from the S and dP accumulators, in place of S.  A thread
+// holds kv columns k0 + 8j + 2tig + {0, 1} (j < 8) of q rows `row` (s[4j],
+// s[4j + 1]) and row + 8 (s[4j + 2], s[4j + 3]); lse2 (lse * log2 e) and
+// Delta are per row.  kMask applies the causal and ragged-edge compares.
+template <bool kCap, bool kMask>
+__device__ __forceinline__ void grads_tile(float (&s)[32],
+                                           const float (&dp)[32],
+                                           const Params& p,
+                                           const float (&lse2)[2],
+                                           const float (&dlt)[2], int k0,
+                                           int row, int tig) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int idx = 4 * j + i;
+      const int r = i >> 1;
+      float z = s[idx];
+      float dcap = 1.f;  // d(capped score) / d(score), with the cap on
+      if constexpr (kCap) {
+        const float th = tanhf(z * p.scale * p.inv_softcap);
+        z = p.softcap * th;
+        dcap = 1.f - th * th;
+      }
+      float pr = exp2f(z * p.score_log2 - lse2[r]);
+      if constexpr (kMask) {
+        const int kpos = k0 + 8 * j + 2 * tig + (i & 1);
+        if ((p.causal && kpos > row + 8 * r) || kpos >= p.seq) pr = 0.f;
+      }
+      float d = pr * (dp[idx] - dlt[r]);
+      if constexpr (kCap) d *= dcap;
+      s[idx] = d * p.scale;
+    }
+  }
+}
+
+// One consumer warpgroup, tile after tile: its 64 q rows (columns
+// [dc, dc + DN) of dq), the whole K/V walk, the epilogue.  The walk is
+// software-pipelined: iteration j issues S_j and dP_j and then
+// dQ += dS_{j-1}.K_{j-1}, computes dS_j while the tensor cores work on
+// that product, and packs dS_j once it has landed, releasing stage j - 1.
+template <int D, bool kCap>
+__device__ __forceinline__ void consume(
+    const Params& p, const CUtensorMap* tdq, __nv_bfloat16* sQ,
+    const __nv_bfloat16* sG, const __nv_bfloat16* sK,
+    const __nv_bfloat16* sV, Barriers& bar, int wg) {
+  using C = Cfg<D>;
+  constexpr int kM = C::kBlockM;
+  constexpr int DN = C::kCols;
+  const int t = threadIdx.x % kWarpgroupThreads;
+  const int warp = t / 32;
+  const int g = t % 32 / 4;  // accumulator row (and row + 8) of the warp
+  const int tig = t % 4;     // accumulator column pair
+  const int row_off = C::kSplitCols ? 0 : wg * 64;  // rows in the q tile
+  const int dc = C::kSplitCols ? wg * DN : 0;       // first dq column
+  // this warpgroup's 64 rows of Q and dO in every chunk
+  const uint32_t q_base = smem_u32(sQ) + row_off * 128;
+  const uint32_t g_base = smem_u32(sG) + row_off * 128;
+
+  float acc[DN / 2];
+  float s[32], dp[32];      // S and dP of the newest stage; dS in s
+  uint32_t pa[4][4];        // dS of the stage before it: the A of dQ
+  float lse2[2], dlt[2];    // this thread's two rows
+
+  // S = Q K^T and dP = dO V^T of stage st: 64 x 64 each, D / 16 k-steps
+  auto issue_s_dp = [&](int st) {
+    const uint32_t k_base = smem_u32(sK + st * C::kKVElems);
+    const uint32_t v_base = smem_u32(sV + st * C::kKVElems);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t col = (kk % 4) * 32;
+      wgmma_ss<64>(s, sw128_desc(q_base + (kk / 4) * kM * 128 + col, 16, 1024),
+                   sw128_desc(k_base + (kk / 4) * kBlockN * 128 + col, 16, 1024),
+                   kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t col = (kk % 4) * 32;
+      wgmma_ss<64>(dp, sw128_desc(g_base + (kk / 4) * kM * 128 + col, 16, 1024),
+                   sw128_desc(v_base + (kk / 4) * kBlockN * 128 + col, 16, 1024),
+                   kk > 0);
+    }
+    wgmma_commit();
+  };
+  // dQ += dS K: 4 k-steps of 16 kv rows, K read MN-major (the next 64
+  // columns one chunk further)
+  auto issue_dq = [&](int st) {
+    const uint32_t k_cols =
+        smem_u32(sK + st * C::kKVElems) + (dc / 64) * kBlockN * 128;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs<DN>(acc, pa[kk],
+                   sw128_desc(k_cols + kk * 16 * 128, kBlockN * 128, 1024));
+    }
+    wgmma_commit();
+  };
+  // the dS values of kv columns [16kk, 16kk + 16), packed to bf16, are the
+  // A fragment of k-step kk
+  auto pack_ds = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+      }
+    }
+  };
+
+  int it = 0;  // K/V stage uses so far, as the producer counts them
+  for (int n = 0, i; (i = snake_tile(n)) < p.n_tiles; ++n) {
+    const Tile tile = tile_at<D>(p, i);
+    const int wg_row0 = tile.q0 + row_off;
+    const bool live = wg_row0 < p.seq;  // a tile's upper half may lie past S
+    const int row = wg_row0 + warp * 16 + g;
+    const int n_run = run_stages(p, tile, wg_row0);
+    // lse and Delta of this thread's rows; rows past S read nothing (their
+    // Q and dO rows load as zeros, so their dS is 0, and they are not
+    // stored)
+    const long long stat0 =
+        (static_cast<long long>(tile.b) * p.heads + tile.h) * p.seq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool valid = row + 8 * r < p.seq;
+      lse2[r] = valid ? p.lse[stat0 + row + 8 * r] * kLog2e : 0.f;
+      dlt[r] = valid ? p.delta[stat0 + row + 8 * r] : 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < DN / 2; ++c) acc[c] = 0.f;
+    auto grads = [&](int j) {
+      const int k0 = j * kBlockN;
+      if ((p.causal && k0 == wg_row0) || k0 + kBlockN > p.seq) {
+        grads_tile<kCap, true>(s, dp, p, lse2, dlt, k0, row, tig);
+      } else {
+        grads_tile<kCap, false>(s, dp, p, lse2, dlt, k0, row, tig);
+      }
+    };
+
+    mbar_wait(&bar.q_full, n & 1);
+    if (n_run > 0) {
+      const int st0 = it % C::kStages;
+      mbar_wait(&bar.full[st0], (it / C::kStages) & 1);
+      wgmma_fence();
+      issue_s_dp(st0);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      grads(0);
+      pack_ds();
+      for (int j = 1; j < n_run; ++j) {
+        const int st = (it + j) % C::kStages;
+        const int prev = (it + j - 1) % C::kStages;
+        // the wait ahead of the fence: a wait loop between two products
+        // makes ptxas put a warpgroup.arrive before the second (C7519)
+        mbar_wait(&bar.full[st], ((it + j) / C::kStages) & 1);
+        fence_regs(acc);
+        wgmma_fence();
+        issue_s_dp(st);
+        issue_dq(prev);
+        wgmma_wait<1>();  // S_j and dP_j have landed; dQ may still run
+        fence_regs(s);
+        fence_regs(dp);
+        grads(j);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(&bar.empty[prev]);
+        pack_ds();
+      }
+      const int last = (it + n_run - 1) % C::kStages;
+      fence_regs(acc);
+      wgmma_fence();
+      issue_dq(last);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&bar.empty[last]);
+    }
+    for (int k = it + n_run; k < it + tile.n_kv; ++k) {
+      // every (q, kv) pair of the stage is masked: nothing to add
+      const int st = k % C::kStages;
+      mbar_wait(&bar.full[st], (k / C::kStages) & 1);
+      mbar_arrive(&bar.empty[st]);
+    }
+    it += tile.n_kv;
+
+    // Epilogue: dq in bf16 into this warpgroup's Q rows, read no more, in
+    // the layout the dq map's 128-byte swizzle expects (16-byte group n % 8
+    // of a row at (n % 8) ^ (row % 8), row % 8 == g); at D = 256 the other
+    // warpgroup reads the same rows until it is done.
+    if constexpr (C::kSplitCols) named_barrier_sync(kBothBarrier, kConsumers);
+    if (live) {
+      unsigned char* q_bytes = reinterpret_cast<unsigned char*>(sQ);
+      const int trow = row_off + warp * 16 + g;
+#pragma unroll
+      for (int c = 0; c < DN / 8; ++c) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int off = ((dc + 8 * c) / 64) * kM * 128 + (trow + 8 * r) * 128 +
+                          (((c % 8) ^ g) << 4) + tig * 4;
+          *reinterpret_cast<uint32_t*>(q_bytes + off) =
+              pack_bf16(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
+        }
+      }
+    }
+    fence_proxy_async();
+    named_barrier_sync(1 + wg, kWarpgroupThreads);
+    if (t == 0) {
+      if (live) {
+#pragma unroll
+        for (int c = dc / 64; c < (dc + DN) / 64; ++c) {
+          tma_store_4d(tdq, sQ + c * kM * 64 + row_off * 64, c * 64, tile.h,
+                       wg_row0, tile.b);
+        }
+        tma_store_wait();
+      }
+      mbar_arrive(&bar.q_empty);  // Q and dO may take the next tile
+    }
+  }
+}
+
+// The body of both kernels; kCap applies the logit softcap.
+template <int D, bool kCap>
+__device__ __forceinline__ void dq_body(const Params& p,
+                                        const CUtensorMap* tq,
+                                        const CUtensorMap* tk,
+                                        const CUtensorMap* tv,
+                                        const CUtensorMap* tg,
+                                        const CUtensorMap* tdq) {
+  using C = Cfg<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ Barriers bar;
+  // 128-byte swizzled tiles start on 1024-byte boundaries
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  __nv_bfloat16* sG = sQ + C::kQElems;
+  __nv_bfloat16* sK = sG + C::kQElems;
+  __nv_bfloat16* sV = sK + C::kStages * C::kKVElems;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&bar.full[s], 1);
+      mbar_init(&bar.empty[s], kConsumers);
+    }
+    mbar_init(&bar.q_full, 1);
+    mbar_init(&bar.q_empty, 2);  // one thread of each consumer warpgroup
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // One if/else for the two roles, never reconverging (setmaxnreg).  The
+  // warpgroup index goes through a shuffle so that ptxas sees it, and every
+  // branch on it, as uniform: a wgmma under a branch it must treat as
+  // divergent is serialized (warning C7520).
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kWarpgroupThreads, 0);
+  if (wg == kConsumers / kWarpgroupThreads) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers) {
+      produce<D>(p, tq, tk, tv, tg, sQ, sG, sK, sV, bar);
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    consume<D, kCap>(p, tdq, sQ, sG, sK, sV, bar, wg);
+  }
+}
+
+#define DQ_MAPS                                                             \
+  const __grid_constant__ CUtensorMap tq,                                   \
+      const __grid_constant__ CUtensorMap tk,                               \
+      const __grid_constant__ CUtensorMap tv,                               \
+      const __grid_constant__ CUtensorMap tg,                               \
+      const __grid_constant__ CUtensorMap tdq
 
 // B2 and B4's dq: the same body under their own names.
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
-  dq_body<D, false>(p);
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel(const Params p, DQ_MAPS) {
+  dq_body<D, false>(p, &tq, &tk, &tv, &tg, &tdq);
 }
 
 template <int D, bool kCap>
-__global__ void __launch_bounds__(kThreads) splash_bwd_dq_kernel(Params p) {
-  dq_body<D, kCap>(p);
+__global__ void __launch_bounds__(kThreads, 1)
+    splash_bwd_dq_kernel(const Params p, DQ_MAPS) {
+  dq_body<D, kCap>(p, &tq, &tk, &tv, &tg, &tdq);
 }
 
+#undef DQ_MAPS
+
+using Kernel = void (*)(const Params, const CUtensorMap, const CUtensorMap,
+                        const CUtensorMap, const CUtensorMap,
+                        const CUtensorMap);
+
+struct Tensors {
+  const void *q, *k, *v, *g;
+  void* dq;
+  // element strides: batch, seq, head
+  long long qs[3], ks[3], vs[3], gs[3], dqs[3];
+};
+
 template <int D>
-cudaError_t launch_dq(void (*kernel)(Params), const Params& p, int batch,
-                      cudaStream_t stream) {
-  const int smem = static_cast<int>(Smem<D>::kTiles);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+cudaError_t launch(Kernel kernel, Params p, const Tensors& x, int batch,
+                   cudaStream_t stream) {
+  using C = Cfg<D>;
+  p.batch = batch;
+  p.n_tiles = (p.seq + C::kBlockM - 1) / C::kBlockM * p.heads * batch;
+  CUtensorMap tq, tk, tv, tg, tdq;
+  const int s = p.seq;
+  cudaError_t err;
+  if ((err = make_bshd_map(&tq, x.q, batch, s, p.heads, D, x.qs[0], x.qs[1],
+                           x.qs[2], C::kBlockM)) != cudaSuccess ||
+      (err = make_bshd_map(&tg, x.g, batch, s, p.heads, D, x.gs[0], x.gs[1],
+                           x.gs[2], C::kBlockM)) != cudaSuccess ||
+      (err = make_bshd_map(&tk, x.k, batch, s, p.kv_heads, D, x.ks[0],
+                           x.ks[1], x.ks[2], kBlockN)) != cudaSuccess ||
+      (err = make_bshd_map(&tv, x.v, batch, s, p.kv_heads, D, x.vs[0],
+                           x.vs[1], x.vs[2], kBlockN)) != cudaSuccess ||
+      (err = make_bshd_map(&tdq, x.dq, batch, s, p.heads, D, x.dqs[0],
+                           x.dqs[1], x.dqs[2], 64)) != cudaSuccess) {
+    return err;
+  }
+  const int smem = static_cast<int>(C::kSmem);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.seq + kTileRows - 1) / kTileRows, p.heads, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess) {
+    return err;
+  }
+  kernel<<<min(p.n_tiles, sms), kThreads, smem, stream>>>(p, tq, tk, tv, tg,
+                                                          tdq);
   return cudaGetLastError();
 }
 
-Params make_params(const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta,
-                   int seq, int heads, int kv_heads, int causal, float scale,
-                   const long long* qs, const long long* ks,
-                   const long long* vs, const long long* gs) {
+Params make_params(const void* lse, const void* delta, int seq, int heads,
+                   int kv_heads, int causal, float scale, float softcap) {
   Params p = {};
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.g = static_cast<const __nv_bfloat16*>(dout);
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.seq = seq;
@@ -266,11 +570,28 @@ Params make_params(const void* q, const void* k, const void* v,
   p.kv_heads = kv_heads;
   p.causal = causal;
   p.scale = scale;
-  p.q_sb = qs[0]; p.q_ss = qs[1]; p.q_sh = qs[2];
-  p.k_sb = ks[0]; p.k_ss = ks[1]; p.k_sh = ks[2];
-  p.v_sb = vs[0]; p.v_ss = vs[1]; p.v_sh = vs[2];
-  p.g_sb = gs[0]; p.g_ss = gs[1]; p.g_sh = gs[2];
+  const bool cap = softcap > 0.f;
+  p.softcap = softcap;
+  p.inv_softcap = cap ? 1.f / softcap : 0.f;
+  // without the cap the scale folds into the exponent's multiply; with it
+  // the capped score is already scaled
+  p.score_log2 = cap ? kLog2e : scale * kLog2e;
   return p;
+}
+
+Tensors make_tensors(const void* q, const void* k, const void* v,
+                     const void* g, void* dq, const long long* qs,
+                     const long long* ks, const long long* vs,
+                     const long long* gs, const long long* dqs) {
+  Tensors x = {q, k, v, g, dq, {}, {}, {}, {}, {}};
+  for (int i = 0; i < 3; ++i) {
+    x.qs[i] = qs[i];
+    x.ks[i] = ks[i];
+    x.vs[i] = vs[i];
+    x.gs[i] = gs[i];
+    x.dqs[i] = dqs[i];
+  }
+  return x;
 }
 
 }  // namespace
@@ -293,15 +614,15 @@ int flash_attention_bwd_dq_bf16(
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long qs[3] = {q_sb, q_ss, q_sh}, ks[3] = {k_sb, k_ss, k_sh};
   const long long vs[3] = {v_sb, v_ss, v_sh}, gs[3] = {g_sb, g_ss, g_sh};
-  Params p = make_params(q, k, v, dout, lse, delta, seq, heads, kv_heads,
-                         causal, scale, qs, ks, vs, gs);
-  p.dq = static_cast<__nv_bfloat16*>(dq);
-  p.dq_sb = dq_sb; p.dq_ss = dq_ss; p.dq_sh = dq_sh;
+  const long long dqs[3] = {dq_sb, dq_ss, dq_sh};
+  const Params p = make_params(lse, delta, seq, heads, kv_heads, causal,
+                               scale, 0.f);
+  const Tensors x = make_tensors(q, k, v, dout, dq, qs, ks, vs, gs, dqs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 64: return static_cast<int>(launch_dq<64>(flash_bwd_dq_kernel<64>, p, batch, s));
-    case 128: return static_cast<int>(launch_dq<128>(flash_bwd_dq_kernel<128>, p, batch, s));
-    case 256: return static_cast<int>(launch_dq<256>(flash_bwd_dq_kernel<256>, p, batch, s));
+    case 64: return static_cast<int>(launch<64>(flash_bwd_dq_kernel<64>, p, x, batch, s));
+    case 128: return static_cast<int>(launch<128>(flash_bwd_dq_kernel<128>, p, x, batch, s));
+    case 256: return static_cast<int>(launch<256>(flash_bwd_dq_kernel<256>, p, x, batch, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -319,23 +640,21 @@ int splash_attention_bwd_dq_bf16(
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long qs[3] = {q_sb, q_ss, q_sh}, ks[3] = {k_sb, k_ss, k_sh};
   const long long vs[3] = {v_sb, v_ss, v_sh}, gs[3] = {g_sb, g_ss, g_sh};
-  Params p = make_params(q, k, v, dout, lse, delta, seq, heads, kv_heads,
-                         causal, scale, qs, ks, vs, gs);
-  p.dq = static_cast<__nv_bfloat16*>(dq);
-  p.dq_sb = dq_sb; p.dq_ss = dq_ss; p.dq_sh = dq_sh;
+  const long long dqs[3] = {dq_sb, dq_ss, dq_sh};
+  const Params p = make_params(lse, delta, seq, heads, kv_heads, causal,
+                               scale, softcap);
+  const Tensors x = make_tensors(q, k, v, dout, dq, qs, ks, vs, gs, dqs);
   const bool cap = softcap > 0.f;
-  p.softcap = softcap;
-  p.inv_softcap = cap ? 1.f / softcap : 0.f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 128:
       return static_cast<int>(
-          cap ? launch_dq<128>(splash_bwd_dq_kernel<128, true>, p, batch, s)
-              : launch_dq<128>(splash_bwd_dq_kernel<128, false>, p, batch, s));
+          cap ? launch<128>(splash_bwd_dq_kernel<128, true>, p, x, batch, s)
+              : launch<128>(splash_bwd_dq_kernel<128, false>, p, x, batch, s));
     case 256:
       return static_cast<int>(
-          cap ? launch_dq<256>(splash_bwd_dq_kernel<256, true>, p, batch, s)
-              : launch_dq<256>(splash_bwd_dq_kernel<256, false>, p, batch, s));
+          cap ? launch<256>(splash_bwd_dq_kernel<256, true>, p, x, batch, s)
+              : launch<256>(splash_bwd_dq_kernel<256, false>, p, x, batch, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -98,13 +98,11 @@
 // nonzero multiple of 8 elements, every base pointer 16-byte aligned); lse
 // and Delta are contiguous [B, H, S] f32.
 
-#include "flash_common.cuh"
 #include "hopper_common.cuh"
 
 namespace {
 
 using namespace hopper;
-using flash::pack_bf16;
 
 constexpr int kBlockQ = 64;  // q rows per stage
 constexpr int kWarpgroupThreads = 128;

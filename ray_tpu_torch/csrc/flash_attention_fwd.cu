@@ -77,14 +77,11 @@
 // multiple of 8 elements, every base pointer 16-byte aligned); lse is a
 // contiguous [B, H, S] f32 array.
 
-#include "flash_common.cuh"
 #include "hopper_common.cuh"
 
 namespace {
 
 using namespace hopper;
-using flash::kNegInf;
-using flash::pack_bf16;
 
 constexpr int kBlockM = 128;                  // q rows per work tile
 constexpr int kWarpgroupThreads = 128;

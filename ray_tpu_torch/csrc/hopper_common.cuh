@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
 // mbarriers, TMA tensor-map loads and stores, wgmma shared-memory
 // descriptors and products, register reallocation (setmaxnreg), named
-// barriers, the persistent grid's tile walk, and the host-side tensor-map
-// encoder.
+// barriers, the persistent grid's tile walk, the host-side tensor-map
+// encoder, and the mask value and bf16 packing the attention kernels
+// share.
 //
 // Shared-memory tiles are what TMA writes under CU_TENSOR_MAP_SWIZZLE_128B:
 // a tile of R rows x 64 bf16 columns (one 128-byte row each) whose 16-byte
@@ -34,13 +35,23 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; no driver call is linked
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
 
+constexpr float kNegInf = -1e30f;  // JAX's mask value (not -inf)
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Two f32 values as one register of two bf16, lo in the low half: the
+// element order of a wgmma A fragment.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // ---------------------------------------------------------------- mbarrier

@@ -38,9 +38,11 @@ class TransformerConfig:
     # attention
     causal: bool = True
     attn_logit_softcap: float = 0.0
-    #: "auto" (mha dispatcher: the flash kernel on CUDA for long sequences,
-    #: plain elsewhere), "plain", "flash" (ops/flash_attention), or "splash"
-    #: (not ported yet: raises NotImplementedError).
+    #: "auto" (mha dispatcher: the flash kernel for bf16 CUDA tensors at
+    #: long sequences, plain elsewhere), "plain", "flash"
+    #: (ops/flash_attention), or "splash" (ops/splash_attention: kernel B4
+    #: on bf16 CUDA tensors; a shape, dtype or head dim it does not take
+    #: falls back to "auto" after one RuntimeWarning).
     attention_impl: str = "auto"
 
     @property

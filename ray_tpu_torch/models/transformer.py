@@ -172,10 +172,12 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return _rotate(x, cos[None, :, None, :], sin[None, :, None, :])
 
 
-def _attention_fn(cfg: TransformerConfig, seq: int, is_cuda: bool):
-    """The attention step: (q, k, v) -> out, and the names its residuals
-    carry (flash's are tagged inside its vjp in JAX; splash passes no
-    ``residual_checkpoint_name``, so its residuals are unnamed)."""
+def _attention_fn(cfg: TransformerConfig, seq: int, is_cuda: bool,
+                  dtype: torch.dtype):
+    """The attention step on ``dtype`` inputs: (q, k, v) -> out, and the
+    names its residuals carry (flash's are tagged inside its vjp in JAX;
+    splash passes no ``residual_checkpoint_name``, so its residuals are
+    unnamed)."""
     impl, causal = cfg.attention_impl, cfg.causal
     cap = cfg.attn_logit_softcap
 
@@ -192,13 +194,18 @@ def _attention_fn(cfg: TransformerConfig, seq: int, is_cuda: bool):
     if impl == "plain":
         return (lambda q, k, v: attend(q, k, v, causal=causal,
                                        logit_softcap=cap)), None
-    if impl == "flash" and cap == 0.0:
+    # the flash kernel takes bf16 only; on CPU tensors flash_attention runs
+    # its plain version, which takes any dtype
+    if impl == "flash" and cap == 0.0 and (
+            not is_cuda or dtype == torch.bfloat16):
         from ..ops.flash_attention import flash_attention
         return (lambda q, k, v: flash_attention(q, k, v, causal=causal),
                 FLASH_RESIDUALS)
-    # "auto", or flash declined a softcap: mha picks flash or plain
+    # "auto", or flash declined a softcap or a dtype: mha picks flash or
+    # plain
     names = (FLASH_RESIDUALS
-             if flash_kernel_takes(is_cuda, seq, cfg.head_dim, cap) else None)
+             if flash_kernel_takes(is_cuda, seq, cfg.head_dim, cap, dtype)
+             else None)
     return auto, names
 
 
@@ -216,11 +223,12 @@ def _norm_step(name: str, x: str, out: str, lp: Params,
 
 
 def _layer_steps(lp: Params, cfg: TransformerConfig, positions: torch.Tensor,
-                 lead: Tuple[int, int], is_cuda: bool) -> List[rm.Step]:
-    """One transformer block as steps over named values: the input "x",
-    the layer's params by path ("attn.wq", ...), the output "y".  Values
-    named as in the JAX package's checkpoint_name tags are kept by the
-    policies that save those names."""
+                 lead: Tuple[int, int], is_cuda: bool,
+                 dtype: torch.dtype) -> List[rm.Step]:
+    """One transformer block on ``dtype`` activations as steps over named
+    values: the input "x", the layer's params by path ("attn.wq", ...), the
+    output "y".  Values named as in the JAX package's checkpoint_name tags
+    are kept by the policies that save those names."""
     b, s = lead
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     attn, mlp = lp["attn"], lp["mlp"]
@@ -247,7 +255,7 @@ def _layer_steps(lp: Params, cfg: TransformerConfig, positions: torch.Tensor,
         return g
 
     bo = ("attn.bo",) if "bo" in attn else ()
-    attention, residual_names = _attention_fn(cfg, s, is_cuda)
+    attention, residual_names = _attention_fn(cfg, s, is_cuda, dtype)
     steps = [
         _norm_step("attn_norm", "x", "attn_in", lp, cfg),
         rm.Step("wq", rm.dot, ("attn_in", "attn.wq"), ("q_dot",), rm.DOT),
@@ -345,7 +353,8 @@ def block_forward(x: torch.Tensor, lp: Params, cfg: TransformerConfig,
     (see ``remat_policy``) says what its backward keeps; None keeps all."""
     if cfg.num_experts > 1:
         raise _not_ported("MoE (num_experts > 1)", "queue A, ops/moe.py")
-    steps = _layer_steps(lp, cfg, positions, x.shape[:2], x.is_cuda)
+    steps = _layer_steps(lp, cfg, positions, x.shape[:2], x.is_cuda,
+                         x.dtype)
     y = rm.run(steps, {"x": x, **_flat(lp)}, "y", policy)
     return y, torch.zeros((), dtype=torch.float32, device=x.device)
 

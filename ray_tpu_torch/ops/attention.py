@@ -51,20 +51,22 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_kernel_takes(is_cuda: bool, seq: int, head_dim: int,
-                       logit_softcap: float) -> bool:
-    """Whether ``mha`` sends this call to the flash kernel: CUDA tensors,
-    long sequences, a head dim the kernel has, no softcap (the flash kernel
-    does not implement it; plain attention does)."""
-    return (is_cuda and seq >= 1024 and head_dim in (64, 128, 256)
-            and logit_softcap == 0.0)
+                       logit_softcap: float, dtype: torch.dtype) -> bool:
+    """Whether ``mha`` sends this call to the flash kernel: bf16 CUDA
+    tensors, long sequences, a head dim the kernel has, no softcap.  Every
+    other call takes plain attention, which computes them all: the kernel
+    is built for bf16 only and has no softcap."""
+    return (is_cuda and dtype == torch.bfloat16 and seq >= 1024
+            and head_dim in (64, 128, 256) and logit_softcap == 0.0)
 
 
 def mha(q, k, v, causal: bool = True, logit_softcap: float = 0.0,
         use_flash: Optional[bool] = None):
-    """Dispatch between the flash kernel (CUDA, long seq) and plain attention."""
+    """Dispatch between the flash kernel (bf16 CUDA tensors, long seq) and
+    plain attention."""
     if use_flash is None:
         use_flash = flash_kernel_takes(q.is_cuda, q.shape[1], q.shape[-1],
-                                       logit_softcap)
+                                       logit_softcap, q.dtype)
     if use_flash:
         if logit_softcap > 0.0:
             raise ValueError("flash_attention does not implement logit_softcap;"

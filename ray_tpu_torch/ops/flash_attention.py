@@ -100,9 +100,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Differentiable in q, k and v.  ``block_q``/``block_kv`` are the plain
     versions' tiles; the CUDA kernels fix their own (the forward 128 q rows
-    against 128 K/V rows, 64 at D=256; dq 64 by 64; dk/dv 128 kv rows, 64
-    at D=256, against 64 q rows), sizes their shared-memory and register
-    budgets set.  ``launches`` counts B1's launches
+    against 128 K/V rows, 64 at D=256; dq 128 q rows, 64 at D=256, against
+    64 K/V rows; dk/dv 128 kv rows, 64 at D=256, against 64 q rows), sizes
+    their shared-memory and register budgets set.  ``launches`` counts B1's launches
     (``flash_attention_bwd_dq.launches`` and
     ``flash_attention_bwd_dkv.launches`` count B2's and B3's).
     """

@@ -19,9 +19,12 @@ dtype first.
 Dispatch contract (``splash_mha``): the attention output, or **None** after
 one RuntimeWarning per process when the shape does not tile for splash
 (head dim or sequence not a multiple of 128, heads not a multiple of kv
-heads); the caller then falls back to ``mha``.  A CUDA tensor whose kernel
-does not build or launch, or a shape the kernel has no instantiation for
-(head dim 384, say), raises: nothing gives way to the plain version.
+heads) or, on CUDA tensors, when B4 does not take them (a dtype other than
+bf16, a head dim it has no instantiation for: 384, say); the caller then
+falls back to ``mha``.  That is decided up front
+(``splash_kernel_declines``).  The kernel wrappers themselves raise on
+what they do not take, and a kernel that does not build or launch raises:
+nothing gives way to the plain version after a failure.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ import torch
 
 from . import flash_attention as fa
 
-__all__ = ["splash_mha", "splash_supported", "DEFAULT_BLOCK"]
+__all__ = ["splash_mha", "splash_supported", "splash_kernel_declines",
+           "DEFAULT_BLOCK"]
 
 #: Forward/backward tile edge of the plain versions when the sequence
 #: allows it; shrunk to the largest multiple of 128 that divides it.
@@ -74,6 +78,22 @@ def splash_supported(seq_q: int, seq_kv: int, num_heads: int,
         return f"seq ({seq_q}, {seq_kv}) not a multiple of 128"
     if num_kv_heads < 1 or num_heads % num_kv_heads != 0:
         return f"heads {num_heads} not a multiple of kv heads {num_kv_heads}"
+    return None
+
+
+def splash_kernel_declines(is_cuda: bool, dtype: torch.dtype,
+                           head_dim: int) -> Optional[str]:
+    """None when ``splash_mha`` can run inputs of this device, dtype and
+    head dim, else the reason it declines: B4 takes bf16 CUDA tensors at
+    the head dims it is instantiated for (``KERNEL_HEAD_DIMS``).  CPU
+    tensors take the plain versions, which take any."""
+    if not is_cuda:
+        return None
+    if dtype != torch.bfloat16:
+        return f"the splash kernel takes bf16, not {dtype}"
+    if head_dim not in KERNEL_HEAD_DIMS:
+        return (f"the splash kernel has no head_dim={head_dim} (it has "
+                f"{KERNEL_HEAD_DIMS})")
     return None
 
 
@@ -190,7 +210,9 @@ def splash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Splash attention over [B, S, H, D] q and [B, S, KV, D] k/v.
 
     Returns None (after one RuntimeWarning per process) when the shape does
-    not tile for splash; the caller is expected to fall back to ``mha``.
+    not tile for splash, or when the kernel does not take these CUDA
+    tensors (``splash_kernel_declines``); the caller is expected to fall
+    back to ``mha``.
     The block sizes tile the plain versions (CPU tensors), forward and
     backward apart; on the card the kernel's own tiles apply.  ``mesh``
     must be None (one card; sharding is ROADMAP A5); ``batch_axes``,
@@ -204,7 +226,8 @@ def splash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "yet (ROADMAP: queue A5, DDP / FSDP)")
     b, seq_q, num_heads, head_dim = q.shape
     seq_kv, num_kv = k.shape[1], k.shape[2]
-    reason = splash_supported(seq_q, seq_kv, num_heads, num_kv, head_dim)
+    reason = (splash_supported(seq_q, seq_kv, num_heads, num_kv, head_dim)
+              or splash_kernel_declines(q.is_cuda, q.dtype, head_dim))
     if reason is not None:
         _warn_once(reason)
         return None

@@ -109,6 +109,33 @@ def test_flash_backward_kernels_match_plain_on_card(cuda_device, causal, S,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal,S,H,KV,D", [
+    (True, 64, 8, 2, 128),      # the upper warpgroup has no live row
+    (False, 64, 8, 2, 64),      # one K/V stage
+    (False, 128, 8, 2, 128),    # one q tile, non-causal
+    (True, 1088, 4, 2, 256),    # 64 rows past a 1024-row boundary
+    (True, 256, 16, 4, 256),    # GQA reps 4
+    (True, 200, 4, 1, 128)])    # ragged inside the only q tile
+def test_dq_kernel_edges_match_plain_on_card(cuda_device, causal, S, H, KV,
+                                             D):
+    """B2 at the edges of its tiles: q tiles of 128 rows over two
+    warpgroups (64 at D=256), K/V stages of 64 rows.  dq within GRAD_RTOL
+    of the plain version, and the same bits on a second run."""
+    q, k, v, dout = _inputs(cuda_device, 2, S, H, KV, D, seed=4)
+    out, lse = tflash._flash_fwd(q, k, v, causal)
+    delta = tflash._delta(out, dout)
+    got = tflash.flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal)
+    again = tflash.flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal)
+    torch.cuda.synchronize()
+    want = tflash.flash_attention_bwd_reference(q, k, v, out, lse, dout,
+                                                causal)[0]
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.isfinite(got).all()
+    assert _rel_err(got, want) < GRAD_RTOL, _rel_err(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_backward_kernels_on_strided_views_match_plain_on_card(
         cuda_device, D):

@@ -1,9 +1,11 @@
 """The port stands alone: every module of ray_tpu_torch imports with jax and
-ray_tpu blocked, no module (nor chip_smoke.py) imports either, and the
-entry points never drop to the CPU on their own."""
+ray_tpu blocked, no module (nor chip_smoke.py) imports either, the entry
+points never drop to the CPU on their own, and no CUDA source issues
+Ampere's instructions."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -161,3 +163,17 @@ def test_cuda_tensor_never_takes_the_splash_plain_version(monkeypatch):
         sa._splash_bwd(_T(), None, None, None, None, _G(), True, 50.0, 512,
                        512)
     assert reached == ["fwd", "dq"]
+
+
+_ASM = re.compile(r'asm\s+volatile\s*\((.*?)(?:::|\);)', re.S)
+
+
+@pytest.mark.parametrize("path", sorted((PORT / "csrc").glob("*.cu*")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_kernel_issues_ampere_instructions(path):
+    """Every kernel body is on Hopper's instructions: no asm statement in
+    the CUDA sources issues mma.sync, ldmatrix or a cp.async that is not
+    TMA's bulk copy (comments may still name the designs they replaced)."""
+    code = "".join(m.group(1) for m in _ASM.finditer(path.read_text()))
+    assert "mma.sync" not in code and "ldmatrix" not in code
+    assert not re.search(r"cp\.async(?!\.bulk)", code)

@@ -210,7 +210,8 @@ def test_remat_policy_keeps_and_replays_what_jax_saves(policy, impl):
     tc = dataclasses.replace(tc, num_kv_heads=1)
     params = ttr.init_params(torch.Generator().manual_seed(0), tc)
     lp = ttr.unbind_layers(params["blocks"], tc.num_layers)[0]
-    steps = ttr._layer_steps(lp, tc, torch.arange(128), (1, 128), False)
+    steps = ttr._layer_steps(lp, tc, torch.arange(128), (1, 128), False,
+                             torch.float32)
     plan = rm._Plan(steps, ("x", *ttr._flat(lp)), "y",
                     ttr.remat_policy(policy)[1])
     assert set(plan.kept) == _KEPT[policy, impl]
