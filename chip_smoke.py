@@ -30,13 +30,32 @@ script exits non-zero:
    versions' and the backward of ``scaled_dot_product_attention`` (one
    library call for B2 + B3 together).
 5. The serving path at full width: ``LLMEngine`` on Llama-3-8B (32 layers,
-   hidden 4096, random bf16 weights from seed 0), 8 concurrent requests, 5
-   with prompts of 1100-1900 tokens (bucket 2048, through the flash kernel)
-   and 3 short ones (plain attention), 16 tokens each.  Launch counts are
-   zeroed just before and read just after.  Then the prefill logits of one
-   batch through the kernel against the same prefill through the kernel's
-   plain version, and where the time of one prefill batch and one decode
-   dispatch goes (torch.profiler).
+   hidden 4096, random bf16 weights from seed 0, drawn once and passed to
+   every serving engine), 8 concurrent requests, 5 with prompts of
+   1100-1900 tokens (bucket 2048, through the flash kernel) and 3 short
+   ones (plain attention), 16 tokens each.  Launch counts are zeroed just
+   before and read just after.  Then the prefill logits of one batch
+   through the kernel against the same prefill through the kernel's plain
+   version, and where the time of one prefill batch and one decode
+   dispatch goes (torch.profiler).  The same requests then go through:
+   a. the paged engine (``paged=True, page_size=64``), whose prefill
+      attends with f32 einsums over the gathered pages as the JAX
+      package's does: no kernel may launch; its prefill logits against the
+      dense prefill's (through B1); a paged prefill batch and a paged
+      decode dispatch traced;
+   b. the paged engine with a shared 1024-token prefix and 32-token tails
+      (bench_llm.py's prefix arm), 4 requests and then 4 more: 4 prefix
+      hits reusing 1024 tokens each; the suffix prefill's logits against a
+      cold prefill's;
+   c. the paged engine with speculative decoding (k 4, a 1-layer draft;
+      bench_llm.py's paged_spec arm) on weights damped past the first
+      block: B1 launches from the draft's prefill counted, no draft error,
+      acceptance read, the vanilla paged engine on the same weights beside
+      it (streams' agreement read, no limit), the dense and paged verify
+      windows' logits against 4 sequential decode steps;
+   d. a 2-layer f32 cut at full width: the spec streams must equal the
+      vanilla ones, and the spec engine's pages a fresh prefill's of each
+      verified sequence (the rollback invariant).
 6. The training path at full width: ``make_optimizer`` /
    ``init_sharded_state`` / ``make_train_step`` on llama_1b (16 layers,
    hidden 2048, 16 q / 8 kv heads, vocab 32768; fp32 params and Adam state,
@@ -147,6 +166,16 @@ TRAIN_STEPS, TRAIN_UNTIMED = 8, 2
 LONG_PROMPTS = (1100, 1300, 1500, 1700, 1900)
 SHORT_PROMPTS = (40, 50, 60)
 MAX_TOKENS = 16
+SERVE_MAX_LEN, PAGE_SIZE = 2048, 64
+# bench_llm.py's prefix arm: one shared prefix and a short tail of its own
+PREFIX_LEN, TAIL_LEN = 1024, 32
+# the f32 exactness run: 4 prompts (buckets 512 and 1024), 24 tokens each;
+# the spec engine's pages against a fresh prefill, as a share of the
+# largest magnitude (a k-token window and a prefill sum the same f32 terms
+# in another order)
+EXACT_PROMPTS = (300, 500, 700, 900)
+EXACT_MAX_TOKENS = 24
+SPEC_KV_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -516,86 +545,123 @@ def patched(module, name: str, fn):
         setattr(module, name, real)
 
 
-def serve_llama(dev):
-    """Phase 5: the serving path at full width."""
-    import numpy as np
+def llama3_8b_params(cfg, dev):
+    """Llama-3-8B's random bf16 weights, drawn once from seed 0 as
+    ``LLMEngine`` draws them, and passed to every serving engine."""
     import torch
-    from ray_tpu_torch.models import config as mcfg
+    from ray_tpu_torch.models import transformer
+
+    t0 = time.perf_counter()
+    params = transformer.init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"llama3_8b params (random bf16 weights, {cfg.num_params() / 1e9:.2f}"
+        f" B params): {time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def serving_prompts(cfg):
+    """The serving phases' 8 prompts (numpy seed 0): 5 long, 3 short."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [rng.integers(1, cfg.vocab_size, n).tolist()
+            for n in LONG_PROMPTS + SHORT_PROMPTS]
+
+
+def warm(eng, cfg, lengths):
+    """First use of each bucket (cuBLAS heuristics, allocator growth) on
+    tokens of their own (numpy seed 99: no prefix-cache hit for the
+    measured prompts), outside the measured run."""
+    import numpy as np
+    rng = np.random.default_rng(99)
+    for n in lengths:
+        eng.generate(rng.integers(1, cfg.vocab_size, n).tolist(),
+                     max_tokens=2)
+
+
+def collect(req):
+    """One request's streamed tokens; an error in the engine raises."""
+    toks = []
+    while True:
+        item = req.out.get(timeout=600)
+        if isinstance(item, BaseException):
+            raise item
+        if not isinstance(item, int):
+            return toks
+        toks.append(item)
+
+
+def run_requests(eng, cfg, prompts, max_tokens=MAX_TOKENS):
+    """Submit every prompt at once, collect every stream, check lengths and
+    vocabulary.  -> (outs, reqs, stats: TTFT per request from the common
+    submit time, decode tokens/s after the first token, wall)."""
+    t_submit = time.monotonic()
+    reqs = [eng.submit(p, max_tokens=max_tokens) for p in prompts]
+    outs = [collect(r) for r in reqs]
+    t_done = time.monotonic()
+    for p, toks in zip(prompts, outs):
+        if len(toks) != max_tokens or not all(
+                0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"prompt of {len(p)} tokens returned "
+                                 f"{len(toks)} tokens: {toks}")
+    ttft = sorted((r.first_token_at - t_submit) * 1e3 for r in reqs)
+    first = min(r.first_token_at for r in reqs)
+    return outs, reqs, {
+        "requests": len(reqs), "tokens_out": sum(map(len, outs)),
+        "ttft_ms": ttft, "ttft_ms_p50": ttft[len(ttft) // 2],
+        "decode_tok_s": sum(len(t) - 1 for t in outs) / (t_done - first),
+        "wall_s": t_done - t_submit}
+
+
+def long_batches_since(eng, before):
+    """Admit batches at buckets >= 1024 (of whole prompts) since
+    ``before``, a copy of ``eng.admit_batches_by_bucket``."""
+    return sum(n - before.get(bk, 0)
+               for bk, n in eng.admit_batches_by_bucket.items() if bk >= 1024)
+
+
+def serve_llama(dev, cfg, params):
+    """Phase 5: the serving path at full width."""
+    import torch
     from ray_tpu_torch.ops.flash_attention import flash_attention
     from ray_tpu_torch.serve.llm import LLMEngine
 
-    cfg = mcfg.llama3_8b()
-    t0 = time.perf_counter()
-    eng = LLMEngine(cfg, device="cuda", num_slots=8, max_len=2048, seed=0)
-    torch.cuda.synchronize()
-    log(f"engine up (random bf16 weights, {cfg.num_params() / 1e9:.2f} B "
-        f"params): {time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
-               for n in LONG_PROMPTS + SHORT_PROMPTS]
+    eng = LLMEngine(cfg, params, device="cuda", num_slots=8, max_len=2048)
+    prompts = serving_prompts(cfg)
     try:
-        # first use of each bucket (cuBLAS heuristics, allocator growth)
-        # stays out of the measured run
-        for n in (LONG_PROMPTS[0], SHORT_PROMPTS[0]):
-            eng.generate(prompts[0][:n], max_tokens=2)
+        warm(eng, cfg, (LONG_PROMPTS[0], SHORT_PROMPTS[0]))
         batches_before = dict(eng.admit_batches_by_bucket)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         flash_attention.launches = 0
-        t_submit = time.monotonic()
-        reqs = [eng.submit(p, max_tokens=MAX_TOKENS) for p in prompts]
-        outs = []
-        for r in reqs:
-            toks = []
-            while True:
-                item = r.out.get(timeout=600)
-                if isinstance(item, BaseException):
-                    raise item
-                if not isinstance(item, int):
-                    break
-                toks.append(item)
-            outs.append(toks)
-        t_done = time.monotonic()
+        outs, reqs, stats = run_requests(eng, cfg, prompts)
         launches = flash_attention.launches
         peak = torch.cuda.max_memory_allocated()
-        long_batches = sum(
-            n - batches_before.get(bk, 0)
-            for bk, n in eng.admit_batches_by_bucket.items() if bk >= 1024)
+        long_batches = long_batches_since(eng, batches_before)
     finally:
         eng.shutdown()
 
-    for p, toks in zip(prompts, outs):
-        if len(toks) != MAX_TOKENS or not all(
-                0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f"prompt of {len(p)} tokens returned "
-                                 f"{len(toks)} tokens: {toks}")
     if long_batches < 1 or launches < cfg.num_layers * long_batches:
         raise AssertionError(
             f"flash kernel launched {launches} times for {long_batches} "
             f"prefill batches at bucket >= 1024 ({cfg.num_layers} layers)")
-    ttft = sorted((r.first_token_at - t_submit) * 1e3 for r in reqs)
-    first = min(r.first_token_at for r in reqs)
-    stats = {
-        "requests": len(reqs), "tokens_out": sum(map(len, outs)),
-        "long_prefill_batches": long_batches, "flash_launches": launches,
-        "ttft_ms": ttft, "ttft_ms_p50": ttft[len(ttft) // 2],
-        "decode_tok_s": sum(len(t) - 1 for t in outs) / (t_done - first),
-        "wall_s": t_done - t_submit, "peak_mem_gb": peak / 1e9,
-    }
+    stats.update(long_prefill_batches=long_batches, flash_launches=launches,
+                 peak_mem_gb=peak / 1e9)
     log("serve " + json.dumps(stats))
     check_prefill_logits(eng, cfg, prompts, dev)
     where_time_goes(eng, cfg, prompts, dev)
     return stats, launches
 
 
-def _prefill_batch(cfg, prompts, batch, dev):
+def _prefill_batch(cfg, prompts, batch, dev, cycle=len(LONG_PROMPTS)):
+    """A bucket-2048 batch of the first ``cycle`` prompts, repeated."""
     import numpy as np
     import torch
     bucket = 2048
     toks = np.zeros((batch, bucket), np.int32)
     lens = []
     for i in range(batch):
-        p = prompts[i % len(LONG_PROMPTS)]
+        p = prompts[i % (cycle or len(prompts))]
         toks[i, :len(p)] = p
         lens.append(len(p))
     return (torch.from_numpy(toks).to(dev),
@@ -654,8 +720,6 @@ def where_time_goes(eng, cfg, prompts, dev):
     8 slots), each timed with a synchronize and traced once with
     torch.profiler: device-busy share and the kernels that take the most
     device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from ray_tpu_torch.models import decode as dec
 
     toks, lengths, slots = _prefill_batch(cfg, prompts, 8, dev)
@@ -667,9 +731,19 @@ def where_time_goes(eng, cfg, prompts, dev):
     def run_decode():
         dec.decode_state_loop(eng.params, eng.cache, eng._state, steps, cfg)
 
+    trace_calls((("prefill_8x2048", run_prefill, 1),
+                 ("decode_dispatch", run_decode, steps)))
+
+
+def trace_calls(calls):
+    """Each (name, fn, steps) timed once with a synchronize after a warm
+    run, then traced once with torch.profiler: device-busy share and the
+    kernels that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     with torch.inference_mode():
-        for name, fn, per in (("prefill_8x2048", run_prefill, 1),
-                              ("decode_dispatch", run_decode, steps)):
+        for name, fn, per in calls:
             fn()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -691,6 +765,344 @@ def where_time_goes(eng, cfg, prompts, dev):
                 "device_busy_share": busy / wall_ms,
                 "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
                                    for e in top}}))
+
+
+def logits_check(name, got, want):
+    """Last-token logits ``got`` against ``want`` ([N, V] f32) within the
+    prefill limits: rms and largest difference as shares of ``want``'s
+    std."""
+    import torch
+    spread = want.std().item()
+    row = {"check": name, "std": spread,
+           "rms_diff": (got - want).pow(2).mean().sqrt().item(),
+           "max_abs_diff": (got - want).abs().max().item(),
+           "argmax_agree": (got.argmax(-1) == want.argmax(-1)).float()
+           .mean().item(),
+           "finite": bool(torch.isfinite(got).all())}
+    log("logits " + json.dumps(row))
+    if not (row["finite"] and row["rms_diff"] <= LOGITS_RMS * spread
+            and row["max_abs_diff"] <= LOGITS_MAX * spread):
+        raise AssertionError(
+            f"{name}: logits differ by rms {row['rms_diff']}, max "
+            f"{row['max_abs_diff']} (limits {LOGITS_RMS}, {LOGITS_MAX} x std "
+            f"{spread})")
+    return row
+
+
+def paged_cache_for(cfg, slots, pages_per_slot, dev, dtype=None):
+    """A paged cache (the serving engine's page size and block-table
+    width) in which slot s owns pages 1 + s * pages_per_slot onwards."""
+    import torch
+    from ray_tpu_torch.models import paged_decode as pdec
+    cache = pdec.init_paged_cache(cfg, slots * pages_per_slot + 1, PAGE_SIZE,
+                                  slots, SERVE_MAX_LEN // PAGE_SIZE,
+                                  dtype or torch.bfloat16, dev)
+    cache["block_table"][:, :pages_per_slot] = 1 + torch.arange(
+        slots * pages_per_slot, device=dev).reshape(slots, pages_per_slot)
+    return cache
+
+
+def _zeros(n, dev):
+    import torch
+    return torch.zeros(n, dtype=torch.int32, device=dev)
+
+
+def serve_llama_paged(dev, cfg, params):
+    """Phase serve_llama3_8b_paged: the serving phase's requests through
+    the paged engine (``paged=True, page_size=64``).  The paged prefill
+    attends with f32 einsums over the gathered pages, as the JAX package's
+    does, so no kernel launches; its logits are held against the dense
+    prefill's (through B1), and one paged prefill batch and one paged
+    decode dispatch are timed and traced."""
+    import torch
+    from ray_tpu_torch.models import decode as dec
+    from ray_tpu_torch.models import paged_decode as pdec
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    eng = LLMEngine(cfg, params, device="cuda", num_slots=8,
+                    max_len=SERVE_MAX_LEN, paged=True, page_size=PAGE_SIZE)
+    prompts = serving_prompts(cfg)
+    try:
+        warm(eng, cfg, (LONG_PROMPTS[0], SHORT_PROMPTS[0]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        _, _, stats = run_requests(eng, cfg, prompts)
+        launches = flash_attention.launches
+        stats.update(flash_launches=launches,
+                     peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                     kv_pages=eng.breakdown()["kv_pages"],
+                     num_pages=eng.num_pages)
+    finally:
+        eng.shutdown()
+    log("serve_paged " + json.dumps(stats))
+    if launches:
+        raise AssertionError(f"the paged engine launched the flash kernel "
+                             f"{launches} times; its prefill has none")
+
+    toks, lengths, slots = _prefill_batch(cfg, prompts, 2, dev)
+    with torch.inference_mode():
+        _, dense = dec.prefill(params, dec.init_kv_cache(
+            cfg, 2, SERVE_MAX_LEN, torch.bfloat16, dev), toks, lengths,
+            slots, cfg)
+        _, paged = pdec.paged_prefill(
+            params, paged_cache_for(cfg, 2, SERVE_MAX_LEN // PAGE_SIZE, dev),
+            toks, lengths, slots, _zeros(2, dev), cfg)
+    logits_check("paged_prefill_vs_dense_prefill_b1", paged, dense)
+    del dense, paged
+
+    toks, lengths, slots = _prefill_batch(cfg, prompts, 8, dev)
+    pc = paged_cache_for(cfg, 8, SERVE_MAX_LEN // PAGE_SIZE, dev)
+    steps = eng.steps_per_dispatch
+    trace_calls((
+        ("paged_prefill_8x2048", lambda: pdec.paged_prefill(
+            params, pc, toks, lengths, slots, _zeros(8, dev), cfg), 1),
+        ("paged_decode_dispatch", lambda: pdec.paged_decode_state_loop(
+            params, eng.cache, eng._state, steps, cfg), steps)))
+    return stats
+
+
+def serve_llama_paged_prefix(dev, cfg, params):
+    """Phase serve_llama3_8b_paged_prefix: prompts of one shared 1024-token
+    prefix and a 32-token tail of their own, as bench_llm.py's prefix arm
+    builds them; 4 requests, then 4 more, whose admissions reuse the
+    prefix's 16 pages each.  The second wave's first-token logits (a suffix
+    prefill from position 1024) are held against a cold paged prefill of
+    the same prompts."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.models import paged_decode as pdec
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(1, cfg.vocab_size, PREFIX_LEN).tolist()
+    prompts = [prefix + rng.integers(1, cfg.vocab_size, TAIL_LEN).tolist()
+               for _ in range(8)]
+    eng = LLMEngine(cfg, params, device="cuda", num_slots=8,
+                    max_len=SERVE_MAX_LEN, paged=True, page_size=PAGE_SIZE)
+    try:
+        warm(eng, cfg, (PREFIX_LEN + TAIL_LEN, TAIL_LEN))
+        waves = [run_requests(eng, cfg, wave)[2]
+                 for wave in (prompts[:4], prompts[4:])]
+        bd = eng.breakdown()
+    finally:
+        eng.shutdown()
+    pc_stats = bd["prefix_cache"]
+    stats = {"wave_1": waves[0], "wave_2": waves[1],
+             "prefix_cache": pc_stats, "kv_pages": bd["kv_pages"]}
+    log("serve_paged_prefix " + json.dumps(stats))
+    if (pc_stats["hits"], pc_stats["tokens_reused"]) != (4, 4 * PREFIX_LEN):
+        raise AssertionError(f"prefix cache: {pc_stats}; want 4 hits reusing "
+                             f"{PREFIX_LEN // PAGE_SIZE} pages each")
+
+    # cold: slots 0-3 prefill whole prompts; warm: slots 4-7 read slot 0's
+    # prefix pages and prefill their tails from position PREFIX_LEN
+    n, per = 4, -(-(PREFIX_LEN + TAIL_LEN) // PAGE_SIZE)
+    shared = PREFIX_LEN // PAGE_SIZE
+    cache = paged_cache_for(cfg, 2 * n, per, dev)
+    cache["block_table"][n:, :shared] = cache["block_table"][0, :shared]
+    toks, lengths, slots = _prefill_batch(cfg, prompts[4:], n, dev, None)
+    tails = torch.tensor([p[PREFIX_LEN:] for p in prompts[4:]],
+                         dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        _, cold = pdec.paged_prefill(params, cache, toks, lengths, slots,
+                                     _zeros(n, dev), cfg)
+        _, warm_logits = pdec.paged_prefill(
+            params, cache, tails, torch.full_like(lengths, TAIL_LEN),
+            slots + n, torch.full_like(lengths, PREFIX_LEN), cfg)
+    logits_check("prefix_reuse_vs_cold_paged_prefill", warm_logits, cold)
+    return stats
+
+
+def serve_llama_paged_spec(dev, cfg, params):
+    """Phase serve_llama3_8b_paged_spec: the serving phase's requests
+    through the paged engine with speculative decoding (k 4, a 1-layer
+    draft), as bench_llm.py's paged_spec arm runs it, on weights whose
+    blocks past the first are damped by 0.02 (so that the draft agrees as
+    a trained pair would).  The draft's prefill runs B1 at buckets >= 1024;
+    its launches are counted.  The same requests through the vanilla paged
+    engine on the same weights give the streams' agreement (a reading: bf16
+    near-ties can flip an argmax between a window and a single step), and
+    the verify window's logits are held against sequential decode steps."""
+    import torch
+    from ray_tpu_torch.models import speculative as spec
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    damped = spec.damp_block_outputs(params, 0.02, from_layer=1)
+    prompts = serving_prompts(cfg)
+    kw = dict(device="cuda", num_slots=8, max_len=SERVE_MAX_LEN, paged=True,
+              page_size=PAGE_SIZE)
+    eng = LLMEngine(cfg, damped, spec_decode_enabled=True, spec_k=4,
+                    spec_draft_layers=1, **kw)
+    try:
+        warm(eng, cfg, (LONG_PROMPTS[0], SHORT_PROMPTS[0]))
+        before = dict(eng.admit_batches_by_bucket)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        outs, _, stats = run_requests(eng, cfg, prompts)
+        launches = flash_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        long_batches = long_batches_since(eng, before)
+        sp = eng.breakdown()["spec"]
+        draft_error = eng.spec_draft_last_error
+    finally:
+        eng.shutdown()
+    if sp["draft_errors"]:
+        raise AssertionError(f"the draft's prefill failed {sp['draft_errors']}"
+                             f" times; the last error: {draft_error!r}")
+    if long_batches < 1 or launches < sp["draft_layers"] * long_batches:
+        raise AssertionError(
+            f"flash kernel launched {launches} times for {long_batches} draft "
+            f"prefill batches at bucket >= 1024 ({sp['draft_layers']} layers)")
+
+    vanilla = LLMEngine(cfg, damped, **kw)
+    try:
+        warm(vanilla, cfg, (LONG_PROMPTS[0], SHORT_PROMPTS[0]))
+        outs_v, _, stats_v = run_requests(vanilla, cfg, prompts)
+    finally:
+        vanilla.shutdown()
+    agree = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                  len(x)) for x, y in zip(outs, outs_v)]
+    stats.update(spec=sp, flash_launches=launches,
+                 long_prefill_batches=long_batches, peak_mem_gb=peak / 1e9,
+                 vanilla={k: stats_v[k] for k in ("ttft_ms_p50",
+                                                  "decode_tok_s", "wall_s")},
+                 tokens_agreeing_before_divergence=agree)
+    log("serve_paged_spec " + json.dumps(stats))
+    check_verify_windows(cfg, damped, prompts, outs, dev)
+    return stats, launches
+
+
+def check_verify_windows(cfg, params, prompts, outs, dev):
+    """A 4-token window per slot (the first tokens of two streams) through
+    ``verify_window`` (dense cache) and ``paged_verify_window``, against 4
+    sequential one-token steps on a copy of the same cache."""
+    import torch
+    from ray_tpu_torch.models import decode as dec
+    from ray_tpu_torch.models import paged_decode as pdec
+    from ray_tpu_torch.models import speculative as spec
+
+    toks, lengths, slots = _prefill_batch(cfg, prompts, 2, dev)
+    window = torch.tensor([o[:4] for o in outs[:2]], dtype=torch.int32,
+                          device=dev)
+    active = torch.ones(2, dtype=torch.bool, device=dev)
+    with torch.inference_mode():
+        for name, cache, verify, step in (
+                ("dense", dec.init_kv_cache(cfg, 2, SERVE_MAX_LEN,
+                                            torch.bfloat16, dev),
+                 spec.verify_window, dec.decode_step),
+                ("paged", paged_cache_for(cfg, 2, SERVE_MAX_LEN // PAGE_SIZE,
+                                          dev),
+                 pdec.paged_verify_window, pdec.paged_decode_step)):
+            if name == "dense":
+                cache, _ = dec.prefill(params, cache, toks, lengths, slots,
+                                       cfg)
+            else:
+                cache, _ = pdec.paged_prefill(params, cache, toks, lengths,
+                                              slots, _zeros(2, dev), cfg)
+            copy = {k: v.clone() for k, v in cache.items()}
+            _, wl = verify(params, cache, window, active, cfg)
+            steps = []
+            for j in range(window.shape[1]):
+                copy, sl = step(params, copy, window[:, j], active, cfg)
+                steps.append(sl)
+            logits_check(f"verify_window_{name}_vs_4_decode_steps",
+                         wl.flatten(0, 1), torch.stack(steps, 1).flatten(0, 1))
+            del cache, copy
+
+
+def spec_exact_f32(dev):
+    """Phase serve_f32_spec_exactness: a 2-layer cut of Llama-3-8B at full
+    width (f32 weights from seed 0, damped past the first block, f32
+    compute), 4 greedy requests through the paged engine with and without
+    speculative decoding.  The streams must be equal token for token, and
+    the spec engine's pages must pass ``rollback_kv_diff``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from ray_tpu_torch.models import config as mcfg
+    from ray_tpu_torch.models import speculative as spec
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    cfg = dataclasses.replace(mcfg.llama3_8b(), num_layers=2)
+    params = spec.damp_block_outputs(transformer.init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg, dtype=torch.float32),
+        0.02, from_layer=1)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in EXACT_PROMPTS]
+    kw = dict(device="cuda", num_slots=len(prompts), max_len=SERVE_MAX_LEN,
+              paged=True, page_size=PAGE_SIZE, compute_dtype=torch.float32)
+    runs = {}
+    for name, extra in (("vanilla", {}),
+                        ("spec", dict(spec_decode_enabled=True, spec_k=4,
+                                      spec_draft_layers=1))):
+        eng = LLMEngine(cfg, params, **kw, **extra)
+        try:
+            runs[name] = (eng, *run_requests(eng, cfg, prompts,
+                                             EXACT_MAX_TOKENS))
+        finally:
+            eng.shutdown()
+    eng, outs, reqs, _ = runs["spec"]
+    outs_v = runs["vanilla"][1]
+    lens_ok, worst = rollback_kv_diff(eng, reqs, params, cfg, dev)
+    sp = eng.breakdown()["spec"]
+    row = {"streams_equal": outs == outs_v, "lengths_match": lens_ok,
+           "kv_max_rel_diff": worst, "spec": sp,
+           "tokens_agreeing_before_divergence": [
+               next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                    len(x)) for x, y in zip(outs, outs_v)],
+           "decode_tok_s": {k: runs[k][3]["decode_tok_s"] for k in runs}}
+    log("spec_exact_f32 " + json.dumps(row))
+    if not (row["streams_equal"] and lens_ok and worst <= SPEC_KV_RTOL
+            and sp["draft_errors"] == 0):
+        raise AssertionError(f"f32 speculative decoding: {row}")
+
+
+def rollback_kv_diff(eng, reqs, params, cfg, dev):
+    """The rollback invariant after a spec engine's run: each request's
+    slot has the length of its verified sequence (its prompt and every
+    streamed token but the last), and its pages hold what a fresh paged
+    prefill of that sequence writes.  -> (lengths match, largest K/V
+    difference as a share of the fresh cache's largest magnitude)."""
+    import torch
+    from ray_tpu_torch.models import paged_decode as pdec
+
+    verified = [r.tokens[:-1] for r in reqs]
+    longest = max(map(len, verified))
+    fresh = paged_cache_for(cfg, len(reqs), -(-longest // PAGE_SIZE), dev,
+                            torch.float32)
+    toks = torch.zeros((len(reqs), 1 << (longest - 1).bit_length()),
+                       dtype=torch.int32, device=dev)
+    for i, v in enumerate(verified):
+        toks[i, :len(v)] = torch.tensor(v, dtype=torch.int32)
+    lengths = torch.tensor(list(map(len, verified)), dtype=torch.int32,
+                           device=dev)
+    with torch.inference_mode():
+        pdec.paged_prefill(params, fresh, toks, lengths,
+                           torch.arange(len(reqs), dtype=torch.int32,
+                                        device=dev),
+                           _zeros(len(reqs), dev), cfg, torch.float32)
+    lens_ok = all(int(eng.cache["length"][r.slot]) == len(v)
+                  for r, v in zip(reqs, verified))
+
+    def rows(cache, slot, n, key):
+        pos = torch.arange(n, device=dev)
+        pages = cache["block_table"][slot, pos // PAGE_SIZE].long()
+        return cache[key][:, pages, pos % PAGE_SIZE]
+
+    worst = 0.0
+    for i, (r, v) in enumerate(zip(reqs, verified)):
+        for key in ("k", "v"):
+            got = rows(eng.cache, r.slot, len(v), key)
+            want = rows(fresh, i, len(v), key)
+            worst = max(worst, ((got - want).abs().max()
+                                / want.abs().max()).item())
+    return lens_ok, worst
 
 
 def plain_attention(block: int = 512):
@@ -1043,8 +1455,23 @@ def main() -> int:
         flash_rows = check_flash(dev)
     with phase("flash_backward_kernels"):
         bwd_rows = check_flash_bwd(dev)
+    from ray_tpu_torch.models import config as mcfg
+    serve_cfg = mcfg.llama3_8b()
+    serve_params = llama3_8b_params(serve_cfg, dev)
     with phase("serve_llama3_8b"):
-        _, serve_launches = serve_llama(dev)
+        _, serve_launches = serve_llama(dev, serve_cfg, serve_params)
+    with phase("serve_llama3_8b_paged"):
+        serve_llama_paged(dev, serve_cfg, serve_params)
+    with phase("serve_llama3_8b_paged_prefix"):
+        serve_llama_paged_prefix(dev, serve_cfg, serve_params)
+    with phase("serve_llama3_8b_paged_spec"):
+        _, spec_launches = serve_llama_paged_spec(dev, serve_cfg,
+                                                  serve_params)
+    del serve_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("serve_f32_spec_exactness"):
+        spec_exact_f32(dev)
     gc.collect()
     torch.cuda.empty_cache()
     with phase("train_llama_1b"):
@@ -1064,8 +1491,10 @@ def main() -> int:
         "source": "ray_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:42",
         "design": HOPPER_DESIGN,
-        "launches": serve_launches + train_launches["flash_attention_fwd"],
+        "launches": (serve_launches + spec_launches
+                     + train_launches["flash_attention_fwd"]),
         "launches_by_path": {"serve": serve_launches,
+                             "serve_paged_spec": spec_launches,
                              "train": train_launches["flash_attention_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         "ms": main_row["ms"],

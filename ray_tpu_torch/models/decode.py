@@ -19,8 +19,10 @@ Counterpart of ``ray_tpu/models/decode.py``, function for function:
   key; the two draw different numbers, so only greedy decoding matches JAX
   token for token.
 * Prefill attention goes through ``ops.attention.mha`` (the flash kernel on
-  CUDA for buckets >= 1024); decode attention keeps the JAX package's
-  numerics: the cache layer in f32, plain torch ops.
+  CUDA for buckets >= 1024); attention over the cache keeps the JAX
+  package's numerics: the cache layer in f32, plain torch ops
+  (``_cache_attention``, shared with the paged cache and the speculative
+  verify window).
 """
 
 from __future__ import annotations
@@ -104,6 +106,28 @@ def _proj_out(attn, p, cast):
     return out
 
 
+def _cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor, cfg: TransformerConfig
+                     ) -> torch.Tensor:
+    """Attention of queries over cache rows in f32, as the JAX package
+    computes it: q [B, Q, NH, D], k/v [B, M, NKV, D], mask [B, Q, M] (True
+    where a query may read a position; ``NEG_INF`` elsewhere, so a masked
+    position gets a probability of exactly 0).  Returns [B, Q, NH*D] f32."""
+    b, nq = q.shape[:2]
+    reps = cfg.num_heads // cfg.num_kv_heads
+    qh = q.reshape(b, nq, cfg.num_kv_heads, reps, cfg.head_dim).float()
+    scores = torch.einsum("bqgrd,bmgd->bgqrm", qh, k.float())
+    scores.mul_(cfg.head_dim ** -0.5)
+    if cfg.attn_logit_softcap:
+        c = cfg.attn_logit_softcap
+        scores.div_(c).tanh_().mul_(c)
+    scores.masked_fill_(~mask[:, None, :, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    del scores
+    attn = torch.einsum("bgqrm,bmgd->bqgrd", probs, v.float())
+    return attn.reshape(b, nq, cfg.num_heads * cfg.head_dim)
+
+
 # ---------------------------------------------------------------------------
 # Prefill
 # ---------------------------------------------------------------------------
@@ -176,11 +200,9 @@ def decode_step(params: Params, cache: KVCache, tokens: torch.Tensor,
         x = x + params["embed"]["pos"][torch.clamp(
             lengths, max=cfg.max_seq_len - 1)][:, None].to(cast)
     positions = lengths[:, None]                               # [slots, 1]
-    scale = cfg.head_dim ** -0.5
-    reps = cfg.num_heads // cfg.num_kv_heads
     # mask over cache positions: <= current length (the new token's position)
-    pos_mask = (torch.arange(max_len, device=dev)[None]
-                <= lengths[:, None])                           # [slots, max_len]
+    pos_mask = (torch.arange(max_len, device=dev)[None, None]
+                <= positions[:, :, None])                      # [slots, 1, max_len]
     rows = torch.arange(n_slots, device=dev)
     # JAX drops the write of a slot standing at max_len; keep its row as is
     in_range = (lengths < max_len)[:, None, None]
@@ -196,16 +218,7 @@ def decode_step(params: Params, cache: KVCache, tokens: torch.Tensor,
         v_lay[rows, write_at] = torch.where(in_range, v[:, 0].to(v_lay.dtype),
                                             v_lay[rows, write_at])
         # attention over the cache row, in f32 as the JAX package does
-        qh = q[:, 0].reshape(n_slots, cfg.num_kv_heads, reps, cfg.head_dim)
-        scores = torch.einsum("sgrd,smgd->sgrm", qh.float(),
-                              k_lay.float()) * scale
-        if cfg.attn_logit_softcap:
-            c = cfg.attn_logit_softcap
-            scores = c * torch.tanh(scores / c)
-        scores = scores.masked_fill(~pos_mask[:, None, None, :], NEG_INF)
-        probs = torch.softmax(scores, dim=-1)
-        attn = torch.einsum("sgrm,smgd->sgrd", probs, v_lay.float())
-        attn = attn.reshape(n_slots, 1, cfg.num_heads * cfg.head_dim)
+        attn = _cache_attention(q, k_lay, v_lay, pos_mask, cfg)
         x = x + _proj_out(attn.to(cast), lp["attn"], cast)
         x = x + _mlp(_norm(x, lp["mlp_norm"], cfg), lp, cfg)
 
@@ -374,12 +387,20 @@ def decode_state_loop(params: Params, cache: KVCache, state: Dict[str, Any],
     Returns (cache, state, emitted [n_steps, slots]).  A slot goes inactive
     the step its budget hits zero or it samples its EOS token; inactive
     slots repeat their last token (the host emits only to live requests)."""
+    return _state_loop(decode_step, params, cache, state, n_steps, cfg,
+                       top_k, compute_dtype)
+
+
+def _state_loop(step, params: Params, cache, state: Dict[str, Any],
+                n_steps: int, cfg: TransformerConfig, top_k: int,
+                compute_dtype):
+    """``decode_state_loop`` over any one-token ``step`` with
+    ``decode_step``'s signature (the dense or the paged cache's)."""
     temps, eos, gen = state["temps"], state["eos"], state["generator"]
     toks, active, budget = state["tokens"], state["active"], state["budget"]
     emitted = []
     for _ in range(n_steps):
-        cache, logits = decode_step(params, cache, toks, active, cfg,
-                                    compute_dtype)
+        cache, logits = step(params, cache, toks, active, cfg, compute_dtype)
         nxt = sample_per_slot(logits, gen, temps, top_k)
         nxt = torch.where(active, nxt, toks)
         budget = torch.where(active, budget - 1, budget)
