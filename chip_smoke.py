@@ -21,8 +21,8 @@ script exits non-zero:
    with CUDA events, beside the least time the card could take (bound).
 4. Kernels B2 (dq) and B3 (dk/dv) against their plain versions on the same
    residuals, at the training path's shape (llama_1b: B=8, S=2048, H=16,
-   KV=8, D=128, causal) and the serving shape (B=8, S=1024, H=32, KV=8),
-   plus D=64 non-causal with KV=H, D=256 (GQA reps 4 at S=1088 too), a
+   KV=8, D=128, causal), the serving shape (B=8, S=1024, H=32, KV=8) and
+   Mixtral's training shape (B=8, S=2048, H=32, KV=8), plus D=64 non-causal with KV=H, D=256 (GQA reps 4 at S=1088 too), a
    ragged S (1000, and 1088: 64 rows past a 128-row tile; 64, where a q
    tile's upper warpgroup has no row) and strided views (q, k, v as head
    slices of one fused tensor, dO a transposed view); each run twice and
@@ -56,6 +56,36 @@ script exits non-zero:
    d. a 2-layer f32 cut at full width: the spec streams must equal the
       vanilla ones, and the spec engine's pages a fresh prefill's of each
       verified sequence (the rollback invariant).
+   e. ``moe_layer``: ``moe_mlp`` against its one-hot version (the
+      reference's einsums, with its own top-k by argmax) at Mixtral-8x7B's
+      width in bf16 (H 4096, M 14336, 8 experts, top 2) for one 8 x 2048
+      prefill batch, the same with a skewed router (experts overflow) and
+      one decode batch of 9 tokens: the same kept (token, choice) pairs in
+      the same buffer positions, the output within 2e-2 of the largest
+      magnitude, pairs dropped under the skewed router; both timed beside
+      the larger of the FLOP and the byte bound; the dropped share.
+   f. ``serve_mixtral_8x7b``: the Llama weights freed, Mixtral-8x7B at full
+      width cut to 16 of its 32 layers (random bf16 weights, seed 0; 47
+      GB) through the dense engine and the same 8 requests: B1 launches
+      (16 per bucket-2048 prefill batch), TTFT, decode tok/s, peak memory,
+      the dropped shares in prefill and decode, a prefill batch and a
+      decode dispatch traced; then the paged engine on the same weights
+      (no kernel launch). Then one prefill batch through B1 against B1's
+      plain version, and the paged prefill against the dense one, each
+      with B1's routing replayed (rms limit): bf16 rounding flips
+      near-tied router choices, so runs that route freely (against plain
+      attention too) are readings, with the share of tokens routed
+      otherwise. No spec or prefix run: with MoE their streams differ
+      from vanilla by the reference's own semantics (capacity comes from
+      the call's batch).
+   g. ``train_mixtral_8x7b``: Mixtral-8x7B at full width and 1 layer,
+      trained as phase 6 trains llama_1b (B1/B2/B3 2/1/1 a step); the
+      loss finite and falling, the MoE aux loss finite and above 0 on
+      every step; one step's loss and gradients against the same step
+      through the kernels' plain versions, with the kernels' run's routing
+      replayed (its weights and aux loss computed from the run's own
+      logits), the freely routed plain step a reading; one step
+      profiled.
 6. The training path at full width: ``make_optimizer`` /
    ``init_sharded_state`` / ``make_train_step`` on llama_1b (16 layers,
    hidden 2048, 16 q / 8 kv heads, vocab 32768; fp32 params and Adam state,
@@ -94,6 +124,7 @@ Exits non-zero without a result when there is no CUDA card, or when the
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import subprocess
@@ -176,6 +207,28 @@ PREFIX_LEN, TAIL_LEN = 1024, 32
 EXACT_PROMPTS = (300, 500, 700, 900)
 EXACT_MAX_TOKENS = 24
 SPEC_KV_RTOL = 1e-4
+# Mixtral-8x7B at full width (hidden 4096, 32 q / 8 kv heads, MLP 14336, 8
+# experts top 2, vocab 32000), cut in depth to fit one 80 GB card.  Serving
+# keeps 16 of its 32 layers: 23.5 B params, 47 GB in bf16 (all 32 take 93
+# GB).  Training keeps 1: fp32 params, grads and Adam moments take 16
+# bytes a parameter, 27.4 GB for 1.71 B params (2 layers: 50.6 GB before
+# activations and the update's temporaries).
+MIXTRAL_SERVE_LAYERS = 16
+MIXTRAL_TRAIN_LAYERS = 1
+# moe_mlp against its one-hot version in bf16, as a share of the one-hot
+# version's largest magnitude: the same rows through the same products,
+# the weighted sum in another order
+MOE_OUT_RTOL = 2e-2
+# (batch, seq, skewed router) of the MoE layer check: one 8 x 2048 prefill
+# batch (16384 tokens, capacity 5120), the same with a skewed router, and a
+# decode batch of 8 slots and the scratch slot (9 tokens, capacity 2).  A
+# random router spreads 16384 tokens evenly enough that no expert
+# overflows; the skewed one scales expert e's router column by
+# MOE_ROUTER_SKEW ** ((e - 3.5) / 3.5), so that the later experts overflow
+# in both choices (about 11% of the pairs dropped in a simulation on
+# normal logits) and the check holds the capacity drops at prefill size.
+MOE_CASES = ((8, 2048, False), (8, 2048, True), (9, 1, False))
+MOE_ROUTER_SKEW = 4.0
 
 
 def log(msg: str) -> None:
@@ -341,6 +394,7 @@ def check_flash_bwd(dev):
     cases = [  # (B, S, H, KV, D, causal, timed, strided)
         (8, 2048, 16, 8, 128, True, True, False),    # llama_1b training batch
         (8, 1024, 32, 8, 128, True, True, False),    # serving shape, reps 4
+        (8, 2048, 32, 8, 128, True, False, False),   # Mixtral training batch
         (2, 1024, 16, 16, 64, False, False, False),
         (1, 1024, 8, 2, 256, True, False, False),
         (2, 1000, 32, 8, 128, True, False, False),   # ragged edge
@@ -545,8 +599,8 @@ def patched(module, name: str, fn):
         setattr(module, name, real)
 
 
-def llama3_8b_params(cfg, dev):
-    """Llama-3-8B's random bf16 weights, drawn once from seed 0 as
+def serving_params(name, cfg, dev):
+    """A model's random bf16 weights, drawn once from seed 0 as
     ``LLMEngine`` draws them, and passed to every serving engine."""
     import torch
     from ray_tpu_torch.models import transformer
@@ -555,7 +609,7 @@ def llama3_8b_params(cfg, dev):
     params = transformer.init_params(
         torch.Generator(device=dev).manual_seed(0), cfg, dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    log(f"llama3_8b params (random bf16 weights, {cfg.num_params() / 1e9:.2f}"
+    log(f"{name} params (random bf16 weights, {cfg.num_params() / 1e9:.2f}"
         f" B params): {time.perf_counter() - t0:.1f} s")
     return params
 
@@ -715,11 +769,11 @@ def check_prefill_logits(eng, cfg, prompts, dev):
             f"{LOGITS_MAX} x std {spread})")
 
 
-def where_time_goes(eng, cfg, prompts, dev):
+def where_time_goes(eng, cfg, prompts, dev, prefix=""):
     """One prefill batch (8 x bucket 2048) and one decode dispatch (8 steps,
     8 slots), each timed with a synchronize and traced once with
     torch.profiler: device-busy share and the kernels that take the most
-    device time."""
+    device time (``time`` lines named with ``prefix``)."""
     from ray_tpu_torch.models import decode as dec
 
     toks, lengths, slots = _prefill_batch(cfg, prompts, 8, dev)
@@ -731,8 +785,8 @@ def where_time_goes(eng, cfg, prompts, dev):
     def run_decode():
         dec.decode_state_loop(eng.params, eng.cache, eng._state, steps, cfg)
 
-    trace_calls((("prefill_8x2048", run_prefill, 1),
-                 ("decode_dispatch", run_decode, steps)))
+    trace_calls(((f"{prefix}prefill_8x2048", run_prefill, 1),
+                 (f"{prefix}decode_dispatch", run_decode, steps)))
 
 
 def trace_calls(calls):
@@ -767,10 +821,11 @@ def trace_calls(calls):
                                    for e in top}}))
 
 
-def logits_check(name, got, want):
+def logits_check(name, got, want, max_share=LOGITS_MAX,
+                 rms_share=LOGITS_RMS):
     """Last-token logits ``got`` against ``want`` ([N, V] f32) within the
     prefill limits: rms and largest difference as shares of ``want``'s
-    std."""
+    std (a share of None makes that difference a reading)."""
     import torch
     spread = want.std().item()
     row = {"check": name, "std": spread,
@@ -780,11 +835,13 @@ def logits_check(name, got, want):
            .mean().item(),
            "finite": bool(torch.isfinite(got).all())}
     log("logits " + json.dumps(row))
-    if not (row["finite"] and row["rms_diff"] <= LOGITS_RMS * spread
-            and row["max_abs_diff"] <= LOGITS_MAX * spread):
+    if not (row["finite"]
+            and (rms_share is None or row["rms_diff"] <= rms_share * spread)
+            and (max_share is None
+                 or row["max_abs_diff"] <= max_share * spread)):
         raise AssertionError(
             f"{name}: logits differ by rms {row['rms_diff']}, max "
-            f"{row['max_abs_diff']} (limits {LOGITS_RMS}, {LOGITS_MAX} x std "
+            f"{row['max_abs_diff']} (limits {rms_share}, {max_share} x std "
             f"{spread})")
     return row
 
@@ -1020,7 +1077,6 @@ def spec_exact_f32(dev):
     compute), 4 greedy requests through the paged engine with and without
     speculative decoding.  The streams must be equal token for token, and
     the spec engine's pages must pass ``rollback_kv_diff``."""
-    import dataclasses
     import numpy as np
     import torch
     from ray_tpu_torch.models import config as mcfg
@@ -1105,6 +1161,270 @@ def rollback_kv_diff(eng, reqs, params, cfg, dev):
     return lens_ok, worst
 
 
+def moe_weights(cfg, dev, seed=3):
+    """One Mixtral MoE layer's random bf16 weights at init_params' scales:
+    router [H, E], w_gate and w_in [E, H, M], w_out [E, M, H]."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h, m, e = cfg.hidden_size, cfg.mlp_size, cfg.num_experts
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16).mul_(std)
+    return (normal((h, e), h ** -0.5), normal((e, h, m), h ** -0.5),
+            normal((e, h, m), h ** -0.5), normal((e, m, h), m ** -0.5))
+
+
+def check_moe(dev):
+    """Phase moe_layer: ``moe_mlp`` (routing indices, the kept tokens
+    gathered into [E, C, H], three batched matmuls, a gather and a weighted
+    sum) against ``moe_mlp_onehot`` (the reference's einsums against
+    one-hot [T, E, C] tensors, with its own top-k and routing loop) at
+    Mixtral's width in bf16, on random inputs of unit rms (a norm's output)
+    for each case of MOE_CASES.  The kept (token, choice) pairs and their
+    buffer positions must be the same, the output within MOE_OUT_RTOL, and
+    the skewed router's case must drop pairs; both timed, beside the
+    layer's bound: the larger of its three expert products over every slot
+    at the bf16 peak, and its weights, input and output moved once at the
+    HBM rate."""
+    import torch
+    from ray_tpu_torch.models import config as mcfg
+    from ray_tpu_torch.ops import moe
+
+    cfg = mcfg.mixtral_8x7b()
+    h, m, e = cfg.hidden_size, cfg.mlp_size, cfg.num_experts
+    k, cf = cfg.experts_per_token, cfg.expert_capacity_factor
+    router, *experts = moe_weights(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for b, s, skewed in MOE_CASES:
+        scale = MOE_ROUTER_SKEW ** (
+            (torch.arange(e, device=dev) - (e - 1) / 2) / ((e - 1) / 2))
+        weights = ((router.float() * scale).to(router.dtype) if skewed
+                   else router, *experts)
+        x = torch.randn((b, s, h), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        t, cap = b * s, moe.capacity(cf, k, b, s, e)
+        with torch.inference_mode():
+            out, aux = moe.moe_mlp(x, *weights, k, cf)
+            ref, ref_aux = moe.moe_mlp_onehot(x, *weights, k, cf)
+            logits = x.reshape(t, h) @ weights[0]
+            r = moe.route(logits, k, cap)
+            dispatch = moe.top_k_routing(logits, k, cap)[0].view(t, -1)
+            at_slot = dispatch.gather(1, torch.where(r.kept, r.slot, 0))
+            same_pairs = bool((at_slot[r.kept] == 1).all()) and int(
+                dispatch.sum()) == int(r.kept.sum())
+            del dispatch, at_slot
+            ms = time_ms(lambda: moe.moe_mlp(x, *weights, k, cf), 5, 1)
+            onehot_ms = time_ms(
+                lambda: moe.moe_mlp_onehot(x, *weights, k, cf), 3, 1)
+        flops_ms = 2 * 3 * e * cap * h * m / PEAK_BF16_FLOPS * 1e3
+        bytes_ms = 2 * (3 * e * h * m + h * e + 2 * t * h) / PEAK_BYTES_S * 1e3
+        row = {"tokens": t, "capacity": cap, "skewed_router": skewed,
+               "max_abs_err": (out - ref).abs().max().item(),
+               "onehot_max_abs": ref.abs().max().item(),
+               "aux": aux.item(), "onehot_aux": ref_aux.item(),
+               "same_kept_pairs_and_positions": same_pairs,
+               "dropped_share": 1.0 - r.kept.float().mean().item(),
+               "dropped_share_by_choice":
+                   (1.0 - r.kept.float().mean(0)).tolist(),
+               "finite": bool(torch.isfinite(out).all()),
+               "ms": ms, "onehot_ms": onehot_ms,
+               "flops_bound_ms": flops_ms, "bytes_bound_ms": bytes_ms,
+               "bound_ms": max(flops_ms, bytes_ms),
+               "bound_by": "operations" if flops_ms >= bytes_ms else "bytes"}
+        log("moe_layer " + json.dumps(row))
+        del x, out, ref
+        if not (row["finite"] and same_pairs
+                and row["max_abs_err"] <= MOE_OUT_RTOL * row["onehot_max_abs"]
+                and abs(row["aux"] - row["onehot_aux"]) <= 1e-6
+                and (row["dropped_share"] > 0 or not skewed)):
+            raise AssertionError(f"moe_mlp against moe_mlp_onehot: {row}")
+
+
+@contextlib.contextmanager
+def routing_log(calls, replay=None):
+    """Record every MoE call's routing in ``calls`` while the block runs, as
+    (tokens, dropped (token, choice) pairs as a device tensor, the
+    ``Routing`` detached), with no host sync.  With ``replay`` (the calls
+    of an earlier run on the same batch, in the same order), each call
+    takes that run's discrete routing (experts, slots, kept) and computes
+    its weights and aux loss from its own logits (``replayed``)."""
+    from ray_tpu_torch.ops import moe
+    real = moe.route
+    earlier = iter(replay or ())
+
+    def route(logits, k, cap):
+        r = (replayed(logits, next(earlier)[2]) if replay is not None
+             else real(logits, k, cap))
+        calls.append((logits.shape[0], (~r.kept).sum(),
+                      moe.Routing(*(f.detach() for f in r))))
+        return r
+
+    with patched(moe, "route", route):
+        yield
+
+
+def replayed(logits, was):
+    """``was``'s experts, slots and kept flags, with the weights and the
+    aux loss computed from ``logits`` as the reference computes them: the
+    f32 softmax gathered at those experts and renormalised, 0 where
+    dropped; E * sum(mean(probs) * share routed to each by choice 0)."""
+    import torch
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops import moe
+    e = logits.shape[-1]
+    probs = torch.softmax(logits.float(), dim=-1)
+    top_p = probs.gather(-1, was.expert)
+    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    aux = e * torch.sum(probs.mean(0)
+                        * F.one_hot(was.expert[:, 0], e).float().mean(0))
+    return moe.Routing(was.expert, was.slot, was.kept, top_p * was.kept, aux)
+
+
+def dropped_shares(log_rows, decode_tokens):
+    """Dropped shares of the (token, choice) pairs over the prefill calls
+    and over the decode calls (``decode_tokens`` rows a call), every row of
+    a call counted (padding rows and inactive slots too)."""
+    out = {}
+    for name, calls in (
+            ("prefill", [c for c in log_rows if c[0] != decode_tokens]),
+            ("decode", [c for c in log_rows if c[0] == decode_tokens])):
+        pairs = 2 * sum(c[0] for c in calls)
+        out[name] = (sum(int(c[1]) for c in calls) / pairs) if pairs else None
+    return out
+
+
+def serve_mixtral(dev, cfg, params):
+    """Phase serve_mixtral_8x7b: the serving phase's 8 requests through
+    ``LLMEngine`` on Mixtral-8x7B cut to MIXTRAL_SERVE_LAYERS layers (random
+    bf16 weights, seed 0): the dense engine (B1 launches 16 per bucket-2048
+    prefill batch; TTFT, decode tok/s, peak memory, dropped shares; a
+    prefill batch and a decode dispatch traced), then the paged engine on
+    the same weights (no kernel launch); then
+    ``mixtral_prefill_checks``."""
+    import torch
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    prompts = serving_prompts(cfg)
+    runs = {}
+    for name, kw in (("dense", {}),
+                     ("paged", dict(paged=True, page_size=PAGE_SIZE))):
+        eng = LLMEngine(cfg, params, device="cuda", num_slots=8,
+                        max_len=SERVE_MAX_LEN, **kw)
+        routes = []
+        try:
+            warm(eng, cfg, (LONG_PROMPTS[0], SHORT_PROMPTS[0]))
+            before = dict(eng.admit_batches_by_bucket)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.flash_attention.launches = 0
+            with routing_log(routes):
+                _, _, stats = run_requests(eng, cfg, prompts)
+            launches = fa.flash_attention.launches
+            stats.update(flash_launches=launches,
+                         long_prefill_batches=long_batches_since(eng, before),
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         dropped_share=dropped_shares(routes,
+                                                      eng.num_slots + 1))
+            if name == "dense":
+                where_time_goes(eng, cfg, prompts, dev, "mixtral_")
+        finally:
+            eng.shutdown()
+        log(f"serve_mixtral_{name} " + json.dumps(stats))
+        runs[name] = stats
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    dense, paged = runs["dense"], runs["paged"]
+    if (dense["long_prefill_batches"] < 1 or dense["flash_launches"]
+            < cfg.num_layers * dense["long_prefill_batches"]):
+        raise AssertionError(
+            f"flash kernel launched {dense['flash_launches']} times for "
+            f"{dense['long_prefill_batches']} prefill batches at bucket >= "
+            f"1024 ({cfg.num_layers} layers)")
+    if paged["flash_launches"]:
+        raise AssertionError(f"the paged engine launched the flash kernel "
+                             f"{paged['flash_launches']} times")
+
+    mixtral_prefill_checks(cfg, params, prompts, dev)
+    return dense, paged
+
+
+def mixtral_prefill_checks(cfg, params, prompts, dev):
+    """One bucket-2048 batch of two long prompts through the dense prefill
+    with B1, with B1's plain version and with plain attention, and through
+    the paged prefill.  Routing is discontinuous: bf16 rounding of P at
+    other tile boundaries flips near-tied router choices, a flip moves the
+    token's MLP output and what the capacity drops, and through 16 layers
+    the logits part.  Each run routing freely is a reading (with the share
+    of tokens routed otherwise than in B1's run); the checks replay B1's
+    routing in the other run (``routing_log``), so that they compare the
+    attention paths: B1 against its plain version, and the paged prefill
+    (f32 attention over pages) against the dense one, each within the rms
+    limit, the largest difference a reading.  Replayed, the paged
+    prefill's padding positions (their K/V go to the null page, where the
+    dense prefill's attend over the padded row) no longer move what the
+    capacity drops for the real tokens."""
+    import torch
+    from ray_tpu_torch.models import decode as dec
+    from ray_tpu_torch.models import paged_decode as pdec
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    toks, lengths, slots = _prefill_batch(cfg, prompts, 2, dev)
+    real = (torch.arange(SERVE_MAX_LEN, device=dev)[None]
+            < lengths[:, None]).reshape(-1)                # [T]
+
+    def plain_version(q, k, v, causal=True, logit_softcap=0.0):
+        return fa.flash_attention_reference(q, k, v, causal)[0]
+
+    def plain_attention(q, k, v, causal=True, logit_softcap=0.0):
+        return attention.attend(q, k, v, causal=causal)
+
+    def prefill(mha, calls, replay=None):
+        with torch.inference_mode(), patched(attention, "mha", mha), \
+                routing_log(calls, replay):
+            return dec.prefill(params, dec.init_kv_cache(
+                cfg, 2, SERVE_MAX_LEN, torch.bfloat16, dev), toks, lengths,
+                slots, cfg)[1]
+
+    def paged_prefill(calls, replay=None):
+        cache = paged_cache_for(cfg, 2, SERVE_MAX_LEN // PAGE_SIZE, dev)
+        with torch.inference_mode(), routing_log(calls, replay):
+            return pdec.paged_prefill(params, cache, toks, lengths, slots,
+                                      _zeros(2, dev), cfg)[1]
+
+    b1_calls = []
+    b1 = prefill(attention.mha, b1_calls)
+    free = {}
+    for name, run in (("plain_version", lambda c: prefill(plain_version, c)),
+                      ("plain_attention",
+                       lambda c: prefill(plain_attention, c)),
+                      ("paged", paged_prefill)):
+        calls = []
+        free[name] = run(calls)
+        differs = torch.stack([(a[2].expert != b[2].expert).any(-1)
+                               for a, b in zip(b1_calls, calls)])  # [L, T]
+        log("mixtral_routing " + json.dumps({
+            "b1_vs": name,
+            "layer_token_rows_routed_differently":
+                differs.float().mean().item(),
+            "real_tokens_routed_differently_in_any_layer":
+                differs[:, real].any(0).float().mean().item(),
+            "padding_tokens_routed_differently_in_any_layer":
+                differs[:, ~real].any(0).float().mean().item()}))
+        logits_check(f"mixtral_prefill_b1_vs_{name}_free_routing_reading",
+                     b1, free[name], max_share=None, rms_share=None)
+    logits_check("mixtral_prefill_plain_version_vs_plain_attention_"
+                 "free_routing_reading", free["plain_version"],
+                 free["plain_attention"], max_share=None, rms_share=None)
+    logits_check("mixtral_prefill_b1_vs_plain_version_b1_routing",
+                 prefill(plain_version, [], b1_calls), b1, max_share=None)
+    logits_check("mixtral_paged_prefill_vs_dense_prefill_b1_routing",
+                 paged_prefill([], b1_calls), b1, max_share=None)
+
+
 def plain_attention(block: int = 512):
     """Attention through the kernels' plain versions, forward (B1's, on
     ``block`` x ``block`` tiles) and backward (B2's and B3's), as a
@@ -1158,29 +1478,107 @@ def plain_splash_attention():
         Plain.apply(qs, k, v, causal, softcap, tuple(blocks))
 
 
-def train_llama(dev, splash: bool = False):
-    """Phase 6 (``splash`` False) and phase 8: the training path at full
-    width, with flash attention under full remat, or with splash attention
-    under ``remat="save_acts"`` as bench.py's splash arm runs it."""
-    import dataclasses
-    import numpy as np
-    import torch
-    from ray_tpu_torch.models import config as mcfg
-    from ray_tpu_torch.models import transformer
+def attention_counters():
+    """Every attention kernel's wrapper, by kernel name: each counts its
+    launches."""
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops import splash_attention as sa
+    return {"flash_attention_fwd": fa.flash_attention,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "splash_attention_fwd": sa.splash_attention,
+            "splash_attention_bwd_dq": sa.splash_attention_bwd_dq,
+            "splash_attention_bwd_dkv": sa.splash_attention_bwd_dkv}
+
+
+# full remat replays the whole layer: B1 runs again in the backward
+FLASH_PER_LAYER = {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 1,
+                   "flash_attention_bwd_dkv": 1}
+
+
+def run_training(name, cfg, remat, per_layer):
+    """``make_optimizer`` / ``init_sharded_state`` / ``make_train_step`` on
+    ``cfg`` (fp32 params and Adam state, bf16 compute), TRAIN_STEPS steps on
+    one batch of TRAIN_BATCH x (TRAIN_SEQ + 1) tokens from numpy seed 0,
+    the launch counters zeroed just before and read just after.  Fails
+    unless the loss is finite and falling and every attention kernel
+    launched ``per_layer`` times per layer and step.  -> (state, step,
+    batch, stats, launches)."""
+    import numpy as np
+    import torch
     from ray_tpu_torch.parallel import (init_sharded_state, make_optimizer,
                                         make_train_step)
     from ray_tpu_torch.parallel.train_step import _leaves
 
+    counters = attention_counters()
+    opt = make_optimizer(warmup_steps=2, total_steps=100)
+    t0 = time.perf_counter()
+    state, sh = init_sharded_state(cfg, None, opt, seed=0)
+    step = make_train_step(cfg, None, opt, sh, remat=remat)  # bf16 compute
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(state.params))
+    log(f"train state up ({name}, {n_params / 1e9:.3f} B params, fp32 "
+        f"params and Adam state): {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size,
+                                    (TRAIN_BATCH, TRAIN_SEQ + 1))
+             .astype(np.int32)}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    losses, aux, step_ms = [], [], []
+    for i in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(metrics["loss"].item())
+        aux.append(metrics["moe_aux_loss"].item())
+        log(f"train step {i}: loss {losses[-1]:.6f}, moe_aux_loss "
+            f"{aux[-1]:.6f}, grad_norm {metrics['grad_norm'].item():.4f}, "
+            f"{step_ms[-1]:.1f} ms")
+    launches = {n: c.launches for n, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    timed = sorted(step_ms[TRAIN_UNTIMED:])
+    med = timed[len(timed) // 2] if len(timed) % 2 else (
+        timed[len(timed) // 2 - 1] + timed[len(timed) // 2]) / 2
+    flops = cfg.flops_per_token(TRAIN_SEQ) * tokens
+    stats = {"model": name, "layers": cfg.num_layers,
+             "attention_impl": cfg.attention_impl, "remat": remat,
+             "steps": TRAIN_STEPS, "untimed": TRAIN_UNTIMED,
+             "losses": losses, "moe_aux_losses": aux, "step_ms": step_ms,
+             "step_ms_median": med, "tokens_per_s": tokens / (med / 1e3),
+             "model_flops_per_step": flops,
+             "share_of_bf16_peak": flops / (med / 1e3) / PEAK_BF16_FLOPS,
+             "peak_mem_gb": peak / 1e9,
+             "launches_per_step": {n: c / TRAIN_STEPS
+                                   for n, c in launches.items()}}
+    log("train " + json.dumps(stats))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[1]:
+        raise AssertionError(f"training losses not finite and falling: "
+                             f"{losses}")
+    want = {n: per_layer.get(n, 0) * cfg.num_layers * TRAIN_STEPS
+            for n in counters}
+    if launches != want:
+        raise AssertionError(f"kernel launches over {TRAIN_STEPS} steps "
+                             f"(L = {cfg.num_layers}): {launches}, want "
+                             f"{want}")
+    return state, step, batch, stats, launches
+
+
+def train_llama(dev, splash: bool = False):
+    """Phase 6 (``splash`` False) and phase 8: the training path at full
+    width, with flash attention under full remat, or with splash attention
+    under ``remat="save_acts"`` as bench.py's splash arm runs it."""
+    from ray_tpu_torch.models import config as mcfg
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.ops import splash_attention as sa
+
     cfg = mcfg.llama_1b()
-    layers = cfg.num_layers
-    counters = {"flash_attention_fwd": fa.flash_attention,
-                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
-                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
-                "splash_attention_fwd": sa.splash_attention,
-                "splash_attention_bwd_dq": sa.splash_attention_bwd_dq,
-                "splash_attention_bwd_dkv": sa.splash_attention_bwd_dkv}
     if splash:
         cfg = dataclasses.replace(cfg, attention_impl="splash")
         remat = "save_acts"
@@ -1194,61 +1592,10 @@ def train_llama(dev, splash: bool = False):
         plain = (sa, "splash_attention", plain_splash_attention())
     else:
         remat = True
-        # full remat replays the whole layer: B1 runs again in the backward
-        per_layer = {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 1,
-                     "flash_attention_bwd_dkv": 1}
+        per_layer = FLASH_PER_LAYER
         plain = (transformer, "mha", plain_attention())
-    opt = make_optimizer(warmup_steps=2, total_steps=100)
-    t0 = time.perf_counter()
-    state, sh = init_sharded_state(cfg, None, opt, seed=0)
-    step = make_train_step(cfg, None, opt, sh, remat=remat)  # bf16 compute
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in _leaves(state.params))
-    log(f"train state up (llama_1b, {n_params / 1e9:.3f} B params, fp32 "
-        f"params and Adam state): {time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(0)
-    batch = {"tokens": rng.integers(0, cfg.vocab_size,
-                                    (TRAIN_BATCH, TRAIN_SEQ + 1))
-             .astype(np.int32)}
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.launches = 0
-    losses, step_ms = [], []
-    for i in range(TRAIN_STEPS):
-        t = time.perf_counter()
-        state, metrics = step(state, batch)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t) * 1e3)
-        losses.append(metrics["loss"].item())
-        log(f"train step {i}: loss {losses[-1]:.6f}, grad_norm "
-            f"{metrics['grad_norm'].item():.4f}, {step_ms[-1]:.1f} ms")
-    launches = {n: c.launches for n, c in counters.items()}
-    peak = torch.cuda.max_memory_allocated()
-
-    timed = sorted(step_ms[TRAIN_UNTIMED:])
-    med = timed[len(timed) // 2] if len(timed) % 2 else (
-        timed[len(timed) // 2 - 1] + timed[len(timed) // 2]) / 2
-    flops = cfg.flops_per_token(TRAIN_SEQ) * tokens
-    stats = {"attention_impl": cfg.attention_impl, "remat": remat,
-             "steps": TRAIN_STEPS, "untimed": TRAIN_UNTIMED,
-             "losses": losses, "step_ms": step_ms, "step_ms_median": med,
-             "tokens_per_s": tokens / (med / 1e3),
-             "model_flops_per_step": flops,
-             "share_of_bf16_peak": flops / (med / 1e3) / PEAK_BF16_FLOPS,
-             "peak_mem_gb": peak / 1e9,
-             "launches_per_step": {n: c / TRAIN_STEPS
-                                   for n, c in launches.items()}}
-    log("train " + json.dumps(stats))
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[1]:
-        raise AssertionError(f"training losses not finite and falling: "
-                             f"{losses}")
-    want = {n: per_layer.get(n, 0) * layers * TRAIN_STEPS for n in counters}
-    if launches != want:
-        raise AssertionError(f"kernel launches over {TRAIN_STEPS} steps "
-                             f"(L = {layers}): {launches}, want {want}")
+    state, step, batch, stats, launches = run_training(
+        "llama_1b", cfg, remat, per_layer)
 
     compare_train_step(state, batch, cfg, dev, remat, plain,
                        SPLASH_STEP_LOSS_ATOL if splash else STEP_LOSS_ATOL)
@@ -1257,6 +1604,31 @@ def train_llama(dev, splash: bool = False):
         time_lm_head_loss(state, cfg, dev)
     profile_step(step, state, batch,
                  "train_step_splash" if splash else "train_step")
+    return stats, launches
+
+
+def train_mixtral(dev):
+    """Phase train_mixtral_8x7b: Mixtral-8x7B at full width and 1 layer
+    (MIXTRAL_TRAIN_LAYERS), flash attention under full remat, as phase 6
+    trains llama_1b: B1/B2/B3 launch 2/1/1 a step; the MoE step replays in
+    the backward.  The aux loss must be finite and above 0 on every
+    step; one step is held against the same step through B1-B3's plain
+    versions (``compare_train_step``, B1's routing replayed)."""
+    import numpy as np
+    from ray_tpu_torch.models import config as mcfg
+    from ray_tpu_torch.models import transformer
+
+    cfg = dataclasses.replace(mcfg.mixtral_8x7b(),
+                              num_layers=MIXTRAL_TRAIN_LAYERS)
+    state, step, batch, stats, launches = run_training(
+        "mixtral_8x7b", cfg, True, FLASH_PER_LAYER)
+    aux = stats["moe_aux_losses"]
+    if not (all(np.isfinite(aux)) and min(aux) > 0):
+        raise AssertionError(f"moe_aux_loss not finite and above 0: {aux}")
+    compare_train_step(state, batch, cfg, dev, True,
+                       (transformer, "mha", plain_attention()),
+                       STEP_LOSS_ATOL)
+    profile_step(step, state, batch, "train_step_mixtral")
     return stats, launches
 
 
@@ -1301,6 +1673,8 @@ def kernel_category(name: str) -> str:
             ("flash_bwd_dq (B2)", ("flash_bwd_dq_kernel",)),
             ("flash_bwd_dkv (B3)", ("flash_bwd_dkv_kernel",)),
             ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
+            ("gather and scatter", ("index", "scatter", "gather")),
+            ("sort", ("sort", "radix")),
             ("optimizer (foreach)", ("foreach", "multi_tensor")),
             ("reductions", ("reduce",)),
             ("copies and casts", ("copy",)),
@@ -1314,30 +1688,53 @@ def compare_train_step(state, batch, cfg, dev, remat, plain_entry,
                        loss_atol):
     """One step's loss and gradients with attention through the kernels,
     against the same step with attention through their plain versions
-    (``plain_entry``: the (module, name, function) to patch in)."""
+    (``plain_entry``: the (module, name, function) to patch in).  With MoE,
+    bf16 rounding at other tile boundaries flips near-tied router choices,
+    and a flip moves a token's MLP output, its gradient to other experts
+    and what the capacity drops: the plain run that routes freely is a
+    reading (with the share of tokens routed otherwise), and the checked
+    one replays the kernels' run's experts, slots and kept flags, its
+    weights and aux loss (and their gradients to the router) its own
+    (``routing_log``)."""
     import torch
     from ray_tpu_torch.models import transformer
     from ray_tpu_torch.parallel.train_step import _leaves
 
     batch_t = {"tokens": torch.from_numpy(batch["tokens"]).to(dev)}
     leaves = _leaves(state.params)
+    moe = cfg.num_experts > 1
 
-    def loss_and_grads():
-        total, metrics = transformer.causal_lm_loss(state.params, batch_t,
-                                                    cfg, remat=remat)
-        return metrics["loss"].item(), torch.autograd.grad(total, leaves)
+    def loss_and_grads(calls, replay=None):
+        with routing_log(calls, replay):
+            total, metrics = transformer.causal_lm_loss(
+                state.params, batch_t, cfg, remat=remat)
+            return metrics["loss"].item(), torch.autograd.grad(total, leaves)
 
-    kern_loss, kern = loss_and_grads()
+    def gaps(loss_a, grads_a, loss_b, grads_b):
+        rel = [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+               for a, b in zip(grads_a, grads_b)]
+        return {"abs_loss_diff": abs(loss_a - loss_b),
+                "max_leaf_rel_l2": max(rel),
+                "median_leaf_rel_l2": sorted(rel)[len(rel) // 2],
+                "leaves": len(rel)}
+
+    kern_calls = []
+    kern_loss, kern = loss_and_grads(kern_calls)
     with patched(*plain_entry):
-        plain_loss, plain = loss_and_grads()
-    rel = [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
-           for a, b in zip(kern, plain)]
+        if moe:
+            free_calls = []
+            free_loss, free = loss_and_grads(free_calls)
+            log("train_step_vs_plain_free_routing_reading " + json.dumps({
+                **gaps(kern_loss, kern, free_loss, free),
+                "token_calls_routed_differently": torch.stack(
+                    [(a[2].expert != b[2].expert).any(-1).float().mean()
+                     for a, b in zip(kern_calls, free_calls)]).tolist()}))
+            del free, free_calls
+        plain_loss, plain = loss_and_grads([], kern_calls if moe else None)
     row = {"attention_impl": cfg.attention_impl,
+           "routing": "replayed from the kernels' run" if moe else None,
            "loss_kernels": kern_loss, "loss_plain_versions": plain_loss,
-           "abs_loss_diff": abs(kern_loss - plain_loss),
-           "max_leaf_rel_l2": max(rel),
-           "median_leaf_rel_l2": sorted(rel)[len(rel) // 2],
-           "leaves": len(rel)}
+           **gaps(kern_loss, kern, plain_loss, plain)}
     log("train_step_vs_plain " + json.dumps(row))
     if not (row["abs_loss_diff"] <= loss_atol
             and row["max_leaf_rel_l2"] <= STEP_GRAD_REL_L2):
@@ -1346,7 +1743,7 @@ def compare_train_step(state, batch, cfg, dev, remat, plain_entry,
             f"versions' by |dloss| {row['abs_loss_diff']} (limit "
             f"{loss_atol}), leaf rel L2 {row['max_leaf_rel_l2']} "
             f"(limit {STEP_GRAD_REL_L2})")
-    del kern, plain
+    del kern, plain, kern_calls
 
 
 def loss_gaps(state, cfg, dev):
@@ -1457,7 +1854,7 @@ def main() -> int:
         bwd_rows = check_flash_bwd(dev)
     from ray_tpu_torch.models import config as mcfg
     serve_cfg = mcfg.llama3_8b()
-    serve_params = llama3_8b_params(serve_cfg, dev)
+    serve_params = serving_params("llama3_8b", serve_cfg, dev)
     with phase("serve_llama3_8b"):
         _, serve_launches = serve_llama(dev, serve_cfg, serve_params)
     with phase("serve_llama3_8b_paged"):
@@ -1472,6 +1869,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("serve_f32_spec_exactness"):
         spec_exact_f32(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("moe_layer"):
+        check_moe(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixtral_cfg = dataclasses.replace(mcfg.mixtral_8x7b(),
+                                      num_layers=MIXTRAL_SERVE_LAYERS)
+    mixtral_params = serving_params(
+        f"mixtral_8x7b ({MIXTRAL_SERVE_LAYERS} of 32 layers)", mixtral_cfg,
+        dev)
+    with phase("serve_mixtral_8x7b"):
+        mixtral_serve, _ = serve_mixtral(dev, mixtral_cfg, mixtral_params)
+    del mixtral_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("train_mixtral_8x7b"):
+        _, mixtral_train = train_mixtral(dev)
     gc.collect()
     torch.cuda.empty_cache()
     with phase("train_llama_1b"):
@@ -1492,10 +1907,14 @@ def main() -> int:
         "replaces": "ray_tpu/ops/flash_attention.py:42",
         "design": HOPPER_DESIGN,
         "launches": (serve_launches + spec_launches
-                     + train_launches["flash_attention_fwd"]),
-        "launches_by_path": {"serve": serve_launches,
-                             "serve_paged_spec": spec_launches,
-                             "train": train_launches["flash_attention_fwd"]},
+                     + train_launches["flash_attention_fwd"]
+                     + mixtral_serve["flash_launches"]
+                     + mixtral_train["flash_attention_fwd"]),
+        "launches_by_path": {
+            "serve": serve_launches, "serve_paged_spec": spec_launches,
+            "train": train_launches["flash_attention_fwd"],
+            "serve_mixtral": mixtral_serve["flash_launches"],
+            "train_mixtral": mixtral_train["flash_attention_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -1508,7 +1927,11 @@ def main() -> int:
         "source": "ray_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:201",
         "design": HOPPER_DESIGN,
-        "launches": train_launches["flash_attention_bwd_dq"],
+        "launches": (train_launches["flash_attention_bwd_dq"]
+                     + mixtral_train["flash_attention_bwd_dq"]),
+        "launches_by_path": {
+            "train": train_launches["flash_attention_bwd_dq"],
+            "train_mixtral": mixtral_train["flash_attention_bwd_dq"]},
         "max_abs_err": max(r["dq_max_abs_err"] for r in bwd_rows),
         "ms": bwd_row["dq_ms"],
         "plain_ms": bwd_row["dq_plain_ms"],
@@ -1522,7 +1945,11 @@ def main() -> int:
         "source": "ray_tpu_torch/csrc/flash_attention_bwd_dkv.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:248",
         "design": HOPPER_DESIGN,
-        "launches": train_launches["flash_attention_bwd_dkv"],
+        "launches": (train_launches["flash_attention_bwd_dkv"]
+                     + mixtral_train["flash_attention_bwd_dkv"]),
+        "launches_by_path": {
+            "train": train_launches["flash_attention_bwd_dkv"],
+            "train_mixtral": mixtral_train["flash_attention_bwd_dkv"]},
         "max_abs_err": max(max(r["dk_max_abs_err"], r["dv_max_abs_err"])
                            for r in bwd_rows),
         "ms": bwd_row["dkv_ms"],

@@ -33,10 +33,10 @@ import torch
 
 from .. import device as _device
 from ..ops.attention import NEG_INF
+from ..ops.moe import moe_mlp
 from .config import TransformerConfig
-from .transformer import (Params, _mlp_block, _norm, _not_ported,
-                          _rope_tables, _rotate, lm_head_weight,
-                          unbind_layers)
+from .transformer import (Params, _mlp_block, _norm, _rope_tables, _rotate,
+                          lm_head_weight, unbind_layers)
 
 KVCache = Dict[str, torch.Tensor]
 
@@ -94,9 +94,27 @@ def _rope_per_row(x: torch.Tensor, positions: torch.Tensor,
 
 
 def _mlp(y, p, cfg: TransformerConfig):
+    """The block's MLP on norm'd ``y``; MoE's aux loss is dropped."""
     if cfg.num_experts > 1:
-        raise _not_ported("MoE (num_experts > 1)", "queue A, ops/moe.py")
+        m = p["moe"]
+        return moe_mlp(y, m["router"], m["w_gate"], m["w_in"], m["w_out"],
+                       cfg.experts_per_token, cfg.expert_capacity_factor)[0]
     return _mlp_block(y, p["mlp"], cfg)
+
+
+def last_writer(keys: torch.Tensor) -> torch.Tensor:
+    """For each write i of a scatter to ``keys`` [N], the index of the last
+    write to the same key.  Gathering a scatter's values through it makes
+    duplicate writes identical, so the result is the JAX package's on the
+    CPU (XLA applies a scatter in order: the last write wins) in whatever
+    order the device applies them.  Where a slot's row then feeds MoE
+    routing (the scratch slot that admit padding rows share, the null page
+    of the paged cache), the expert capacity its token takes depends on
+    which write won."""
+    order = torch.argsort(keys, stable=True)
+    ordered = keys[order]
+    last = order[torch.searchsorted(ordered, ordered, right=True) - 1]
+    return torch.empty_like(order).index_put_((order,), last)
 
 
 def _proj_out(attn, p, cast):
@@ -152,6 +170,8 @@ def prefill(params: Params, cache: KVCache, tokens: torch.Tensor,
     if not cfg.use_rope:
         x = x + params["embed"]["pos"][:s][None].to(cast)
     positions = torch.arange(s, device=x.device).expand(b, s)
+    # admit padding rows share the scratch slot: the last one's K/V stays
+    src = last_writer(slots)
 
     for i, lp in enumerate(unbind_layers(params["blocks"], cfg.num_layers)):
         y = _norm(x, lp["attn_norm"], cfg)
@@ -163,8 +183,8 @@ def prefill(params: Params, cache: KVCache, tokens: torch.Tensor,
         # write this layer's K/V into the slots (padded tail included;
         # decode's length mask keeps it unread)
         k_lay, v_lay = cache["k"][i], cache["v"][i]
-        k_lay[slots, :s] = k.to(k_lay.dtype)
-        v_lay[slots, :s] = v.to(v_lay.dtype)
+        k_lay[slots, :s] = k[src].to(k_lay.dtype)
+        v_lay[slots, :s] = v[src].to(v_lay.dtype)
     # logits of each prompt's *last real token* (next-token distribution);
     # the norm is row-wise, so gathering the rows first changes nothing
     last_idx = (lengths.long() - 1).clamp(min=0)
@@ -353,12 +373,14 @@ def _merge_admit(state: Dict[str, Any], first: torch.Tensor,
     budgets = budgets - 1
     act = real_mask & (budgets > 0) & (first != eos)
     idx = (slot_ids.long(),)
+    src = last_writer(idx[0])   # padding rows share the scratch slot
     return {
-        "tokens": state["tokens"].index_put(idx, first.to(torch.int32)),
-        "active": state["active"].index_put(idx, act),
-        "temps": state["temps"].index_put(idx, temps.float()),
-        "budget": state["budget"].index_put(idx, budgets.to(torch.int32)),
-        "eos": state["eos"].index_put(idx, eos.to(torch.int32)),
+        "tokens": state["tokens"].index_put(idx, first[src].to(torch.int32)),
+        "active": state["active"].index_put(idx, act[src]),
+        "temps": state["temps"].index_put(idx, temps[src].float()),
+        "budget": state["budget"].index_put(idx,
+                                            budgets[src].to(torch.int32)),
+        "eos": state["eos"].index_put(idx, eos[src].to(torch.int32)),
         "generator": state["generator"],
     }
 

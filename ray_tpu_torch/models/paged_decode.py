@@ -38,7 +38,7 @@ import torch
 from .. import device as _device
 from .config import TransformerConfig
 from .decode import (_cache_attention, _merge_admit, _mlp, _proj_out, _qkv,
-                     _state_loop, sample_per_slot)
+                     _state_loop, last_writer, sample_per_slot)
 from .transformer import Params, _norm, lm_head_weight, unbind_layers
 
 PagedKVCache = Dict[str, torch.Tensor]
@@ -81,16 +81,17 @@ def _gather_pages(pages: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
 
 
 def _window_layers(params: Params, cache: PagedKVCache, x: torch.Tensor,
-                   positions: torch.Tensor, bt: torch.Tensor,
-                   write_page: torch.Tensor, write_off: torch.Tensor,
+                   positions: torch.Tensor, bt: torch.Tensor, write,
                    mask: torch.Tensor, cfg: TransformerConfig,
                    cast) -> torch.Tensor:
     """Every layer of a paged forward over a window of new tokens (a prompt
     suffix, one decode token, a verify window): write each layer's K/V
-    for the window into ``write_page``/``write_off`` (flat over [B * Q];
-    page 0 for dropped writes), then attend over the gathered pages under
-    ``mask`` [B, Q, span].  Returns the final hidden states [B, Q, H]."""
+    for the window as ``write`` (``_window_coords``: page, offset and
+    source, flat over [B * Q]; page 0 for dropped writes) says, then
+    attend over the gathered pages under ``mask`` [B, Q, span].  Returns
+    the final hidden states [B, Q, H]."""
     b, nq = positions.shape
+    write_page, write_off, src = write
     for i, lp in enumerate(unbind_layers(params["blocks"], cfg.num_layers)):
         k_pages, v_pages = cache["k"][i], cache["v"][i]
         y = _norm(x, lp["attn_norm"], cfg)
@@ -99,9 +100,9 @@ def _window_layers(params: Params, cache: PagedKVCache, x: torch.Tensor,
         # pages + the window itself) with the causal mask on absolute
         # positions: one code path covers both
         k_pages[write_page, write_off] = k.reshape(
-            b * nq, cfg.num_kv_heads, -1).to(k_pages.dtype)
+            b * nq, cfg.num_kv_heads, -1)[src].to(k_pages.dtype)
         v_pages[write_page, write_off] = v.reshape(
-            b * nq, cfg.num_kv_heads, -1).to(v_pages.dtype)
+            b * nq, cfg.num_kv_heads, -1)[src].to(v_pages.dtype)
         attn = _cache_attention(q, _gather_pages(k_pages, bt),
                                 _gather_pages(v_pages, bt), mask, cfg)
         x = x + _proj_out(attn.to(cast), lp["attn"], cast)
@@ -112,8 +113,10 @@ def _window_layers(params: Params, cache: PagedKVCache, x: torch.Tensor,
 def _window_coords(cache: PagedKVCache, bt: torch.Tensor,
                    positions: torch.Tensor, keep: torch.Tensor):
     """Scatter coordinates of window positions [B, Q] through block-table
-    rows bt [B, MP]: (page [B*Q], offset [B*Q]) with the positions ``keep``
-    marks False sent to the null page; and the causal mask [B, Q, span]
+    rows bt [B, MP]: (page [B*Q], offset [B*Q], source [B*Q]) with the
+    positions ``keep`` marks False sent to the null page, and each write's
+    values taken from the last write to the same page row (``last_writer``:
+    the null page's rows end as JAX's); and the causal mask [B, Q, span]
     (a query reads absolute positions <= its own)."""
     page = cache["k"].shape[2]
     max_pages = bt.shape[1]
@@ -123,7 +126,7 @@ def _window_coords(cache: PagedKVCache, bt: torch.Tensor,
     page_off = (positions % page).reshape(-1)
     mask = (torch.arange(kv_span, device=positions.device)[None, None]
             <= positions[:, :, None])
-    return safe_pi, page_off, mask
+    return (safe_pi, page_off, last_writer(safe_pi * page + page_off)), mask
 
 
 def _embed(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
@@ -159,10 +162,9 @@ def paged_prefill(params: Params, cache: PagedKVCache, tokens: torch.Tensor,
     bt = cache["block_table"][slots].long()                      # [B, MP]
     # padding positions of each row write into the null page
     valid_write = torch.arange(s, device=dev)[None] < lengths.long()[:, None]
-    write_page, write_off, mask = _window_coords(cache, bt, positions,
-                                                 valid_write)
-    x = _window_layers(params, cache, x, positions, bt, write_page,
-                       write_off, mask, cfg, compute_dtype)
+    write, mask = _window_coords(cache, bt, positions, valid_write)
+    x = _window_layers(params, cache, x, positions, bt, write, mask, cfg,
+                       compute_dtype)
     last = x[torch.arange(b, device=dev),
              (lengths.long() - 1).clamp(min=0)]                  # [B, H]
     logits = (last @ lm_head_weight(params, cfg, compute_dtype)).float()
@@ -181,10 +183,9 @@ def paged_decode_step(params: Params, cache: PagedKVCache,
     bt = cache["block_table"].long()                              # [S, MP]
     positions = lengths[:, None]                                  # [S, 1]
     x = _embed(params, tokens[:, None], positions, cfg, compute_dtype)
-    write_page, write_off, mask = _window_coords(cache, bt, positions,
-                                                 active[:, None])
-    x = _window_layers(params, cache, x, positions, bt, write_page,
-                       write_off, mask, cfg, compute_dtype)
+    write, mask = _window_coords(cache, bt, positions, active[:, None])
+    x = _window_layers(params, cache, x, positions, bt, write, mask, cfg,
+                       compute_dtype)
     logits = (x[:, 0] @ lm_head_weight(params, cfg, compute_dtype)).float()
     cache["length"].copy_(torch.where(active, lengths + 1, lengths))
     return cache, logits
@@ -216,9 +217,9 @@ def paged_verify_window(params: Params, cache: PagedKVCache,
                  + torch.arange(kwin, device=lengths.device)[None])  # [S, k]
     x = _embed(params, tokens, positions, cfg, compute_dtype)
     valid = active[:, None] & (positions < kv_span)
-    write_page, write_off, mask = _window_coords(cache, bt, positions, valid)
-    x = _window_layers(params, cache, x, positions, bt, write_page,
-                       write_off, mask, cfg, compute_dtype)
+    write, mask = _window_coords(cache, bt, positions, valid)
+    x = _window_layers(params, cache, x, positions, bt, write, mask, cfg,
+                       compute_dtype)
     logits = (x @ lm_head_weight(params, cfg, compute_dtype)).float()
     cache["length"].copy_(torch.where(
         active, torch.clamp(lengths + kwin, max=kv_span), lengths))

@@ -90,24 +90,27 @@ def forward(steps: Sequence[Step], values: Dict[str, torch.Tensor]
     return values
 
 
-def run(steps: Sequence[Step], values: Dict[str, torch.Tensor], out: str,
-        policy: Optional[SavePolicy]) -> torch.Tensor:
-    """Value ``out`` of the steps run on ``values`` (the layer's input and
-    params), differentiable in every input.  ``policy`` None keeps
-    everything the backward needs; a ``SavePolicy`` keeps what it saves."""
+def run(steps: Sequence[Step], values: Dict[str, torch.Tensor],
+        outs: Tuple[str, ...], policy: Optional[SavePolicy]
+        ) -> Tuple[torch.Tensor, ...]:
+    """The values named ``outs`` of the steps run on ``values`` (the
+    layer's input and params), differentiable in every input.  ``policy``
+    None keeps everything the backward needs; a ``SavePolicy`` keeps what
+    it saves."""
     tensors = list(values.values())
     if not (torch.is_grad_enabled()
             and any(t.requires_grad for t in tensors)):
-        return forward(steps, dict(values))[out]
-    return _Layer.apply(_Plan(steps, tuple(values), out, policy), *tensors)
+        vals = forward(steps, dict(values))
+        return tuple(vals[n] for n in outs)
+    return _Layer.apply(_Plan(steps, tuple(values), outs, policy), *tensors)
 
 
 class _Plan:
     """The steps, and per policy which graphs and values the forward
     keeps."""
 
-    def __init__(self, steps, inputs, out, policy):
-        self.steps, self.inputs, self.out = list(steps), inputs, out
+    def __init__(self, steps, inputs, outs, policy):
+        self.steps, self.inputs, self.outs = list(steps), inputs, tuple(outs)
         self.producer = {n: i for i, st in enumerate(self.steps)
                          for n in st.outs}
         self.keep_graph = [
@@ -157,16 +160,16 @@ class _Layer(torch.autograd.Function):
         ctx.save_for_backward(*tensors)
         ctx.plan, ctx.graphs = plan, graphs
         ctx.kept = {n: vals[n] for n in plan.kept}
-        return vals[plan.out]
+        return tuple(vals[n] for n in plan.outs)
 
     @staticmethod
-    def backward(ctx, grad_out):
+    def backward(ctx, *grad_outs):
         plan = ctx.plan
         vals = dict(zip(plan.inputs, ctx.saved_tensors))
         vals.update(ctx.kept)
         rec = _Recompute(plan, vals, ctx.graphs)
         ctx.graphs = ctx.kept = None
-        grads: Dict[str, torch.Tensor] = {plan.out: grad_out}
+        grads: Dict[str, torch.Tensor] = dict(zip(plan.outs, grad_outs))
         for i in reversed(range(len(plan.steps))):
             st = plan.steps[i]
             gouts = [grads.pop(n, None) for n in st.outs]

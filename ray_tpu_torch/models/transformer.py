@@ -1,4 +1,4 @@
-"""Decoder-only transformer: one implementation for GPT-2 / Llama-3.
+"""Decoder-only transformer: one implementation for GPT-2 / Llama-3 / Mixtral.
 
 Counterpart of ``ray_tpu/models/transformer.py``:
 * Params are a plain nested dict with the JAX tree's keys; every block weight
@@ -17,8 +17,10 @@ Counterpart of ``ray_tpu/models/transformer.py``:
 * The loss: ``causal_lm_loss`` with the blockwise LM head and cross entropy
   (``chunked_cross_entropy``, a ``torch.autograd.Function`` whose backward
   recomputes one chunk's logits at a time).
-
-MoE raises ``NotImplementedError``.
+* MoE (``num_experts > 1``): the block's MLP is ``ops/moe.py``'s
+  ``moe_mlp``, one step whose residuals carry no names (the JAX package
+  tags nothing inside it), so every remat policy replays it; the blocks'
+  aux losses are averaged into ``moe_aux_loss``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from ..ops import moe as moe_ops
 from ..ops.attention import attend, flash_kernel_takes, mha
 from . import remat as rm
 from .config import TransformerConfig
@@ -58,8 +61,6 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
     """Random params with the JAX package's keys and shapes, drawn from
     ``generator`` on its device.  (Values differ from the JAX package's
     draws; tests convert JAX params instead.)"""
-    if cfg.num_experts > 1:
-        raise _not_ported("MoE (num_experts > 1)", "queue A, ops/moe.py")
     h, hd = cfg.hidden_size, cfg.head_dim
     nh, nkv, m, L = cfg.num_heads, cfg.num_kv_heads, cfg.mlp_size, cfg.num_layers
     dev = generator.device
@@ -97,13 +98,23 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
         blocks["attn"]["bv"] = zeros((L, nkv * hd))
     if not cfg.use_rmsnorm:
         blocks["attn"]["bo"] = zeros((L, h))
-    mlp: Params = {"w_in": dense((L, h, m), h), "w_out": dense((L, m, h), m)}
-    if cfg.use_swiglu:
-        mlp["w_gate"] = dense((L, h, m), h)
+    if cfg.num_experts > 1:
+        e = cfg.num_experts
+        blocks["moe"] = {
+            "router": dense((L, h, e), h),
+            "w_gate": dense((L, e, h, m), h),
+            "w_in": dense((L, e, h, m), h),
+            "w_out": dense((L, e, m, h), m),
+        }
     else:
-        mlp["b_in"] = zeros((L, m))
-        mlp["b_out"] = zeros((L, h))
-    blocks["mlp"] = mlp
+        mlp: Params = {"w_in": dense((L, h, m), h),
+                       "w_out": dense((L, m, h), m)}
+        if cfg.use_swiglu:
+            mlp["w_gate"] = dense((L, h, m), h)
+        else:
+            mlp["b_in"] = zeros((L, m))
+            mlp["b_out"] = zeros((L, h))
+        blocks["mlp"] = mlp
 
     params: Params = {
         "embed": {"tokens": normal((cfg.vocab_size, h), 0.02)},
@@ -227,11 +238,12 @@ def _layer_steps(lp: Params, cfg: TransformerConfig, positions: torch.Tensor,
                  dtype: torch.dtype) -> List[rm.Step]:
     """One transformer block on ``dtype`` activations as steps over named
     values: the input "x", the layer's params by path ("attn.wq", ...), the
-    output "y".  Values named as in the JAX package's checkpoint_name tags
-    are kept by the policies that save those names."""
+    output "y" (and with MoE the layer's aux loss "moe_aux").  Values named
+    as in the JAX package's checkpoint_name tags are kept by the policies
+    that save those names."""
     b, s = lead
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    attn, mlp = lp["attn"], lp["mlp"]
+    attn = lp["attn"]
     theta = cfg.rope_theta
     qkv_bias = "bq" in attn
 
@@ -271,7 +283,8 @@ def _layer_steps(lp: Params, cfg: TransformerConfig, positions: torch.Tensor,
         rm.Step("attn_residual", _add, ("x", "attn_proj", *bo), ("x2",),
                 rm.LINEAR, _add_bwd(attn.get("bo"))),
         _norm_step("mlp_norm", "x2", "mlp_in", lp, cfg),
-        *_mlp_steps(mlp, cfg),
+        *(_moe_steps(cfg) if cfg.num_experts > 1
+          else _mlp_steps(lp["mlp"], cfg)),
         rm.Step("mlp_residual", _add, ("x2", "mlp_out"), ("y",), rm.LINEAR,
                 _add_bwd(None)),
     ]
@@ -324,6 +337,20 @@ def _mlp_steps(mlp: Params, cfg: TransformerConfig) -> List[rm.Step]:
     ]
 
 
+def _moe_steps(cfg: TransformerConfig) -> List[rm.Step]:
+    """The sparse MLP: "mlp_in" -> "mlp_out" and the aux loss "moe_aux".
+    One step with unnamed residuals: every remat policy replays it (under
+    "dots" JAX keeps its einsums' outputs instead; the values are the
+    same)."""
+    def moe(x, router, w_gate, w_in, w_out):
+        return moe_ops.moe_mlp(x, router, w_gate, w_in, w_out,
+                               cfg.experts_per_token,
+                               cfg.expert_capacity_factor)
+    return [rm.Step("moe", moe, ("mlp_in", "moe.router", "moe.w_gate",
+                                 "moe.w_in", "moe.w_out"),
+                    ("mlp_out", "moe_aux"))]
+
+
 def _mlp_block(x, p, cfg: TransformerConfig):
     """The MLP half of a block alone (the decode path's): norm'd input ->
     the MLP's output."""
@@ -351,11 +378,12 @@ def block_forward(x: torch.Tensor, lp: Params, cfg: TransformerConfig,
                   policy: Union[rm.SavePolicy, None] = None):
     """One transformer block: x [B, S, H] -> (x, moe aux loss).  ``policy``
     (see ``remat_policy``) says what its backward keeps; None keeps all."""
-    if cfg.num_experts > 1:
-        raise _not_ported("MoE (num_experts > 1)", "queue A, ops/moe.py")
     steps = _layer_steps(lp, cfg, positions, x.shape[:2], x.is_cuda,
                          x.dtype)
-    y = rm.run(steps, {"x": x, **_flat(lp)}, "y", policy)
+    values = {"x": x, **_flat(lp)}
+    if cfg.num_experts > 1:
+        return rm.run(steps, values, ("y", "moe_aux"), policy)
+    y, = rm.run(steps, values, ("y",), policy)
     return y, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -5,7 +5,7 @@ norm leaf perturbed by seeded numpy noise (so the bias, LayerNorm and
 learned-position paths do real work), and go to the port through
 ``params_from_numpy``.  Three tiny configs: Llama-style (RMSNorm, RoPE,
 SwiGLU, GQA), GPT-2 flags (LayerNorm with bias, learned positions, GELU,
-tied embeddings) and Qwen's QKV bias.  Logits and cache rows agree within
+tied embeddings), Qwen's QKV bias and Mixtral's MoE (4 experts, top 2).  Logits and cache rows agree within
 1e-4 in float32; greedy tokens are identical.
 """
 
@@ -41,6 +41,7 @@ CONFIGS = {
     "gpt2": dataclasses.replace(_BASE, use_rope=False, use_rmsnorm=False,
                                 use_swiglu=False, tied_embeddings=True),
     "qwen": dataclasses.replace(_BASE, use_qkv_bias=True),
+    "moe": jcfg.tiny(experts=4),
 }
 
 
@@ -88,11 +89,15 @@ def test_convert_keeps_tree_and_values(model):
 def test_apply_matches_jax(model):
     cfg, tc, jparams, tparams = model
     toks = _tokens((2, 16), cfg.vocab_size)
-    want, _ = jtr.apply(jparams, jnp.asarray(toks), cfg,
-                        compute_dtype=jnp.float32)
+    want, want_aux = jtr.apply(jparams, jnp.asarray(toks), cfg,
+                               compute_dtype=jnp.float32)
     got, aux = ttr.apply(tparams, torch.from_numpy(toks), tc,
                          compute_dtype=torch.float32)
-    assert got.dtype == torch.float32 and float(aux["moe_aux_loss"]) == 0.0
+    # the aux loss is 0 for a dense model, the blocks' mean for MoE
+    assert got.dtype == torch.float32
+    assert float(aux["moe_aux_loss"]) == pytest.approx(
+        float(want_aux["moe_aux_loss"]), abs=1e-6)
+    assert (float(aux["moe_aux_loss"]) > 0) == (cfg.num_experts > 1)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
@@ -248,13 +253,23 @@ def test_gelu_is_the_tanh_approximation():
 
 
 def test_not_ported_options_raise():
-    """MoE still raises.  attention_impl="splash" is ported: on the tiny
-    config (head dim 16) splash declines the shape and the model gives the
-    "auto" config's logits, as the JAX package falls back."""
+    """Options once refused now run.  MoE: init_params draws the JAX
+    package's ``moe`` leaves (and no ``mlp``), and the model runs on them.
+    attention_impl="splash": on the tiny config (head dim 16) splash
+    declines the shape and the model gives the "auto" config's logits, as
+    the JAX package falls back."""
     tc = tcfg.tiny()
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.init_params(gen, tcfg.tiny(experts=4))
+    moe_cfg = tcfg.tiny(experts=4)
+    moe = ttr.init_params(gen, moe_cfg)
+    want = jax.eval_shape(lambda: jtr.init_params(jax.random.PRNGKey(0),
+                                                  jcfg.tiny(experts=4)))
+    assert "mlp" not in moe["blocks"]
+    assert {k: tuple(v.shape) for k, v in moe["blocks"]["moe"].items()} == {
+        k: v.shape for k, v in want["blocks"]["moe"].items()}
+    logits, aux = ttr.apply(moe, torch.zeros((1, 8), dtype=torch.int32),
+                            moe_cfg, compute_dtype=torch.float32)
+    assert torch.isfinite(logits).all() and float(aux["moe_aux_loss"]) > 0
     params = ttr.init_params(gen, tc)
     splash = dataclasses.replace(tc, attention_impl="splash")
     toks = torch.zeros((1, 8), dtype=torch.int32)

@@ -37,7 +37,7 @@ for n in names:
     importlib.import_module(n)
 bad = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "ray_tpu")]
 assert not bad, bad
-print("imported", len(names))
+print("imported", " ".join(names), len(names))
 '''
 
 
@@ -46,10 +46,12 @@ def test_every_module_imports_with_jax_and_ray_tpu_blocked():
     res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    # models.{config,convert,decode,remat,transformer}, ops.{_build,
-    # attention,flash_attention,splash_attention}, parallel.train_step,
-    # serve.llm, device and the four subpackages
-    assert int(res.stdout.split()[-1]) >= 16, res.stdout
+    # models.{config,convert,decode,paged_decode,remat,speculative,
+    # transformer}, ops.{_build,attention,flash_attention,moe,
+    # splash_attention}, parallel.train_step, serve.llm, device and the
+    # four subpackages
+    assert int(res.stdout.split()[-1]) >= 19, res.stdout
+    assert "ray_tpu_torch.ops.moe" in res.stdout.split(), res.stdout
 
 
 def _import_roots(path: Path):

@@ -3,8 +3,8 @@
 Params come from the JAX package's ``init_params`` (f32), carried over with
 ``params_from_numpy``; block tables, prompts and windows are numpy arrays
 fed to both.  Three tiny configs: Llama-style (RoPE, GQA), GPT-2 flags
-(learned positions, LayerNorm, tied embeddings) and a logit softcap small
-enough to bend the scores.  Logits and the K/V gathered through the block
+(learned positions, LayerNorm, tied embeddings), a logit softcap small
+enough to bend the scores, and MoE (4 experts, top 2).  Logits and the K/V gathered through the block
 tables agree within 1e-4; greedy tokens are identical.  The host-side
 ``PageAllocator`` and ``PrefixCache`` must give the JAX classes' results on
 one sequence of operations, and the prefix hash must be the router's.
@@ -45,6 +45,7 @@ CONFIGS = {
     "gpt2": dataclasses.replace(_BASE, use_rope=False, use_rmsnorm=False,
                                 use_swiglu=False, tied_embeddings=True),
     "softcap": dataclasses.replace(_BASE, attn_logit_softcap=0.5),
+    "moe": dataclasses.replace(_BASE, num_experts=4),
 }
 
 
