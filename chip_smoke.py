@@ -13,7 +13,8 @@ script exits non-zero:
    if ptxas dropped a `setmaxnreg` (warning C7508) in any of them.
 3. Kernel B1 (flash forward) against its plain PyTorch version on the card,
    at the shapes the serving path gives it (Llama-3-8B prefill: B=8,
-   S=2048 and S=1024, H=32, KV=8, D=128, causal), plus D=64 non-causal,
+   S=2048 and S=1024, H=32, KV=8, D=128, causal; a tp=2 shard's: H=16,
+   KV=4), plus D=64 non-causal,
    D=256, a ragged S (1000, and 1088: 64 rows past a 128-row tile) and q,
    k, v as head slices of one fused tensor (strided views).  Times of the
    kernel, the plain version and one library call
@@ -53,10 +54,21 @@ script exits non-zero:
       acceptance read, the vanilla paged engine on the same weights beside
       it (streams' agreement read, no limit), the dense and paged verify
       windows' logits against 4 sequential decode steps;
-   d. a 2-layer f32 cut at full width: the spec streams must equal the
+   d. ``serve_llama3_8b_tp2``: ``LLMEngine(tp=2)`` splits the same
+      weights over two shards (on cuda:0 and cuda:1 with two cards, else
+      both on cuda:0; the placement line says which: the same run is the
+      multi-card check on a machine with two cards), the dense phase's
+      requests: B1 2 x 32 launches per bucket-2048 batch, the share of
+      greedy tokens equal to tp=1's (a reading), one 8 x 2048 prefill's
+      logits against tp=1's (rms limit); then the paged engine and the
+      prefix waves on the same shards, as a. and b. check them;
+   e. a 2-layer f32 cut at full width: the spec streams must equal the
       vanilla ones, and the spec engine's pages a fresh prefill's of each
-      verified sequence (the rollback invariant).
-   e. ``moe_layer``: ``moe_mlp`` against its one-hot version (the
+      verified sequence (the rollback invariant); then
+      ``serve_f32_tp_exactness``: the same cut's tp=2 streams must equal
+      tp=1's, dense and paged, and each shard's K/V tp=1's at its KV heads
+      within 1e-4 of the largest magnitude.
+   f. ``moe_layer``: ``moe_mlp`` against its one-hot version (the
       reference's einsums, with its own top-k by argmax) at Mixtral-8x7B's
       width in bf16 (H 4096, M 14336, 8 experts, top 2) for one 8 x 2048
       prefill batch, the same with a skewed router (experts overflow) and
@@ -64,7 +76,7 @@ script exits non-zero:
       the same buffer positions, the output within 2e-2 of the largest
       magnitude, pairs dropped under the skewed router; both timed beside
       the larger of the FLOP and the byte bound; the dropped share.
-   f. ``serve_mixtral_8x7b``: the Llama weights freed, Mixtral-8x7B at full
+   g. ``serve_mixtral_8x7b``: the Llama weights freed, Mixtral-8x7B at full
       width cut to 16 of its 32 layers (random bf16 weights, seed 0; 47
       GB) through the dense engine and the same 8 requests: B1 launches
       (16 per bucket-2048 prefill batch), TTFT, decode tok/s, peak memory,
@@ -77,8 +89,12 @@ script exits non-zero:
       attention too) are readings, with the share of tokens routed
       otherwise. No spec or prefix run: with MoE their streams differ
       from vanilla by the reference's own semantics (capacity comes from
-      the call's batch).
-   g. ``train_mixtral_8x7b``: Mixtral-8x7B at full width and 1 layer,
+      the call's batch).  Then ``serve_mixtral_8x7b_tp2``: 8 layers (the
+      weights twice: tp=1's tree and the shards), the dense engine at tp=2
+      (B1 2 x 8 launches per long batch), and one 8 x 2048 prefill batch at
+      tp=2 against tp=1 with tp=1's routing replayed (rms limit); routed
+      freely, a reading, with both runs' dropped shares.
+   h. ``train_mixtral_8x7b``: Mixtral-8x7B at full width and 1 layer,
       trained as phase 6 trains llama_1b (B1/B2/B3 2/1/1 a step); the
       loss finite and falling, the MoE aux loss finite and above 0 on
       every step; one step's loss and gradients against the same step
@@ -215,6 +231,9 @@ SPEC_KV_RTOL = 1e-4
 # activations and the update's temporaries).
 MIXTRAL_SERVE_LAYERS = 16
 MIXTRAL_TRAIN_LAYERS = 1
+# the tp=2 serving phase holds the weights twice (the tp=1 reference run's
+# tree and the two shards): 8 layers, 23.7 GB a copy (16 would take 94 GB)
+MIXTRAL_TP_LAYERS = 8
 # moe_mlp against its one-hot version in bf16, as a share of the one-hot
 # version's largest magnitude: the same rows through the same products,
 # the weighted sum in another order
@@ -303,6 +322,10 @@ def check_flash(dev):
     cases = [  # (B, S, H, KV, D, causal, timed, strided)
         (8, 2048, 32, 8, 128, True, True, False),   # bucket-2048 prefill
         (8, 1024, 32, 8, 128, True, True, False),   # bucket-1024 prefill
+        # a tp=2 shard's prefill (Llama's and Mixtral's 32 q / 8 KV heads
+        # over two shards)
+        (8, 2048, 16, 4, 128, True, True, False),
+        (8, 1024, 16, 4, 128, True, False, False),
         (8, 2048, 16, 8, 128, True, True, False),   # llama_1b training batch
         (2, 1024, 16, 4, 64, False, False, False),
         (2, 1000, 32, 8, 128, True, False, False),  # ragged edge
@@ -599,6 +622,72 @@ def patched(module, name: str, fn):
         setattr(module, name, real)
 
 
+def sync_cards():
+    """Wait for every card (a tp engine's shards may run on several)."""
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def cards(devices=None):
+    """The card indices of ``devices`` (None: the current card)."""
+    import torch
+    if devices is None:
+        return [torch.cuda.current_device()]
+    return sorted({torch.device(d).index for d in devices})
+
+
+def reset_peaks(devices=None):
+    import torch
+    sync_cards()
+    for i in cards(devices):
+        torch.cuda.reset_peak_memory_stats(i)
+
+
+def peak_gb(devices=None):
+    """The largest peak of allocated memory on the cards since
+    ``reset_peaks``, GB."""
+    import torch
+    return max(torch.cuda.max_memory_allocated(i) for i in cards(devices)) / 1e9
+
+
+def peaks_by_card(devices):
+    import torch
+    return {f"cuda:{i}": torch.cuda.max_memory_allocated(i) / 1e9
+            for i in cards(devices)}
+
+
+def tp_placement():
+    """The tp phases' shard devices: cuda:0 and cuda:1 with two cards or
+    more, else cuda:0 twice (both shards on one card, one after the other:
+    their times are one card's, not a two-card speed)."""
+    import torch
+    two = torch.cuda.device_count() >= 2
+    devices = [torch.device("cuda", 0), torch.device("cuda", 1 if two else 0)]
+    log(f"tp placement: shards on {[str(d) for d in devices]} ("
+        + ("one card each)" if two else "both on one card: times are one "
+           "card running both shards, not a two-card speed)"))
+    return devices
+
+
+def engine_kw(devices=None):
+    """LLMEngine's placement: the current card (None), or one tp shard on
+    each of ``devices``."""
+    if devices is None:
+        return dict(device="cuda")
+    return dict(device=list(devices), tp=len(devices))
+
+
+def on_shards(cache, devices=None):
+    """A cache made on the first card, split over the tp shards on
+    ``devices`` as the engine splits its own (None: as it is)."""
+    if devices is None:
+        return cache
+    from ray_tpu_torch.models.convert import tp_split
+    return tp_split(cache, len(devices),
+                    lambda t, i: t.to(devices[i], copy=True))
+
+
 def serving_params(name, cfg, dev):
     """A model's random bf16 weights, drawn once from seed 0 as
     ``LLMEngine`` draws them, and passed to every serving engine."""
@@ -704,7 +793,7 @@ def serve_llama(dev, cfg, params):
     log("serve " + json.dumps(stats))
     check_prefill_logits(eng, cfg, prompts, dev)
     where_time_goes(eng, cfg, prompts, dev)
-    return stats, launches
+    return stats, launches, outs
 
 
 def _prefill_batch(cfg, prompts, batch, dev, cycle=len(LONG_PROMPTS)):
@@ -799,15 +888,15 @@ def trace_calls(calls):
     with torch.inference_mode():
         for name, fn, per in calls:
             fn()
-            torch.cuda.synchronize()
+            sync_cards()
             t0 = time.perf_counter()
             fn()
-            torch.cuda.synchronize()
+            sync_cards()
             wall_ms = (time.perf_counter() - t0) * 1e3
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 fn()
-                torch.cuda.synchronize()
+                sync_cards()
             kernels = [e for e in prof.key_averages()
                        if e.device_type == torch.autograd.DeviceType.CUDA]
             busy = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -864,80 +953,84 @@ def _zeros(n, dev):
     return torch.zeros(n, dtype=torch.int32, device=dev)
 
 
-def serve_llama_paged(dev, cfg, params):
+def serve_llama_paged(dev, cfg, params, devices=None):
     """Phase serve_llama3_8b_paged: the serving phase's requests through
     the paged engine (``paged=True, page_size=64``).  The paged prefill
     attends with f32 einsums over the gathered pages, as the JAX package's
     does, so no kernel launches; its logits are held against the dense
     prefill's (through B1), and one paged prefill batch and one paged
-    decode dispatch are timed and traced."""
+    decode dispatch are timed and traced.  With ``devices`` the same at
+    tp = len(devices), ``params`` the shards ("tp2_" lines)."""
     import torch
     from ray_tpu_torch.models import decode as dec
     from ray_tpu_torch.models import paged_decode as pdec
     from ray_tpu_torch.ops.flash_attention import flash_attention
     from ray_tpu_torch.serve.llm import LLMEngine
 
-    eng = LLMEngine(cfg, params, device="cuda", num_slots=8,
-                    max_len=SERVE_MAX_LEN, paged=True, page_size=PAGE_SIZE)
+    tag = "tp2_" if devices else ""
+    eng = LLMEngine(cfg, params, num_slots=8, max_len=SERVE_MAX_LEN,
+                    paged=True, page_size=PAGE_SIZE, **engine_kw(devices))
     prompts = serving_prompts(cfg)
     try:
         warm(eng, cfg, (LONG_PROMPTS[0], SHORT_PROMPTS[0]))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peaks(devices)
         flash_attention.launches = 0
         _, _, stats = run_requests(eng, cfg, prompts)
         launches = flash_attention.launches
-        stats.update(flash_launches=launches,
-                     peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        stats.update(flash_launches=launches, peak_mem_gb=peak_gb(devices),
                      kv_pages=eng.breakdown()["kv_pages"],
                      num_pages=eng.num_pages)
     finally:
         eng.shutdown()
-    log("serve_paged " + json.dumps(stats))
+    log(f"serve_{tag}paged " + json.dumps(stats))
     if launches:
         raise AssertionError(f"the paged engine launched the flash kernel "
                              f"{launches} times; its prefill has none")
 
     toks, lengths, slots = _prefill_batch(cfg, prompts, 2, dev)
     with torch.inference_mode():
-        _, dense = dec.prefill(params, dec.init_kv_cache(
-            cfg, 2, SERVE_MAX_LEN, torch.bfloat16, dev), toks, lengths,
-            slots, cfg)
+        _, dense = dec.prefill(params, on_shards(dec.init_kv_cache(
+            cfg, 2, SERVE_MAX_LEN, torch.bfloat16, dev), devices), toks,
+            lengths, slots, cfg)
         _, paged = pdec.paged_prefill(
-            params, paged_cache_for(cfg, 2, SERVE_MAX_LEN // PAGE_SIZE, dev),
+            params, on_shards(paged_cache_for(
+                cfg, 2, SERVE_MAX_LEN // PAGE_SIZE, dev), devices),
             toks, lengths, slots, _zeros(2, dev), cfg)
-    logits_check("paged_prefill_vs_dense_prefill_b1", paged, dense)
+    logits_check(f"{tag}paged_prefill_vs_dense_prefill_b1", paged, dense)
     del dense, paged
 
     toks, lengths, slots = _prefill_batch(cfg, prompts, 8, dev)
-    pc = paged_cache_for(cfg, 8, SERVE_MAX_LEN // PAGE_SIZE, dev)
+    pc = on_shards(paged_cache_for(cfg, 8, SERVE_MAX_LEN // PAGE_SIZE, dev),
+                   devices)
     steps = eng.steps_per_dispatch
     trace_calls((
-        ("paged_prefill_8x2048", lambda: pdec.paged_prefill(
+        (f"{tag}paged_prefill_8x2048", lambda: pdec.paged_prefill(
             params, pc, toks, lengths, slots, _zeros(8, dev), cfg), 1),
-        ("paged_decode_dispatch", lambda: pdec.paged_decode_state_loop(
+        (f"{tag}paged_decode_dispatch", lambda: pdec.paged_decode_state_loop(
             params, eng.cache, eng._state, steps, cfg), steps)))
     return stats
 
 
-def serve_llama_paged_prefix(dev, cfg, params):
+def serve_llama_paged_prefix(dev, cfg, params, devices=None):
     """Phase serve_llama3_8b_paged_prefix: prompts of one shared 1024-token
     prefix and a 32-token tail of their own, as bench_llm.py's prefix arm
     builds them; 4 requests, then 4 more, whose admissions reuse the
     prefix's 16 pages each.  The second wave's first-token logits (a suffix
     prefill from position 1024) are held against a cold paged prefill of
-    the same prompts."""
+    the same prompts.  With ``devices`` the same at tp = len(devices),
+    ``params`` the shards ("tp2_" lines)."""
     import numpy as np
     import torch
     from ray_tpu_torch.models import paged_decode as pdec
     from ray_tpu_torch.serve.llm import LLMEngine
 
+    tag = "tp2_" if devices else ""
     rng = np.random.default_rng(1)
     prefix = rng.integers(1, cfg.vocab_size, PREFIX_LEN).tolist()
     prompts = [prefix + rng.integers(1, cfg.vocab_size, TAIL_LEN).tolist()
                for _ in range(8)]
-    eng = LLMEngine(cfg, params, device="cuda", num_slots=8,
-                    max_len=SERVE_MAX_LEN, paged=True, page_size=PAGE_SIZE)
+    eng = LLMEngine(cfg, params, num_slots=8, max_len=SERVE_MAX_LEN,
+                    paged=True, page_size=PAGE_SIZE, **engine_kw(devices))
     try:
         warm(eng, cfg, (PREFIX_LEN + TAIL_LEN, TAIL_LEN))
         waves = [run_requests(eng, cfg, wave)[2]
@@ -948,7 +1041,7 @@ def serve_llama_paged_prefix(dev, cfg, params):
     pc_stats = bd["prefix_cache"]
     stats = {"wave_1": waves[0], "wave_2": waves[1],
              "prefix_cache": pc_stats, "kv_pages": bd["kv_pages"]}
-    log("serve_paged_prefix " + json.dumps(stats))
+    log(f"serve_{tag}paged_prefix " + json.dumps(stats))
     if (pc_stats["hits"], pc_stats["tokens_reused"]) != (4, 4 * PREFIX_LEN):
         raise AssertionError(f"prefix cache: {pc_stats}; want 4 hits reusing "
                              f"{PREFIX_LEN // PAGE_SIZE} pages each")
@@ -962,13 +1055,15 @@ def serve_llama_paged_prefix(dev, cfg, params):
     toks, lengths, slots = _prefill_batch(cfg, prompts[4:], n, dev, None)
     tails = torch.tensor([p[PREFIX_LEN:] for p in prompts[4:]],
                          dtype=torch.int32, device=dev)
+    cache = on_shards(cache, devices)
     with torch.inference_mode():
         _, cold = pdec.paged_prefill(params, cache, toks, lengths, slots,
                                      _zeros(n, dev), cfg)
         _, warm_logits = pdec.paged_prefill(
             params, cache, tails, torch.full_like(lengths, TAIL_LEN),
             slots + n, torch.full_like(lengths, PREFIX_LEN), cfg)
-    logits_check("prefix_reuse_vs_cold_paged_prefill", warm_logits, cold)
+    logits_check(f"{tag}prefix_reuse_vs_cold_paged_prefill", warm_logits,
+                 cold)
     return stats
 
 
@@ -1159,6 +1254,177 @@ def rollback_kv_diff(eng, reqs, params, cfg, dev):
             worst = max(worst, ((got - want).abs().max()
                                 / want.abs().max()).item())
     return lens_ok, worst
+
+
+def serve_llama_tp(dev, cfg, params, devices, tp1_outs):
+    """Phase serve_llama3_8b_tp2: ``LLMEngine(tp=2)`` splits the serving
+    weights over two shards on ``devices`` (another 16 GB), and the dense
+    phase's 8 requests go through it: B1 launches 2 x 32 per bucket-2048
+    prefill batch (each shard's prefill at 16 q and 4 KV heads); TTFT,
+    decode tok/s, peak memory and the share of greedy tokens equal to the
+    tp=1 engine's (``tp1_outs``; a reading: the shards' halves of each
+    projection add in bf16 in another order), a prefill batch and a decode
+    dispatch traced.  Then one 8 x 2048 prefill batch at tp=2 against tp=1
+    (rms limit, the largest difference a reading), and the paged engine and
+    the prefix waves on the same shards (``serve_llama_paged``,
+    ``serve_llama_paged_prefix``: no launch, 4 hits reusing 4096 tokens)."""
+    import torch
+    from ray_tpu_torch.models import decode as dec
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    tp = len(devices)
+    eng = LLMEngine(cfg, params, num_slots=8, max_len=SERVE_MAX_LEN,
+                    **engine_kw(devices))
+    prompts = serving_prompts(cfg)
+    try:
+        warm(eng, cfg, (LONG_PROMPTS[0], SHORT_PROMPTS[0]))
+        before = dict(eng.admit_batches_by_bucket)
+        reset_peaks(devices)
+        flash_attention.launches = 0
+        outs, _, stats = run_requests(eng, cfg, prompts)
+        launches = flash_attention.launches
+        peaks = peaks_by_card(devices)
+        long_batches = long_batches_since(eng, before)
+    finally:
+        eng.shutdown()
+    same = [a == b for x, y in zip(outs, tp1_outs) for a, b in zip(x, y)]
+    stats.update(
+        tp=tp, devices=[str(d) for d in devices],
+        long_prefill_batches=long_batches, flash_launches=launches,
+        peak_mem_gb=max(peaks.values()), peak_mem_gb_by_card=peaks,
+        greedy_tokens_equal_to_tp1=sum(same) / len(same),
+        tokens_agreeing_before_divergence=[
+            next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                 len(x)) for x, y in zip(outs, tp1_outs)])
+    log("serve_tp2 " + json.dumps(stats))
+    if long_batches < 1 or launches < tp * cfg.num_layers * long_batches:
+        raise AssertionError(
+            f"flash kernel launched {launches} times for {long_batches} "
+            f"prefill batches at bucket >= 1024 ({tp} shards x "
+            f"{cfg.num_layers} layers)")
+
+    toks, lengths, slots = _prefill_batch(cfg, prompts, 8, dev)
+    with torch.inference_mode():
+        _, one = dec.prefill(params, dec.init_kv_cache(
+            cfg, 8, SERVE_MAX_LEN, torch.bfloat16, dev), toks, lengths,
+            slots, cfg)
+        _, two = dec.prefill(eng.params, on_shards(dec.init_kv_cache(
+            cfg, 8, SERVE_MAX_LEN, torch.bfloat16, dev), devices), toks,
+            lengths, slots, cfg)
+    logits_check("tp2_prefill_vs_tp1_prefill_8x2048", two, one,
+                 max_share=None)
+    del one, two
+    where_time_goes(eng, cfg, prompts, dev, "tp2_")
+    shards = eng.params
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_llama_paged(dev, cfg, shards, devices)
+    serve_llama_paged_prefix(dev, cfg, shards, devices)
+    return stats, launches
+
+
+def tp_exact_f32(dev, devices):
+    """Phase serve_f32_tp_exactness: a 2-layer cut of Llama-3-8B at full
+    width (f32 weights from seed 0, f32 compute; 6 GB, and 6 GB more of
+    shards), the f32 exactness run's 4 greedy requests through the dense
+    and the paged engine at tp=1 and at tp=2 on ``devices``.  The tp=2
+    streams must equal tp=1's token for token (on a difference, the top-2
+    logit gap of tp=1 at the first differing token is printed), and each
+    shard's K/V at every request's positions must equal tp=1's at that
+    shard's KV heads within SPEC_KV_RTOL of the largest magnitude."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.models import config as mcfg
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    cfg = dataclasses.replace(mcfg.llama3_8b(), num_layers=2)
+    params = transformer.init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg, dtype=torch.float32)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in EXACT_PROMPTS]
+    for mode, kw in (("dense", {}),
+                     ("paged", dict(paged=True, page_size=PAGE_SIZE))):
+        runs = []
+        for place in (None, devices):
+            eng = LLMEngine(cfg, params, num_slots=len(prompts),
+                            max_len=SERVE_MAX_LEN,
+                            compute_dtype=torch.float32, **kw,
+                            **engine_kw(place))
+            try:
+                outs, reqs, stats = run_requests(eng, cfg, prompts,
+                                                 EXACT_MAX_TOKENS)
+            finally:
+                eng.shutdown()
+            runs.append((eng, outs, reqs, stats))
+        (one, outs_1, reqs_1, stats_1), (two, outs_2, reqs_2, stats_2) = runs
+        row = {"mode": mode, "streams_equal": outs_2 == outs_1,
+               "slots_equal": ([r.slot for r in reqs_1]
+                               == [r.slot for r in reqs_2]),
+               "kv_max_rel_diff_by_shard": tp_kv_diffs(one, two, reqs_1, dev),
+               "decode_tok_s": {"tp1": stats_1["decode_tok_s"],
+                                "tp2": stats_2["decode_tok_s"]}}
+        if not row["streams_equal"]:
+            i, j = next((i, j) for i, (x, y) in enumerate(zip(outs_1, outs_2))
+                        for j, (a, b) in enumerate(zip(x, y)) if a != b)
+            row["first_difference"] = {
+                "request": i, "token": j,
+                "tp1_top2_logit_gap": top2_gap(
+                    params, cfg, prompts[i] + outs_1[i][:j], dev)}
+        log("tp_exact_f32 " + json.dumps(row))
+        if not (row["streams_equal"] and row["slots_equal"]
+                and max(row["kv_max_rel_diff_by_shard"]) <= SPEC_KV_RTOL):
+            raise AssertionError(f"f32 tp=2 against tp=1: {row}")
+        del runs, one, two
+
+
+def tp_kv_diffs(one, two, reqs, dev):
+    """Each shard's K/V of engine ``two`` (tp shards) against engine
+    ``one``'s (tp=1) at that shard's KV heads, over every request's
+    positions but its last token's (which no step fed back): the largest
+    difference as a share of the largest magnitude, per shard."""
+    import torch
+
+    def rows(cache, slot, n, key):
+        if "block_table" not in cache:
+            return cache[key][:, slot, :n]
+        pos = torch.arange(n, device=cache[key].device)
+        pages = cache["block_table"][slot, pos // PAGE_SIZE].long()
+        return cache[key][:, pages, pos % PAGE_SIZE]
+
+    worst = [0.0] * len(two.cache)
+    for r in reqs:
+        n = len(r.tokens) - 1
+        for key in ("k", "v"):
+            want = rows(one.cache, r.slot, n, key)
+            for s, shard in enumerate(two.cache):
+                got = rows(shard, r.slot, n, key).to(dev)
+                kv = got.shape[2]
+                ref = want[:, :, s * kv:(s + 1) * kv]
+                worst[s] = max(worst[s], ((got - ref).abs().max()
+                                          / ref.abs().max()).item())
+    return worst
+
+
+def top2_gap(params, cfg, seq, dev):
+    """The gap between the two largest next-token logits after ``seq``,
+    from one f32 prefill."""
+    import torch
+    from ray_tpu_torch.models import decode as dec
+    n = len(seq)
+    bucket = 1 << (n - 1).bit_length()
+    toks = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
+    toks[0, :n] = torch.tensor(seq, dtype=torch.int32)
+    with torch.inference_mode():
+        _, logits = dec.prefill(
+            params, dec.init_kv_cache(cfg, 1, bucket, torch.float32, dev),
+            toks, torch.tensor([n], dtype=torch.int32, device=dev),
+            _zeros(1, dev), cfg, torch.float32)
+    top = logits[0].topk(2).values
+    return (top[0] - top[1]).item()
 
 
 def moe_weights(cfg, dev, seed=3):
@@ -1423,6 +1689,80 @@ def mixtral_prefill_checks(cfg, params, prompts, dev):
                  prefill(plain_version, [], b1_calls), b1, max_share=None)
     logits_check("mixtral_paged_prefill_vs_dense_prefill_b1_routing",
                  paged_prefill([], b1_calls), b1, max_share=None)
+
+
+def serve_mixtral_tp(dev, cfg, params, devices):
+    """Phase serve_mixtral_8x7b_tp2: Mixtral-8x7B cut to MIXTRAL_TP_LAYERS
+    layers, split by ``LLMEngine(tp=2)`` over ``devices`` (experts split on
+    M, routed once on shard 0): the serving requests through the dense
+    engine (B1 2 x 8 launches per bucket-2048 batch; TTFT, tok/s, peak
+    memory, dropped shares as readings).  Then one 8 x 2048 prefill batch
+    at tp=2 against tp=1 on the same weights: with tp=1's routing replayed
+    (``routing_log``) the logits within the rms limit; routed freely, the
+    logits, the share of rows routed otherwise and the dropped shares are
+    readings (bf16 sums of the shards' halves flip near-tied
+    router choices, as other attention tiles do; PERF.md §6)."""
+    import torch
+    from ray_tpu_torch.models import decode as dec
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    tp = len(devices)
+    prompts = serving_prompts(cfg)
+    eng = LLMEngine(cfg, params, num_slots=8, max_len=SERVE_MAX_LEN,
+                    **engine_kw(devices))
+    routes = []
+    try:
+        warm(eng, cfg, (LONG_PROMPTS[0], SHORT_PROMPTS[0]))
+        before = dict(eng.admit_batches_by_bucket)
+        reset_peaks(devices)
+        fa.flash_attention.launches = 0
+        with routing_log(routes):
+            _, _, stats = run_requests(eng, cfg, prompts)
+        launches = fa.flash_attention.launches
+        peaks = peaks_by_card(devices)
+        stats.update(tp=tp, flash_launches=launches,
+                     long_prefill_batches=long_batches_since(eng, before),
+                     peak_mem_gb=max(peaks.values()),
+                     peak_mem_gb_by_card=peaks,
+                     dropped_share=dropped_shares(routes, eng.num_slots + 1))
+    finally:
+        eng.shutdown()
+    log("serve_mixtral_tp2 " + json.dumps(stats))
+    if (stats["long_prefill_batches"] < 1 or launches
+            < tp * cfg.num_layers * stats["long_prefill_batches"]):
+        raise AssertionError(
+            f"flash kernel launched {launches} times for "
+            f"{stats['long_prefill_batches']} prefill batches at bucket >= "
+            f"1024 ({tp} shards x {cfg.num_layers} layers)")
+    shards = eng.params
+    del eng
+
+    toks, lengths, slots = _prefill_batch(cfg, prompts, 8, dev)
+
+    def prefill(p, calls, replay=None):
+        cache = dec.init_kv_cache(cfg, 8, SERVE_MAX_LEN, torch.bfloat16, dev)
+        with torch.inference_mode(), routing_log(calls, replay):
+            return dec.prefill(p, cache if p is params else on_shards(
+                cache, devices), toks, lengths, slots, cfg)[1]
+
+    one_calls, free_calls, replay_calls = [], [], []
+    one = prefill(params, one_calls)
+    free = prefill(shards, free_calls)
+    differs = torch.stack([(a[2].expert != b[2].expert).any(-1)
+                           for a, b in zip(one_calls, free_calls)])
+    log("mixtral_tp_routing " + json.dumps({
+        "tp2_vs_tp1_layer_token_rows_routed_differently":
+            differs.float().mean().item()}))
+    logits_check("mixtral_tp2_vs_tp1_prefill_free_routing_reading", free, one,
+                 max_share=None, rms_share=None)
+    logits_check("mixtral_tp2_vs_tp1_prefill_tp1_routing",
+                 prefill(shards, replay_calls, one_calls), one,
+                 max_share=None)
+    log("mixtral_tp_dropped_reading " + json.dumps({
+        "tp1": dropped_shares(one_calls, None)["prefill"],
+        "tp2_free_routing": dropped_shares(free_calls, None)["prefill"]}))
+    return stats
 
 
 def plain_attention(block: int = 512):
@@ -1856,7 +2196,8 @@ def main() -> int:
     serve_cfg = mcfg.llama3_8b()
     serve_params = serving_params("llama3_8b", serve_cfg, dev)
     with phase("serve_llama3_8b"):
-        _, serve_launches = serve_llama(dev, serve_cfg, serve_params)
+        _, serve_launches, serve_outs = serve_llama(dev, serve_cfg,
+                                                    serve_params)
     with phase("serve_llama3_8b_paged"):
         serve_llama_paged(dev, serve_cfg, serve_params)
     with phase("serve_llama3_8b_paged_prefix"):
@@ -1864,11 +2205,19 @@ def main() -> int:
     with phase("serve_llama3_8b_paged_spec"):
         _, spec_launches = serve_llama_paged_spec(dev, serve_cfg,
                                                   serve_params)
+    tp_devices = tp_placement()
+    with phase("serve_llama3_8b_tp2"):
+        _, tp_launches = serve_llama_tp(dev, serve_cfg, serve_params,
+                                        tp_devices, serve_outs)
     del serve_params
     gc.collect()
     torch.cuda.empty_cache()
     with phase("serve_f32_spec_exactness"):
         spec_exact_f32(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("serve_f32_tp_exactness"):
+        tp_exact_f32(dev, tp_devices)
     gc.collect()
     torch.cuda.empty_cache()
     with phase("moe_layer"):
@@ -1885,6 +2234,17 @@ def main() -> int:
     del mixtral_params
     gc.collect()
     torch.cuda.empty_cache()
+    mixtral_tp_cfg = dataclasses.replace(mcfg.mixtral_8x7b(),
+                                         num_layers=MIXTRAL_TP_LAYERS)
+    mixtral_tp_params = serving_params(
+        f"mixtral_8x7b ({MIXTRAL_TP_LAYERS} of 32 layers)", mixtral_tp_cfg,
+        dev)
+    with phase("serve_mixtral_8x7b_tp2"):
+        mixtral_tp = serve_mixtral_tp(dev, mixtral_tp_cfg, mixtral_tp_params,
+                                      tp_devices)
+    del mixtral_tp_params
+    gc.collect()
+    torch.cuda.empty_cache()
     with phase("train_mixtral_8x7b"):
         _, mixtral_train = train_mixtral(dev)
     gc.collect()
@@ -1899,6 +2259,8 @@ def main() -> int:
         _, splash_launches = train_llama(dev, splash=True)
 
     main_row, bwd_row = flash_rows[0], bwd_rows[0]
+    shard_row = next(r for r in flash_rows
+                     if r["shape"] == [8, 2048, 16, 4, 128])
     sdpa_covers = "dq, dk and dv in one call: B2 + B3 together"
     kernels = [{
         "name": "flash_attention_fwd",
@@ -1906,14 +2268,17 @@ def main() -> int:
         "source": "ray_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:42",
         "design": HOPPER_DESIGN,
-        "launches": (serve_launches + spec_launches
+        "launches": (serve_launches + spec_launches + tp_launches
                      + train_launches["flash_attention_fwd"]
                      + mixtral_serve["flash_launches"]
+                     + mixtral_tp["flash_launches"]
                      + mixtral_train["flash_attention_fwd"]),
         "launches_by_path": {
             "serve": serve_launches, "serve_paged_spec": spec_launches,
+            "serve_tp2": tp_launches,
             "train": train_launches["flash_attention_fwd"],
             "serve_mixtral": mixtral_serve["flash_launches"],
+            "serve_mixtral_tp2": mixtral_tp["flash_launches"],
             "train_mixtral": mixtral_train["flash_attention_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         "ms": main_row["ms"],
@@ -1921,6 +2286,9 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "tp2_shard_shape": {k: shard_row[k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
     }, {
         "name": "flash_attention_bwd_dq",
         "route": "cuda",

@@ -5,11 +5,19 @@ The JAX package's params are a nested dict of arrays with block weights
 stacked ``[L, ...]``; the port keeps the same tree.  The caller hands the
 tree over as numpy arrays (``jax.tree.map(np.asarray, params)``), so this
 module never imports JAX.
+
+Under tensor parallelism (``tp`` shards) the tree is split as the JAX
+engine's ``_apply_tp_sharding`` splits it (``tp_axis``): column-parallel
+q/k/v, MLP and expert input weights and their biases on their last
+dimension, row-parallel output weights on their second-to-last, the KV
+cache on its KV-head axis, everything else replicated.  Each shard takes
+one contiguous block of a split dimension, as JAX's even split does, so
+shard s holds q heads and KV heads of the same GQA groups.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional, Union
+from typing import Any, Callable, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -34,6 +42,56 @@ def params_from_numpy(tree: Mapping[str, Any],
     ``dtype`` (optional) casts every floating leaf."""
     return {k: params_from_numpy(v, device, dtype) if isinstance(v, Mapping)
             else _leaf(v, device, dtype) for k, v in tree.items()}
+
+
+def tp_axis(path: str, ndim: int) -> Optional[int]:
+    """The axis a tp split cuts in the leaf at ``path`` ("/blocks/attn/wq",
+    "/k"; block leaves carry a leading L), or None where every shard holds
+    the whole leaf: the JAX engine's rule, substring for substring."""
+    if any(n in path for n in ("wq", "wk", "wv", "w_in", "w_gate")):
+        return ndim - 1                      # column parallel
+    if "wo" in path or "w_out" in path:
+        return ndim - 2                      # row parallel
+    if any(n in path for n in ("bq", "bk", "bv", "b_in")):
+        return ndim - 1
+    if path.endswith("/k") or path.endswith("/v"):
+        return 3                             # [L, P|S, len, NKV, D]
+    return None
+
+
+def tp_split(tree: Mapping[str, Any], n: int,
+             place: Callable[[Any, int], Any], path: str = "") -> List[dict]:
+    """One tree per shard: each leaf of ``tree`` (numpy arrays or tensors)
+    cut by ``tp_axis`` into ``n`` contiguous blocks, or whole where it is
+    replicated, and ``place(part, s)`` puts shard s's part where it lives.
+    A split dimension ``n`` does not divide raises ValueError."""
+    out: List[dict] = [{} for _ in range(n)]
+    for key, leaf in tree.items():
+        sub = f"{path}/{key}"
+        if isinstance(leaf, Mapping):
+            for shard, part in zip(out, tp_split(leaf, n, place, sub)):
+                shard[key] = part
+            continue
+        axis = tp_axis(sub, leaf.ndim)
+        if axis is not None and leaf.shape[axis] % n:
+            raise ValueError(f"tp={n} does not divide {sub}'s dimension "
+                             f"{axis} of {leaf.shape[axis]}")
+        width = leaf.shape[axis] // n if axis is not None else 0
+        for s, shard in enumerate(out):
+            part = leaf if axis is None else leaf[
+                (slice(None),) * axis + (slice(s * width, (s + 1) * width),)]
+            shard[key] = place(part, s)
+    return out
+
+
+def tp_params_from_numpy(tree: Mapping[str, Any],
+                         devices: Sequence[Union[str, torch.device]],
+                         dtype: Optional[torch.dtype] = None) -> List[dict]:
+    """``params_from_numpy`` for ``len(devices)`` tp shards: numpy leaves
+    are cut on the host and each shard's part goes to its own device, so
+    no device ever holds the whole tree."""
+    return tp_split(tree, len(devices),
+                    lambda a, s: _leaf(a, devices[s], dtype))
 
 
 def train_state_from_numpy(params: Mapping[str, Any], mu: Mapping[str, Any],

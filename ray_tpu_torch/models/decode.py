@@ -18,6 +18,17 @@ Counterpart of ``ray_tpu/models/decode.py``, function for function:
   state carries a ``torch.Generator`` where the JAX package carries a PRNG
   key; the two draw different numbers, so only greedy decoding matches JAX
   token for token.
+* Tensor parallelism (``tp`` shards): ``params`` is then a list of shard
+  trees and ``cache`` a list of shard caches (``models/convert.tp_split``),
+  shard 0 first.  Each shard runs every block on its own replica of the
+  residual stream with its q/KV heads and MLP columns (head counts come
+  from the weights' shapes), and ``parallel.mesh.all_reduce`` sums the
+  attention and MLP outputs; the replicated output biases ``bo`` and
+  ``b_out`` are added once, after the sum.  The embedding, the final norm,
+  the LM head, MoE routing and the decode state run once, on shard 0; the
+  per-call indices, masks and positions are copied to the other shards'
+  devices, and the lengths and block tables (replicated) are copied after
+  each update.
 * Prefill attention goes through ``ops.attention.mha`` (the flash kernel on
   CUDA for buckets >= 1024); attention over the cache keeps the JAX
   package's numerics: the cache layer in f32, plain torch ops
@@ -27,18 +38,21 @@ Counterpart of ``ray_tpu/models/decode.py``, function for function:
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
 from .. import device as _device
+from ..ops import moe as moe_ops
 from ..ops.attention import NEG_INF
-from ..ops.moe import moe_mlp
+from ..parallel.mesh import all_reduce, replicate
 from .config import TransformerConfig
 from .transformer import (Params, _mlp_block, _norm, _rope_tables, _rotate,
                           lm_head_weight, unbind_layers)
 
 KVCache = Dict[str, torch.Tensor]
+#: one device's params or cache, or one per tp shard (shard 0 first)
+Sharded = Union[Dict[str, Any], List[Dict[str, Any]]]
 
 
 def init_kv_cache(cfg: TransformerConfig, num_slots: int, max_len: int,
@@ -67,7 +81,8 @@ def cache_bytes(cfg: TransformerConfig, num_slots: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 def _qkv(x, p, cfg: TransformerConfig, positions):
-    """x: [B, S, H] -> q [B,S,NH,D], k/v [B,S,NKV,D] with RoPE applied."""
+    """x: [B, S, H] -> q [B,S,NH,D], k/v [B,S,NKV,D] with RoPE applied (the
+    head counts of ``p``'s weights: a tp shard's own)."""
     b, s, _ = x.shape
     cast = x.dtype
     q = x @ p["wq"].to(cast)
@@ -77,9 +92,9 @@ def _qkv(x, p, cfg: TransformerConfig, positions):
         q = q + p["bq"].to(cast)
         k = k + p["bk"].to(cast)
         v = v + p["bv"].to(cast)
-    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q = q.reshape(b, s, -1, cfg.head_dim)
+    k = k.reshape(b, s, -1, cfg.head_dim)
+    v = v.reshape(b, s, -1, cfg.head_dim)
     if cfg.use_rope:
         q = _rope_per_row(q, positions, cfg.rope_theta)
         k = _rope_per_row(k, positions, cfg.rope_theta)
@@ -93,13 +108,75 @@ def _rope_per_row(x: torch.Tensor, positions: torch.Tensor,
     return _rotate(x, cos[:, :, None, :], sin[:, :, None, :])
 
 
-def _mlp(y, p, cfg: TransformerConfig):
-    """The block's MLP on norm'd ``y``; MoE's aux loss is dropped."""
-    if cfg.num_experts > 1:
-        m = p["moe"]
-        return moe_mlp(y, m["router"], m["w_gate"], m["w_in"], m["w_out"],
-                       cfg.experts_per_token, cfg.expert_capacity_factor)[0]
-    return _mlp_block(y, p["mlp"], cfg)
+def _mlp_parts(ys: List[torch.Tensor], lps: List[Params],
+               cfg: TransformerConfig) -> List[torch.Tensor]:
+    """Each shard's MLP output on its norm'd input ``ys[s]``, before the
+    output bias: the shards' parts sum to the block's MLP.  MoE routes once,
+    on shard 0, and every shard's experts take that routing (its aux loss is
+    dropped)."""
+    if cfg.num_experts == 1:
+        return [_mlp_block(y, lp["mlp"], cfg) for y, lp in zip(ys, lps)]
+    cap, r = moe_ops.moe_route(ys[0], lps[0]["moe"]["router"],
+                               cfg.experts_per_token,
+                               cfg.expert_capacity_factor)
+    return [moe_ops.moe_experts(y, moe_ops.Routing(*(f.to(y.device)
+                                                     for f in r)),
+                                cap, lp["moe"]["w_gate"], lp["moe"]["w_in"],
+                                lp["moe"]["w_out"])
+            for y, lp in zip(ys, lps)]
+
+
+def _shards(params: Sharded, cache: Sharded):
+    """(param trees, caches), one per tp shard: a model on one device is
+    one shard."""
+    if isinstance(params, list):
+        return params, cache
+    return [params], [cache]
+
+
+def _on_shards(shards: List[Params], *tensors: torch.Tensor) -> List[tuple]:
+    """``tensors`` (on shard 0's device) for every shard, on its device."""
+    devices = [p["embed"]["tokens"].device for p in shards]
+    return list(zip(*(replicate(t, devices) for t in tensors)))
+
+
+def _sync(caches: List[KVCache], *keys: str) -> None:
+    """Copy shard 0's replicated cache entries (lengths, block tables) to
+    the other shards' caches."""
+    for c in caches[1:]:
+        for key in keys:
+            c[key].copy_(caches[0][key])
+
+
+def _layers(shards: List[Params], x: torch.Tensor, positions: torch.Tensor,
+            attend: Callable, cfg: TransformerConfig, cast) -> torch.Tensor:
+    """Every block over the tp shards (one shard without tp).  ``x`` [B, Q,
+    H] and ``positions`` [B, Q] lie on shard 0's device; each shard runs
+    the blocks on a replica of its own, and the all-reduce of the attention
+    and MLP outputs keeps the replicas bitwise equal; the replicated output
+    biases are added after it.  ``attend(s, i, q, k, v)`` writes shard s's
+    K/V of layer i into its cache and returns its attention output [B, Q,
+    NH_s * D] in ``cast``.  Returns shard 0's hidden states after the last
+    block.  (The loop keeps its Python calls per layer few: at tp=1 decode
+    is host-bound.)"""
+    devices = [p["embed"]["tokens"].device for p in shards]
+    xs, pos = replicate(x, devices), replicate(positions, devices)
+    layers = [unbind_layers(p["blocks"], cfg.num_layers) for p in shards]
+    for i in range(cfg.num_layers):
+        lps = [per_shard[i] for per_shard in layers]
+        parts = [attend(s, i, *_qkv(_norm(x_s, lp["attn_norm"], cfg),
+                                    lp["attn"], cfg, pos[s]))
+                 @ lp["attn"]["wo"].to(cast)
+                 for s, (x_s, lp) in enumerate(zip(xs, lps))]
+        biases = [lp["attn"].get("bo") for lp in lps]
+        xs = [x_s + (o if b is None else o + b.to(o.dtype))
+              for x_s, o, b in zip(xs, all_reduce(parts), biases)]
+        ys = [_norm(x_s, lp["mlp_norm"], cfg) for x_s, lp in zip(xs, lps)]
+        biases = [lp.get("mlp", {}).get("b_out") for lp in lps]
+        xs = [x_s + (o if b is None else o + b.to(o.dtype))
+              for x_s, o, b in zip(xs, all_reduce(_mlp_parts(ys, lps, cfg)),
+                                   biases)]
+    return xs[0]
 
 
 def last_writer(keys: torch.Tensor) -> torch.Tensor:
@@ -117,13 +194,6 @@ def last_writer(keys: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(order).index_put_((order,), last)
 
 
-def _proj_out(attn, p, cast):
-    out = attn @ p["wo"].to(cast)
-    if "bo" in p:
-        out = out + p["bo"].to(cast)
-    return out
-
-
 def _cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      mask: torch.Tensor, cfg: TransformerConfig
                      ) -> torch.Tensor:
@@ -131,9 +201,9 @@ def _cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     computes it: q [B, Q, NH, D], k/v [B, M, NKV, D], mask [B, Q, M] (True
     where a query may read a position; ``NEG_INF`` elsewhere, so a masked
     position gets a probability of exactly 0).  Returns [B, Q, NH*D] f32."""
-    b, nq = q.shape[:2]
-    reps = cfg.num_heads // cfg.num_kv_heads
-    qh = q.reshape(b, nq, cfg.num_kv_heads, reps, cfg.head_dim).float()
+    b, nq, nh = q.shape[:3]
+    nkv = k.shape[2]
+    qh = q.reshape(b, nq, nkv, nh // nkv, cfg.head_dim).float()
     scores = torch.einsum("bqgrd,bmgd->bgqrm", qh, k.float())
     scores.mul_(cfg.head_dim ** -0.5)
     if cfg.attn_logit_softcap:
@@ -143,17 +213,17 @@ def _cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     del scores
     attn = torch.einsum("bgqrm,bmgd->bqgrd", probs, v.float())
-    return attn.reshape(b, nq, cfg.num_heads * cfg.head_dim)
+    return attn.reshape(b, nq, nh * cfg.head_dim)
 
 
 # ---------------------------------------------------------------------------
 # Prefill
 # ---------------------------------------------------------------------------
 
-def prefill(params: Params, cache: KVCache, tokens: torch.Tensor,
+def prefill(params: Sharded, cache: Sharded, tokens: torch.Tensor,
             lengths: torch.Tensor, slot_ids: torch.Tensor,
             cfg: TransformerConfig,
-            compute_dtype=torch.bfloat16) -> Tuple[KVCache, torch.Tensor]:
+            compute_dtype=torch.bfloat16) -> Tuple[Sharded, torch.Tensor]:
     """Run the causal forward over right-padded prompts, fill the cache in
     place.
 
@@ -163,35 +233,38 @@ def prefill(params: Params, cache: KVCache, tokens: torch.Tensor,
     """
     from ..ops.attention import mha
 
+    shards, caches = _shards(params, cache)
+    head = shards[0]
     b, s = tokens.shape
     cast = compute_dtype
     slots = slot_ids.long()
-    x = params["embed"]["tokens"][tokens.long()].to(cast)
+    x = head["embed"]["tokens"][tokens.long()].to(cast)
     if not cfg.use_rope:
-        x = x + params["embed"]["pos"][:s][None].to(cast)
+        x = x + head["embed"]["pos"][:s][None].to(cast)
     positions = torch.arange(s, device=x.device).expand(b, s)
     # admit padding rows share the scratch slot: the last one's K/V stays
-    src = last_writer(slots)
+    on = _on_shards(shards, slots, last_writer(slots))
 
-    for i, lp in enumerate(unbind_layers(params["blocks"], cfg.num_layers)):
-        y = _norm(x, lp["attn_norm"], cfg)
-        q, k, v = _qkv(y, lp["attn"], cfg, positions)
-        attn = mha(q, k, v, causal=True,
-                   logit_softcap=cfg.attn_logit_softcap)
-        x = x + _proj_out(attn.reshape(b, s, -1), lp["attn"], cast)
-        x = x + _mlp(_norm(x, lp["mlp_norm"], cfg), lp, cfg)
+    def attend(sh, i, q, k, v):
         # write this layer's K/V into the slots (padded tail included;
         # decode's length mask keeps it unread)
-        k_lay, v_lay = cache["k"][i], cache["v"][i]
-        k_lay[slots, :s] = k[src].to(k_lay.dtype)
-        v_lay[slots, :s] = v[src].to(v_lay.dtype)
+        slots_s, src = on[sh]
+        k_lay, v_lay = caches[sh]["k"][i], caches[sh]["v"][i]
+        k_lay[slots_s, :s] = k[src].to(k_lay.dtype)
+        v_lay[slots_s, :s] = v[src].to(v_lay.dtype)
+        attn = mha(q, k, v, causal=True,
+                   logit_softcap=cfg.attn_logit_softcap)
+        return attn.reshape(b, s, -1)
+
+    x = _layers(shards, x, positions, attend, cfg, cast)
     # logits of each prompt's *last real token* (next-token distribution);
     # the norm is row-wise, so gathering the rows first changes nothing
     last_idx = (lengths.long() - 1).clamp(min=0)
     last = x[torch.arange(b, device=x.device), last_idx]          # [B, H]
-    last = _norm(last, params["final_norm"], cfg)
-    logits = (last @ lm_head_weight(params, cfg, cast)).float()
-    cache["length"][slots] = lengths.to(cache["length"].dtype)
+    last = _norm(last, head["final_norm"], cfg)
+    logits = (last @ lm_head_weight(head, cfg, cast)).float()
+    caches[0]["length"][slots] = lengths.to(caches[0]["length"].dtype)
+    _sync(caches, "length")
     return cache, logits
 
 
@@ -199,9 +272,9 @@ def prefill(params: Params, cache: KVCache, tokens: torch.Tensor,
 # Decode step
 # ---------------------------------------------------------------------------
 
-def decode_step(params: Params, cache: KVCache, tokens: torch.Tensor,
+def decode_step(params: Sharded, cache: Sharded, tokens: torch.Tensor,
                 active: torch.Tensor, cfg: TransformerConfig,
-                compute_dtype=torch.bfloat16) -> Tuple[KVCache, torch.Tensor]:
+                compute_dtype=torch.bfloat16) -> Tuple[Sharded, torch.Tensor]:
     """One autoregressive step for every slot.
 
     tokens: [slots] int — the last emitted token per slot
@@ -210,14 +283,16 @@ def decode_step(params: Params, cache: KVCache, tokens: torch.Tensor,
     (in place; dropped where `length` == max_len) and increments `length`
     for active slots.
     """
+    shards, caches = _shards(params, cache)
+    head, ctl = shards[0], caches[0]
     n_slots = tokens.shape[0]
-    max_len = cache["k"].shape[2]
+    max_len = ctl["k"].shape[2]
     cast = compute_dtype
-    lengths = cache["length"].long()                           # [slots]
+    lengths = ctl["length"].long()                             # [slots]
     dev = lengths.device
-    x = params["embed"]["tokens"][tokens.long()][:, None].to(cast)  # [S,1,H]
+    x = head["embed"]["tokens"][tokens.long()][:, None].to(cast)  # [S,1,H]
     if not cfg.use_rope:
-        x = x + params["embed"]["pos"][torch.clamp(
+        x = x + head["embed"]["pos"][torch.clamp(
             lengths, max=cfg.max_seq_len - 1)][:, None].to(cast)
     positions = lengths[:, None]                               # [slots, 1]
     # mask over cache positions: <= current length (the new token's position)
@@ -227,26 +302,26 @@ def decode_step(params: Params, cache: KVCache, tokens: torch.Tensor,
     # JAX drops the write of a slot standing at max_len; keep its row as is
     in_range = (lengths < max_len)[:, None, None]
     write_at = lengths.clamp(max=max_len - 1)
+    on = _on_shards(shards, pos_mask, rows, in_range, write_at)
 
-    for i, lp in enumerate(unbind_layers(params["blocks"], cfg.num_layers)):
-        k_lay, v_lay = cache["k"][i], cache["v"][i]
-        y = _norm(x, lp["attn_norm"], cfg)
-        q, k, v = _qkv(y, lp["attn"], cfg, positions)  # q:[S,1,NH,D] k/v:[S,1,NKV,D]
-        # append at position `length` (one row per slot)
-        k_lay[rows, write_at] = torch.where(in_range, k[:, 0].to(k_lay.dtype),
-                                            k_lay[rows, write_at])
-        v_lay[rows, write_at] = torch.where(in_range, v[:, 0].to(v_lay.dtype),
-                                            v_lay[rows, write_at])
-        # attention over the cache row, in f32 as the JAX package does
-        attn = _cache_attention(q, k_lay, v_lay, pos_mask, cfg)
-        x = x + _proj_out(attn.to(cast), lp["attn"], cast)
-        x = x + _mlp(_norm(x, lp["mlp_norm"], cfg), lp, cfg)
+    def attend(sh, i, q, k, v):
+        # append at position `length` (one row per slot), then attend over
+        # the cache row in f32, as the JAX package does
+        mask, rows_s, in_range_s, at = on[sh]
+        k_lay, v_lay = caches[sh]["k"][i], caches[sh]["v"][i]
+        k_lay[rows_s, at] = torch.where(in_range_s, k[:, 0].to(k_lay.dtype),
+                                        k_lay[rows_s, at])
+        v_lay[rows_s, at] = torch.where(in_range_s, v[:, 0].to(v_lay.dtype),
+                                        v_lay[rows_s, at])
+        return _cache_attention(q, k_lay, v_lay, mask, cfg).to(cast)
 
-    x = _norm(x, params["final_norm"], cfg)
-    logits = (x[:, 0] @ lm_head_weight(params, cfg, cast)).float()
+    x = _layers(shards, x, positions, attend, cfg, cast)
+    x = _norm(x, head["final_norm"], cfg)
+    logits = (x[:, 0] @ lm_head_weight(head, cfg, cast)).float()
     new_len = torch.where(active, torch.clamp(lengths + 1, max=max_len),
                           lengths)
-    cache["length"].copy_(new_len)
+    ctl["length"].copy_(new_len)
+    _sync(caches, "length")
     return cache, logits
 
 
@@ -291,11 +366,11 @@ def sample_per_slot(logits: torch.Tensor, generator: torch.Generator,
     return torch.where(temperature > 0.0, drawn, greedy)
 
 
-def decode_and_sample(params: Params, cache: KVCache, tokens: torch.Tensor,
+def decode_and_sample(params: Sharded, cache: Sharded, tokens: torch.Tensor,
                       active: torch.Tensor, temperature: torch.Tensor,
                       generator: torch.Generator, cfg: TransformerConfig,
                       top_k: int = 0, compute_dtype=torch.bfloat16
-                      ) -> Tuple[KVCache, torch.Tensor]:
+                      ) -> Tuple[Sharded, torch.Tensor]:
     """One decode step with on-device sampling.  Inactive slots keep their
     token."""
     cache, logits = decode_step(params, cache, tokens, active, cfg,
@@ -304,12 +379,12 @@ def decode_and_sample(params: Params, cache: KVCache, tokens: torch.Tensor,
     return cache, torch.where(active, nxt, tokens)
 
 
-def decode_loop(params: Params, cache: KVCache, tokens: torch.Tensor,
+def decode_loop(params: Sharded, cache: Sharded, tokens: torch.Tensor,
                 active: torch.Tensor, temperature: torch.Tensor,
                 generator: torch.Generator, n_steps: int,
                 cfg: TransformerConfig, top_k: int = 0,
                 compute_dtype=torch.bfloat16
-                ) -> Tuple[KVCache, torch.Tensor, torch.Tensor]:
+                ) -> Tuple[Sharded, torch.Tensor, torch.Tensor]:
     """``n_steps`` decode steps.  Returns (cache, final tokens [slots],
     emitted [n_steps, slots])."""
     emitted = []
@@ -321,12 +396,12 @@ def decode_loop(params: Params, cache: KVCache, tokens: torch.Tensor,
     return cache, tokens, torch.stack(emitted)
 
 
-def prefill_and_sample(params: Params, cache: KVCache, tokens: torch.Tensor,
+def prefill_and_sample(params: Sharded, cache: Sharded, tokens: torch.Tensor,
                        lengths: torch.Tensor, slot_ids: torch.Tensor,
                        temperature: torch.Tensor, generator: torch.Generator,
                        cfg: TransformerConfig, top_k: int = 0,
                        compute_dtype=torch.bfloat16
-                       ) -> Tuple[KVCache, torch.Tensor]:
+                       ) -> Tuple[Sharded, torch.Tensor]:
     """Prefill + sample each prompt's first output token on the device."""
     cache, logits = prefill(params, cache, tokens, lengths, slot_ids, cfg,
                             compute_dtype)
@@ -385,7 +460,7 @@ def _merge_admit(state: Dict[str, Any], first: torch.Tensor,
     }
 
 
-def prefill_admit(params: Params, cache: KVCache, state: Dict[str, Any],
+def prefill_admit(params: Sharded, cache: Sharded, state: Dict[str, Any],
                   tokens: torch.Tensor, lengths: torch.Tensor,
                   slot_ids: torch.Tensor, temps: torch.Tensor,
                   budgets: torch.Tensor, eos: torch.Tensor,
@@ -401,7 +476,7 @@ def prefill_admit(params: Params, cache: KVCache, state: Dict[str, Any],
     return cache, state, first
 
 
-def decode_state_loop(params: Params, cache: KVCache, state: Dict[str, Any],
+def decode_state_loop(params: Sharded, cache: Sharded, state: Dict[str, Any],
                       n_steps: int, cfg: TransformerConfig, top_k: int = 0,
                       compute_dtype=torch.bfloat16):
     """``n_steps`` decode+sample steps with on-device active decay.
@@ -413,7 +488,7 @@ def decode_state_loop(params: Params, cache: KVCache, state: Dict[str, Any],
                        top_k, compute_dtype)
 
 
-def _state_loop(step, params: Params, cache, state: Dict[str, Any],
+def _state_loop(step, params: Sharded, cache: Sharded, state: Dict[str, Any],
                 n_steps: int, cfg: TransformerConfig, top_k: int,
                 compute_dtype):
     """``decode_state_loop`` over any one-token ``step`` with

@@ -21,6 +21,10 @@ Counterpart of ``ray_tpu/models/paged_decode.py``, function for function:
 * Attention over the gathered pages is the JAX package's f32 einsums
   (``decode._cache_attention``); no kernel runs on this path, as none does
   in the reference.
+* Under tensor parallelism ``params`` and ``cache`` are lists of shards,
+  as in ``decode.py``: each shard's arena holds its KV heads, the block
+  tables and lengths are replicated, and the write coordinates and masks
+  are computed once, on shard 0, and copied to the other shards.
 * Page allocation, refcounts and prefix hashing are host Python
   (``PageAllocator``, ``PrefixCache``), called per admit and retire, never
   per token.  ``PrefixCache._hash`` must stay byte-identical to the
@@ -37,9 +41,10 @@ import torch
 
 from .. import device as _device
 from .config import TransformerConfig
-from .decode import (_cache_attention, _merge_admit, _mlp, _proj_out, _qkv,
-                     _state_loop, last_writer, sample_per_slot)
-from .transformer import Params, _norm, lm_head_weight, unbind_layers
+from .decode import (Sharded, _cache_attention, _layers, _merge_admit,
+                     _on_shards, _shards, _state_loop, _sync, last_writer,
+                     sample_per_slot)
+from .transformer import Params, _norm, lm_head_weight
 
 PagedKVCache = Dict[str, torch.Tensor]
 
@@ -80,34 +85,35 @@ def _gather_pages(pages: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     return g.reshape(bt.shape[0], -1, *pages.shape[2:])
 
 
-def _window_layers(params: Params, cache: PagedKVCache, x: torch.Tensor,
-                   positions: torch.Tensor, bt: torch.Tensor, write,
-                   mask: torch.Tensor, cfg: TransformerConfig,
+def _window_layers(shards: List[Params], caches: List[PagedKVCache],
+                   x: torch.Tensor, positions: torch.Tensor, bt: torch.Tensor,
+                   write, mask: torch.Tensor, cfg: TransformerConfig,
                    cast) -> torch.Tensor:
     """Every layer of a paged forward over a window of new tokens (a prompt
-    suffix, one decode token, a verify window): write each layer's K/V
-    for the window as ``write`` (``_window_coords``: page, offset and
-    source, flat over [B * Q]; page 0 for dropped writes) says, then
-    attend over the gathered pages under ``mask`` [B, Q, span].  Returns
-    the final hidden states [B, Q, H]."""
+    suffix, one decode token, a verify window), on every tp shard: write
+    each layer's K/V for the window as ``write`` (``_window_coords``: page,
+    offset and source, flat over [B * Q]; page 0 for dropped writes) says,
+    then attend over the gathered pages under ``mask`` [B, Q, span].
+    Returns the final hidden states [B, Q, H] on shard 0."""
     b, nq = positions.shape
-    write_page, write_off, src = write
-    for i, lp in enumerate(unbind_layers(params["blocks"], cfg.num_layers)):
-        k_pages, v_pages = cache["k"][i], cache["v"][i]
-        y = _norm(x, lp["attn_norm"], cfg)
-        q, k, v = _qkv(y, lp["attn"], cfg, positions)
+    on = _on_shards(shards, bt, mask, *write)
+
+    def attend(sh, i, q, k, v):
         # write first, then attend over the gathered row (reused prefix
         # pages + the window itself) with the causal mask on absolute
         # positions: one code path covers both
+        bt_s, mask_s, write_page, write_off, src = on[sh]
+        k_pages, v_pages = caches[sh]["k"][i], caches[sh]["v"][i]
         k_pages[write_page, write_off] = k.reshape(
-            b * nq, cfg.num_kv_heads, -1)[src].to(k_pages.dtype)
+            b * nq, k.shape[2], -1)[src].to(k_pages.dtype)
         v_pages[write_page, write_off] = v.reshape(
-            b * nq, cfg.num_kv_heads, -1)[src].to(v_pages.dtype)
-        attn = _cache_attention(q, _gather_pages(k_pages, bt),
-                                _gather_pages(v_pages, bt), mask, cfg)
-        x = x + _proj_out(attn.to(cast), lp["attn"], cast)
-        x = x + _mlp(_norm(x, lp["mlp_norm"], cfg), lp, cfg)
-    return _norm(x, params["final_norm"], cfg)
+            b * nq, v.shape[2], -1)[src].to(v_pages.dtype)
+        return _cache_attention(q, _gather_pages(k_pages, bt_s),
+                                _gather_pages(v_pages, bt_s), mask_s,
+                                cfg).to(cast)
+
+    x = _layers(shards, x, positions, attend, cfg, cast)
+    return _norm(x, shards[0]["final_norm"], cfg)
 
 
 def _window_coords(cache: PagedKVCache, bt: torch.Tensor,
@@ -138,11 +144,11 @@ def _embed(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
     return x
 
 
-def paged_prefill(params: Params, cache: PagedKVCache, tokens: torch.Tensor,
+def paged_prefill(params: Sharded, cache: Sharded, tokens: torch.Tensor,
                   lengths: torch.Tensor, slot_ids: torch.Tensor,
                   start_pos: torch.Tensor, cfg: TransformerConfig,
                   compute_dtype=torch.bfloat16
-                  ) -> Tuple[PagedKVCache, torch.Tensor]:
+                  ) -> Tuple[Sharded, torch.Tensor]:
     """Causal forward over right-padded prompt suffixes; K/V land in pages.
 
     tokens:   [B, S] suffix tokens (positions start_pos .. start_pos+len)
@@ -154,40 +160,46 @@ def paged_prefill(params: Params, cache: PagedKVCache, tokens: torch.Tensor,
     read the reused prefix pages (positions < start_pos) through the block
     table.
     """
+    shards, caches = _shards(params, cache)
+    head, ctl = shards[0], caches[0]
     b, s = tokens.shape
     dev = tokens.device
     slots = slot_ids.long()
     positions = start_pos.long()[:, None] + torch.arange(s, device=dev)[None]
-    x = _embed(params, tokens, positions, cfg, compute_dtype)
-    bt = cache["block_table"][slots].long()                      # [B, MP]
+    x = _embed(head, tokens, positions, cfg, compute_dtype)
+    bt = ctl["block_table"][slots].long()                        # [B, MP]
     # padding positions of each row write into the null page
     valid_write = torch.arange(s, device=dev)[None] < lengths.long()[:, None]
-    write, mask = _window_coords(cache, bt, positions, valid_write)
-    x = _window_layers(params, cache, x, positions, bt, write, mask, cfg,
+    write, mask = _window_coords(ctl, bt, positions, valid_write)
+    x = _window_layers(shards, caches, x, positions, bt, write, mask, cfg,
                        compute_dtype)
     last = x[torch.arange(b, device=dev),
              (lengths.long() - 1).clamp(min=0)]                  # [B, H]
-    logits = (last @ lm_head_weight(params, cfg, compute_dtype)).float()
-    cache["length"][slots] = (start_pos + lengths).to(cache["length"].dtype)
+    logits = (last @ lm_head_weight(head, cfg, compute_dtype)).float()
+    ctl["length"][slots] = (start_pos + lengths).to(ctl["length"].dtype)
+    _sync(caches, "length")
     return cache, logits
 
 
-def paged_decode_step(params: Params, cache: PagedKVCache,
+def paged_decode_step(params: Sharded, cache: Sharded,
                       tokens: torch.Tensor, active: torch.Tensor,
                       cfg: TransformerConfig, compute_dtype=torch.bfloat16
-                      ) -> Tuple[PagedKVCache, torch.Tensor]:
+                      ) -> Tuple[Sharded, torch.Tensor]:
     """One token per active slot, attention over block-table pages.
     Inactive slots write into the null page (their old pages may already
     belong to another sequence)."""
-    lengths = cache["length"].long()
-    bt = cache["block_table"].long()                              # [S, MP]
+    shards, caches = _shards(params, cache)
+    head, ctl = shards[0], caches[0]
+    lengths = ctl["length"].long()
+    bt = ctl["block_table"].long()                                # [S, MP]
     positions = lengths[:, None]                                  # [S, 1]
-    x = _embed(params, tokens[:, None], positions, cfg, compute_dtype)
-    write, mask = _window_coords(cache, bt, positions, active[:, None])
-    x = _window_layers(params, cache, x, positions, bt, write, mask, cfg,
+    x = _embed(head, tokens[:, None], positions, cfg, compute_dtype)
+    write, mask = _window_coords(ctl, bt, positions, active[:, None])
+    x = _window_layers(shards, caches, x, positions, bt, write, mask, cfg,
                        compute_dtype)
-    logits = (x[:, 0] @ lm_head_weight(params, cfg, compute_dtype)).float()
-    cache["length"].copy_(torch.where(active, lengths + 1, lengths))
+    logits = (x[:, 0] @ lm_head_weight(head, cfg, compute_dtype)).float()
+    ctl["length"].copy_(torch.where(active, lengths + 1, lengths))
+    _sync(caches, "length")
     return cache, logits
 
 
@@ -218,7 +230,7 @@ def paged_verify_window(params: Params, cache: PagedKVCache,
     x = _embed(params, tokens, positions, cfg, compute_dtype)
     valid = active[:, None] & (positions < kv_span)
     write, mask = _window_coords(cache, bt, positions, valid)
-    x = _window_layers(params, cache, x, positions, bt, write, mask, cfg,
+    x = _window_layers([params], [cache], x, positions, bt, write, mask, cfg,
                        compute_dtype)
     logits = (x @ lm_head_weight(params, cfg, compute_dtype)).float()
     cache["length"].copy_(torch.where(
@@ -244,7 +256,7 @@ def paged_decode_loop(params: Params, cache: PagedKVCache,
     return cache, tokens, torch.stack(emitted)
 
 
-def paged_prefill_admit(params: Params, cache: PagedKVCache,
+def paged_prefill_admit(params: Sharded, cache: Sharded,
                         state: Dict[str, Any], tokens: torch.Tensor,
                         lengths: torch.Tensor, slot_ids: torch.Tensor,
                         start_pos: torch.Tensor, bt_rows: torch.Tensor,
@@ -256,8 +268,10 @@ def paged_prefill_admit(params: Params, cache: PagedKVCache,
     prefill the uncached suffixes, sample, merge into the decode state
     (``decode.init_decode_state`` layout).  Returns (cache, state,
     first_tokens [B])."""
-    cache["block_table"][slot_ids.long()] = bt_rows.to(
-        cache["block_table"].dtype)
+    caches = _shards(params, cache)[1]
+    caches[0]["block_table"][slot_ids.long()] = bt_rows.to(
+        caches[0]["block_table"].dtype)
+    _sync(caches, "block_table")
     cache, logits = paged_prefill(params, cache, tokens, lengths, slot_ids,
                                   start_pos, cfg, compute_dtype)
     first = sample_per_slot(logits, state["generator"], temps, top_k)
@@ -266,7 +280,7 @@ def paged_prefill_admit(params: Params, cache: PagedKVCache,
     return cache, state, first
 
 
-def paged_decode_state_loop(params: Params, cache: PagedKVCache,
+def paged_decode_state_loop(params: Sharded, cache: Sharded,
                             state: Dict[str, Any], n_steps: int,
                             cfg: TransformerConfig, top_k: int = 0,
                             compute_dtype=torch.bfloat16):

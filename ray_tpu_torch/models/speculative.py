@@ -26,10 +26,10 @@ from typing import Any, Dict, Tuple
 import torch
 
 from .config import TransformerConfig
-from .decode import (KVCache, _cache_attention, _mlp, _proj_out, _qkv,
-                     decode_step, sample_per_slot)
+from .decode import (KVCache, _cache_attention, _layers, decode_step,
+                     sample_per_slot)
 from .paged_decode import paged_verify_window
-from .transformer import Params, _norm, lm_head_weight, unbind_layers
+from .transformer import Params, _norm, lm_head_weight
 
 __all__ = ["verify_window", "speculative_round", "speculative_decode_loop",
            "spec_state_round", "spec_decode_state_loop", "make_draft_params",
@@ -68,13 +68,11 @@ def verify_window(params: Params, cache: KVCache, tokens: torch.Tensor,
     in_range = (positions < max_len)[:, :, None, None]
     write_at = positions.clamp(max=max_len - 1)
 
-    for i, lp in enumerate(unbind_layers(params["blocks"], cfg.num_layers)):
-        k_lay, v_lay = cache["k"][i], cache["v"][i]
-        y = _norm(x, lp["attn_norm"], cfg)
-        q, kk, vv = _qkv(y, lp["attn"], cfg, positions)   # [S,k,N*,D]
+    def attend(_, i, q, kk, vv):
         # one position of the window at a time: an out-of-range position
         # clamps onto max_len-1 and writes back what is there by then, so
         # two writes never race for one row
+        k_lay, v_lay = cache["k"][i], cache["v"][i]
         for j in range(k):
             at = write_at[:, j]
             k_lay[rows, at] = torch.where(in_range[:, j],
@@ -83,10 +81,9 @@ def verify_window(params: Params, cache: KVCache, tokens: torch.Tensor,
             v_lay[rows, at] = torch.where(in_range[:, j],
                                           vv[:, j].to(v_lay.dtype),
                                           v_lay[rows, at])
-        attn = _cache_attention(q, k_lay, v_lay, pos_mask, cfg)
-        x = x + _proj_out(attn.to(cast), lp["attn"], cast)
-        x = x + _mlp(_norm(x, lp["mlp_norm"], cfg), lp, cfg)
+        return _cache_attention(q, k_lay, v_lay, pos_mask, cfg).to(cast)
 
+    x = _layers([params], x, positions, attend, cfg, cast)
     x = _norm(x, params["final_norm"], cfg)
     logits = (x @ lm_head_weight(params, cfg, cast)).float()
     cache["length"].copy_(torch.where(

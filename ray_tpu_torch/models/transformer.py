@@ -47,11 +47,6 @@ REMAT_SAVE_NAMES = ("attn_q", "attn_k", "attn_v", "attn_out", "attn_lse",
 FLASH_RESIDUALS = ("attn_q", "attn_k", "attn_v", "attn_out", "attn_lse")
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to ray_tpu_torch yet (ROADMAP: {item})")
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -353,10 +348,13 @@ def _moe_steps(cfg: TransformerConfig) -> List[rm.Step]:
 
 def _mlp_block(x, p, cfg: TransformerConfig):
     """The MLP half of a block alone (the decode path's): norm'd input ->
-    the MLP's output."""
-    values = rm.forward(_mlp_steps(p, cfg), {"mlp_in": x,
-                                             **_flat(p, "mlp.")})
-    return values["mlp_out"]
+    the MLP's output before its output bias ``b_out``, which the decode
+    path adds once after summing the tp shards' outputs."""
+    steps = _mlp_steps(p, cfg)
+    if "b_out" in p:
+        steps = steps[:-1]                  # all but "mlp_bias_out"
+    values = rm.forward(steps, {"mlp_in": x, **_flat(p, "mlp.")})
+    return values[steps[-1].outs[0]]
 
 
 def _flat(tree: Params, prefix: str = "") -> Dict[str, torch.Tensor]:

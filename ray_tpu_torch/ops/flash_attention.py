@@ -183,12 +183,13 @@ def _fwd_launch(entry: str, q, k, v, causal: bool, scale: float, *softcap,
     if b * s == 0:
         return out, lse
     lib = _build.load("flash_attention_fwd", _bind)
-    err = getattr(lib, entry)(
-        _device_index(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), b, s, h, k.shape[2], d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        int(causal), scale, *softcap,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):     # the entry sets q's device
+        err = getattr(lib, entry)(
+            _device_index(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b, s, h, k.shape[2], d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], int(causal), scale, *softcap,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"{entry} launch failed: {msg} ({err})")
@@ -327,12 +328,14 @@ def _dq_launch(entry: str, q, k, v, dout, lse, delta, causal: bool,
     if b * s == 0:
         return dq
     lib = _build.load("flash_attention_bwd", _bind_bwd_dq)
-    err = getattr(lib, entry)(
-        _device_index(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b,
-        s, h, k.shape[2], d, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], *dout.stride()[:3], *dq.stride()[:3], int(causal),
-        scale, *softcap, torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):     # the entry sets q's device
+        err = getattr(lib, entry)(
+            _device_index(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            b, s, h, k.shape[2], d, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *dout.stride()[:3], *dq.stride()[:3],
+            int(causal), scale, *softcap,
+            torch.cuda.current_stream(q.device).cuda_stream)
     _bwd_check(entry, lib.flash_attention_bwd_error_string, err)
     return dq
 
@@ -349,13 +352,14 @@ def _dkv_launch(entry: str, q, k, v, dout, lse, delta, causal: bool,
     if b * s == 0:
         return dk, dv
     lib = _build.load("flash_attention_bwd_dkv", _bind_bwd_dkv)
-    err = getattr(lib, entry)(
-        _device_index(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, s, h, k.shape[2], d, *q.stride()[:3],
-        *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3],
-        *dk.stride()[:3], *dv.stride()[:3], int(causal), scale, *softcap,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):     # the entry sets q's device
+        err = getattr(lib, entry)(
+            _device_index(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, s, h, k.shape[2], d, *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3],
+            *dk.stride()[:3], *dv.stride()[:3], int(causal), scale, *softcap,
+            torch.cuda.current_stream(q.device).cuda_stream)
     _bwd_check(entry, lib.flash_attention_bwd_dkv_error_string, err)
     return dk, dv
 

@@ -152,17 +152,27 @@ def _experts(xs: torch.Tensor, w_gate: torch.Tensor, w_in: torch.Tensor,
     return torch.bmm(act, w_out.to(dt))
 
 
-def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
-            w_in: torch.Tensor, w_out: torch.Tensor, experts_per_token: int,
-            capacity_factor: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sparse SwiGLU MLP. x: [B, S, H]; router_w: [H, E]; w_gate/w_in:
-    [E, H, M]; w_out: [E, M, H].  Returns (out [B, S, H], aux_loss)."""
+def moe_route(x: torch.Tensor, router_w: torch.Tensor,
+              experts_per_token: int, capacity_factor: float
+              ) -> Tuple[int, Routing]:
+    """Routing of x [B, S, H] through router_w [H, E]: (the capacity, every
+    (token, choice) pair's ``Routing``)."""
     b, s, h = x.shape
-    e = router_w.shape[-1]
-    k = experts_per_token
-    cap = capacity(capacity_factor, k, b, s, e)
+    cap = capacity(capacity_factor, experts_per_token, b, s,
+                   router_w.shape[-1])
     tokens = x.reshape(b * s, h)
-    r = route(tokens @ router_w.to(tokens.dtype), k, cap)
+    return cap, route(tokens @ router_w.to(tokens.dtype), experts_per_token,
+                      cap)
+
+
+def moe_experts(x: torch.Tensor, r: Routing, cap: int, w_gate: torch.Tensor,
+                w_in: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU on x [B, S, H] routed by ``r``, combined with the
+    routing weights -> [B, S, H].  The result is linear in ``w_out``'s
+    rows: experts split on M (tensor parallelism) give partial sums of it."""
+    b, s, h = x.shape
+    e, k = w_gate.shape[0], r.expert.shape[1]
+    tokens = x.reshape(b * s, h)
     # dispatch: each kept pair's token row into its slot; dropped pairs all
     # land in one spare row past the buffer, which is cut off
     dest = torch.where(r.kept, r.slot, e * cap)
@@ -173,7 +183,16 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     rows = out_e.reshape(e * cap, h)[torch.where(r.kept, r.slot, 0)]
     wts = r.weight.to(x.dtype).float()
     out = (rows.float() * wts[..., None]).sum(1).to(x.dtype)
-    return out.view(b, s, h), r.aux
+    return out.view(b, s, h)
+
+
+def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
+            w_in: torch.Tensor, w_out: torch.Tensor, experts_per_token: int,
+            capacity_factor: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sparse SwiGLU MLP. x: [B, S, H]; router_w: [H, E]; w_gate/w_in:
+    [E, H, M]; w_out: [E, M, H].  Returns (out [B, S, H], aux_loss)."""
+    cap, r = moe_route(x, router_w, experts_per_token, capacity_factor)
+    return moe_experts(x, r, cap, w_gate, w_in, w_out), r.aux
 
 
 def moe_mlp_onehot(x: torch.Tensor, router_w: torch.Tensor,

@@ -26,13 +26,26 @@ Counterpart of the engine in ``ray_tpu/serve/llm.py``:
 * Sampled tokens stay on the device until drained: the host reads a
   dispatch back only once ``fetch_lag`` newer dispatches are queued, so the
   card computes dispatch N+1 while the host reads dispatch N.
+* ``tp=N``: in-replica tensor parallelism.  ``_apply_tp_sharding`` splits
+  the params megatron-style over N shards (the JAX engine's rule,
+  ``models/convert.tp_axis``): column-parallel q/k/v and MLP (and expert)
+  input weights, row-parallel output weights, the rest replicated; each
+  shard's KV cache holds its KV heads and is made on its own device.  One process drives the shards (the reference's one
+  process over a ``tp`` mesh); the decode paths run each block on every
+  shard and sum the partial outputs with ``parallel.mesh.all_reduce``.
+  ``device=None`` places shard s on ``cuda:s``; one device places every
+  shard on it (one card, or ``"cpu"`` in tests: the counterpart of the
+  reference's virtual CPU mesh); a list of N devices places one shard on
+  each.  ``tp`` must divide ``num_kv_heads``; speculative decoding does
+  not compose with it, as in the reference.
 * Runs on the card (``device=None`` means ``"cuda"``, and a missing card
-  raises); the engine thread runs on the engine's device.  A failure in a
-  prefill or a decode dispatch reaches the affected callers' queues.
+  raises); the decode state, sampling and the scheduler's tensors live on
+  shard 0's device.  A failure in a prefill or a decode dispatch reaches
+  the affected callers' queues.
 
-Not ported yet: tensor parallelism (``tp > 1`` raises; ROADMAP A3, with the
-observability hooks), and ``LLMServer`` / ``llm_deployment``, which sit on
-the JAX package's runtime (A4).
+Not ported yet: the observability hooks (metrics, spans and gauges on the
+runtime's metrics registry) and ``LLMServer`` / ``llm_deployment``, which
+sit on the JAX package's runtime (ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -51,7 +64,8 @@ from ..models import decode as dec
 from ..models import paged_decode as pdec
 from ..models import speculative as spec
 from ..models import transformer
-from ..models.transformer import _not_ported
+from ..models.convert import tp_split
+from ..parallel.mesh import cuda_devices
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
 _FLUSH = object()
@@ -78,8 +92,28 @@ class GenRequest:
         self.first_token_at: Optional[float] = None
 
 
+def _tp_devices(device, tp: int) -> List[torch.device]:
+    """The tp shards' devices: ``None`` means one card per shard (``cuda:0``
+    .. ``cuda:tp-1``; the current card at tp=1), one device every shard on
+    it, a list of tp devices one shard on each."""
+    if isinstance(device, (list, tuple)):
+        if len(device) != tp:
+            raise ValueError(f"tp={tp} needs {tp} devices, got {len(device)}")
+        return [_device.resolve(d) for d in device]
+    if device is None and tp > 1:
+        cards = cuda_devices()
+        if len(cards) < tp:
+            raise ValueError(f"tp={tp} but only {len(cards)} devices")
+        return cards[:tp]
+    return [_device.resolve(device)] * tp
+
+
 class LLMEngine:
-    """Slot-scheduled continuous batching over prefill/decode calls."""
+    """Slot-scheduled continuous batching over prefill/decode calls.
+
+    ``params``: a param tree (None draws one from ``seed``), or with
+    ``tp > 1`` also one tree per shard, each on its shard's device
+    (``models.convert.tp_params_from_numpy``)."""
 
     def __init__(self, cfg, params=None, *, num_slots: int = 8,
                  max_len: Optional[int] = None, buckets=DEFAULT_BUCKETS,
@@ -95,10 +129,13 @@ class LLMEngine:
         if spec_decode_enabled and tp > 1:
             raise ValueError("spec_decode_enabled does not compose with "
                              "tp>1 yet (draft params are unsharded)")
-        if tp > 1:
-            raise _not_ported("tp > 1",
-                              "queue A, item 3: engine tensor parallelism")
-        self.device = _device.resolve(device)
+        if cfg.num_kv_heads % tp:
+            raise ValueError(f"tp={tp} must divide num_kv_heads="
+                             f"{cfg.num_kv_heads}")
+        self.tp = tp
+        #: the shards' devices, shard 0 first; the engine's own is shard 0's
+        self.devices = _tp_devices(device, tp)
+        self.device = self.devices[0]
         self.cfg = cfg
         self.max_len = max_len or cfg.max_seq_len
         self.num_slots = num_slots
@@ -111,33 +148,49 @@ class LLMEngine:
         # sequence finishes and <= one dispatch of added admission latency
         self.steps_per_dispatch = max(1, steps_per_dispatch)
         if params is None:
+            # at tp > 1 the whole tree once (tp=1's values), split below
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = transformer.init_params(gen, cfg, dtype=torch.bfloat16)
-        if params["embed"]["tokens"].device != self.device:
-            raise ValueError(
-                f"params are on {params['embed']['tokens'].device}, the "
-                f"engine on {self.device}")
+        if isinstance(params, list) or tp == 1:
+            # a tree to split at tp > 1 may lie anywhere: it is copied
+            trees = params if isinstance(params, list) else [params]
+            homes = [t["embed"]["tokens"].device for t in trees]
+            if homes != self.devices:
+                raise ValueError(f"params are on {homes}, the engine's "
+                                 f"shards on {self.devices}")
         self.params = params
         # Admission batches are padded to a FIXED size; padding rows write
         # into a scratch cache slot (index num_slots) decode never activates.
         self.prefill_batch = prefill_batch or min(num_slots, 8)
         self._scratch_slot = num_slots
         self.paged = paged
+        # each shard's cache holds its KV heads and is made on its device
+        # (the KV-head split of the whole cache, which is all zeros)
+        shard_cfg = dataclasses.replace(cfg, num_kv_heads=cfg.num_kv_heads
+                                        // tp)
         if paged:
             self.page_size = page_size
             self.max_pages_per_slot = -(-self.max_len // page_size)
             # default budget: half the dense cache (the paged win)
             self.num_pages = num_pages or max(
                 (num_slots + 1) * self.max_pages_per_slot // 2, 16)
-            self.cache = pdec.init_paged_cache(
-                cfg, self.num_pages, page_size, num_slots + 1,
-                self.max_pages_per_slot, self.compute_dtype, self.device)
+            caches = [pdec.init_paged_cache(
+                shard_cfg, self.num_pages, page_size, num_slots + 1,
+                self.max_pages_per_slot, self.compute_dtype, d)
+                for d in self.devices]
             self.allocator = pdec.PageAllocator(self.num_pages)
             self.prefix = (pdec.PrefixCache(self.allocator, page_size)
                            if prefix_cache else None)
         else:
-            self.cache = dec.init_kv_cache(cfg, num_slots + 1, self.max_len,
-                                           self.compute_dtype, self.device)
+            caches = [dec.init_kv_cache(shard_cfg, num_slots + 1,
+                                        self.max_len, self.compute_dtype, d)
+                      for d in self.devices]
+        self.cache = caches if tp > 1 else caches[0]
+        if tp > 1 and not isinstance(params, list):
+            # no unsharded copy stays: a tree drawn here is dropped with
+            # `params`, a caller's tree is the caller's
+            self.params = self._apply_tp_sharding(params)
+            del params
         self._state = dec.init_decode_state(
             num_slots + 1,
             torch.Generator(device=self.device).manual_seed(seed + 1))
@@ -291,6 +344,19 @@ class LLMEngine:
         while req.out.get() is not _FLUSH:
             pass
 
+    # -------------------------------------------------------- tp sharding
+
+    def _apply_tp_sharding(self, params):
+        """Split a param tree over the tp shards megatron-style
+        (``models/convert.tp_axis``: attention and MLP weights column then
+        row parallel, small tensors replicated) -> one tree per shard on its
+        shard's device, every leaf a contiguous tensor of its own.  The
+        caches are made per shard (their KV heads split the same way)."""
+        def place(t, s):
+            return t.to(self.devices[s], memory_format=torch.contiguous_format,
+                        copy=True)
+        return tp_split(params, self.tp, place)
+
     # -------------------------------------------------------- scheduler
 
     def _bucket_for(self, n: int) -> int:
@@ -300,6 +366,8 @@ class LLMEngine:
         return self.max_len
 
     def _loop(self):
+        # shard 0's card; kernel launches set and restore their tensors'
+        # own device, so no shard depends on this
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
         with torch.inference_mode():

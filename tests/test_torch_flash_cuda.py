@@ -72,6 +72,29 @@ def test_flash_kernel_on_strided_views_matches_plain_on_card(cuda_device, D):
     assert (lse - ref_lse).abs().max().item() < 1e-3
 
 
+@pytest.mark.cuda
+def test_launches_keep_the_callers_current_device():
+    """B1, B2 and B3 on a second card leave the thread's current device
+    where the caller set it (the C entries set their tensors' device; the
+    wrappers restore the caller's), and compute what they compute on the
+    first card."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    torch.cuda.set_device(0)
+    q, k, v, dout = _inputs(torch.device("cuda", 1), 2, 1024, 8, 2, 128)
+    out, lse = tflash._flash_fwd(q, k, v, True)
+    assert torch.cuda.current_device() == 0
+    dq, dk, dv = _kernel_bwd(q, k, v, out, lse, dout, True)
+    assert torch.cuda.current_device() == 0
+    on_0 = [t.to("cuda:0") for t in (q, k, v, dout)]
+    out0, lse0 = tflash._flash_fwd(*on_0[:3], True)
+    grads0 = _kernel_bwd(*on_0[:3], out0, lse0, on_0[3], True)
+    assert torch.equal(out.cpu(), out0.cpu()) and torch.equal(lse.cpu(),
+                                                              lse0.cpu())
+    assert all(torch.equal(a.cpu(), b.cpu())
+               for a, b in zip((dq, dk, dv), grads0))
+
+
 def _kernel_bwd(q, k, v, out, lse, dout, causal):
     delta = tflash._delta(out, dout)
     dq = tflash.flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal)

@@ -1,7 +1,7 @@
 """The port stands alone: every module of ray_tpu_torch imports with jax and
-ray_tpu blocked, no module (nor chip_smoke.py) imports either, the entry
-points never drop to the CPU on their own, and no CUDA source issues
-Ampere's instructions."""
+ray_tpu blocked, no module (nor chip_smoke.py or decode_dispatch_ab.py)
+imports either, the entry points never drop to the CPU on their own, and no
+CUDA source issues Ampere's instructions."""
 
 import ast
 import os
@@ -48,10 +48,11 @@ def test_every_module_imports_with_jax_and_ray_tpu_blocked():
     assert res.returncode == 0, res.stderr
     # models.{config,convert,decode,paged_decode,remat,speculative,
     # transformer}, ops.{_build,attention,flash_attention,moe,
-    # splash_attention}, parallel.train_step, serve.llm, device and the
-    # four subpackages
-    assert int(res.stdout.split()[-1]) >= 19, res.stdout
-    assert "ray_tpu_torch.ops.moe" in res.stdout.split(), res.stdout
+    # splash_attention}, parallel.{mesh,train_step}, serve.llm, device and
+    # the four subpackages
+    assert int(res.stdout.split()[-1]) >= 20, res.stdout
+    for name in ("ray_tpu_torch.ops.moe", "ray_tpu_torch.parallel.mesh"):
+        assert name in res.stdout.split(), res.stdout
 
 
 def _import_roots(path: Path):
@@ -65,7 +66,8 @@ def _import_roots(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py"],
+                         [ROOT / "chip_smoke.py",
+                          ROOT / "decode_dispatch_ab.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_ray_tpu(path):
     bad = sorted(set(_import_roots(path)) & BLOCKED_ROOTS)

@@ -129,8 +129,22 @@ def test_prefill_error_reaches_the_caller(tiny_model):
 
 @pytest.mark.parametrize("kw", [dict(tp=2)])
 def test_not_ported_engine_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 3"):
-        tllm.LLMEngine(tcfg.tiny(), device="cpu", **kw)
+    """Options once refused now run: at tp=2 the engine draws tp=1's
+    params from the seed, splits them over two shards on the CPU and
+    streams tp=1's greedy tokens.  A tp that does not divide the KV heads
+    raises the reference's ValueError."""
+    outs = []
+    for opts in ({}, kw):
+        eng = tllm.LLMEngine(tcfg.tiny(), device="cpu", num_slots=2,
+                             max_len=32, compute_dtype=torch.float32, **opts)
+        try:
+            outs.append(eng.generate([3, 1, 4, 1, 5], max_tokens=6))
+            assert isinstance(eng.params, list) == bool(opts)
+        finally:
+            eng.shutdown()
+    assert len(outs[0]) == 6 and outs[1] == outs[0]
+    with pytest.raises(ValueError, match="must divide num_kv_heads"):
+        tllm.LLMEngine(tcfg.tiny(), device="cpu", tp=kw["tp"] + 1)
 
 
 def test_spec_with_tp_raises_the_references_error():
