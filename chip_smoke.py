@@ -14,7 +14,8 @@ script exits non-zero:
 3. Kernel B1 (flash forward) against its plain PyTorch version on the card,
    at the shapes the serving path gives it (Llama-3-8B prefill: B=8,
    S=2048 and S=1024, H=32, KV=8, D=128, causal; a tp=2 shard's: H=16,
-   KV=4), plus D=64 non-causal,
+   KV=4), and at each mesh phase's shard shape (``MESH_SHARD_CASES``),
+   plus D=64 non-causal,
    D=256, a ragged S (1000, and 1088: 64 rows past a 128-row tile) and q,
    k, v as head slices of one fused tensor (strided views).  Times of the
    kernel, the plain version and one library call
@@ -23,7 +24,8 @@ script exits non-zero:
 4. Kernels B2 (dq) and B3 (dk/dv) against their plain versions on the same
    residuals, at the training path's shape (llama_1b: B=8, S=2048, H=16,
    KV=8, D=128, causal), the serving shape (B=8, S=1024, H=32, KV=8) and
-   Mixtral's training shape (B=8, S=2048, H=32, KV=8), plus D=64 non-causal with KV=H, D=256 (GQA reps 4 at S=1088 too), a
+   Mixtral's training shape (B=8, S=2048, H=32, KV=8) and each mesh
+   phase's shard shape (timed), plus D=64 non-causal with KV=H, D=256 (GQA reps 4 at S=1088 too), a
    ragged S (1000, and 1088: 64 rows past a 128-row tile; 64, where a q
    tile's upper warpgroup has no row) and strided views (q, k, v as head
    slices of one fused tensor, dO a transposed view); each run twice and
@@ -130,8 +132,35 @@ script exits non-zero:
    numbers and profile as phase 6, the step compared against the same
    step through B4's plain versions (the loss within a limit of its own,
    set from the measured noise of this comparison).
-9. A JSON line of kernels, then the contract line
-   ``{"ok": true, "device": {...}}`` as the last line of output.
+9. The mesh train step (``models/sharding.py``, ``init_sharded_state`` /
+   ``make_train_step`` over a ``MeshSpec``), one process driving every
+   shard; the ``mesh placement`` line says where the shards sit (every
+   shard on cuda:0 with one card, one card each with enough cards):
+   a. ``train_llama_1b_mesh``: llama_1b as phase 6 trains it, on
+      ``fsdp=2, tp=2`` and on ``dp=2, fsdp=2, tp=2``: state from seed 0,
+      8 steps, loss finite and falling, B1-B3 launched 2/1/1 times per
+      layer, step and shard; the first three losses within STEP_LOSS_ATOL
+      of ``mesh=None``'s from the same seed and batch (step 0's learning
+      rate is 0, so the third is the first after an update) and the adam
+      mu after step 0, put back together, within STEP_GRAD_REL_L2 per
+      leaf;
+      step ms, tokens/s, state and peak GB per card; one step profiled.
+   b. ``train_f32_mesh_exactness``: llama_1b's width cut to 2 layers in
+      f32 (plain attention) on ``dp=2, fsdp=2, tp=2``, 3 steps against
+      ``mesh=None``: loss and grad norm, and every leaf of params, mu and
+      nu, within 1e-4 relative.
+   c. ``train_mixtral_mesh``: Mixtral's 1-layer cut on ``fsdp=2, ep=2``
+      (global routing, experts split over ep): step 0 replays the routing
+      of ``mesh=None``'s step and is held to it as in a.; aux loss > 0
+      every step; the freely routed steps' dropped share.
+   d. ``checkpoint_roundtrip``: the 2-layer cut in f32 on ``fsdp=2,
+      tp=2``, 2 steps, ``save_pytree``, ``load_pytree`` onto ``mesh=None``
+      and 2 more: the losses equal 4 uninterrupted steps (the resumed
+      ones within 1e-6 relative); write and read seconds and bytes.
+10. A JSON line of kernels (each path's launches; the mesh paths'
+    under ``train_mesh[...]``; B1-B3 at each mesh's shard shape, checked
+    and timed in phases 3 and 4, under ``mesh_shard_shapes``), then the contract line
+    ``{"ok": true, "device": {...}}`` as the last line of output.
 
 Exits non-zero without a result when there is no CUDA card, or when the
 ``ray_tpu_torch`` package is not beside this script.
@@ -248,6 +277,26 @@ MOE_OUT_RTOL = 2e-2
 # normal logits) and the check holds the capacity drops at prefill size.
 MOE_CASES = ((8, 2048, False), (8, 2048, True), (9, 1, False))
 MOE_ROUTER_SKEW = 4.0
+# the mesh train step: llama_1b on these meshes (every shard on cuda:0 with
+# one card), the first steps held to mesh=None's; Mixtral's 1-layer cut on
+# fsdp x ep (dp would hold its 27.4 GB of state twice); the f32 check and
+# the checkpoint round trip on llama_1b's width cut to 2 layers
+LLAMA_MESHES = (dict(fsdp=2, tp=2), dict(dp=2, fsdp=2, tp=2))
+MIXTRAL_MESH = dict(fsdp=2, ep=2)
+# the first three losses against mesh=None's: make_optimizer's warmup
+# gives step 0 a learning rate of 0, so the third is the first loss after
+# an update that moved the params
+MESH_COMPARE_STEPS = 3
+# one shard's attention on those meshes (B, S, H, KV, D, causal, timed,
+# strided), checked and timed in the kernel phases: llama_1b on fsdp=2,tp=2
+# and on dp=2,fsdp=2,tp=2, Mixtral on fsdp=2,ep=2
+MESH_SHARD_CASES = ((4, 2048, 8, 4, 128, True, True, False),
+                    (2, 2048, 8, 4, 128, True, True, False),
+                    (4, 2048, 32, 8, 128, True, True, False))
+MESH_SHARD_LABELS = ("llama_1b fsdp=2,tp=2", "llama_1b dp=2,fsdp=2,tp=2",
+                     "mixtral fsdp=2,ep=2")
+MESH_F32_LAYERS, MESH_F32_STEPS, MESH_F32_RTOL = 2, 3, 1e-4
+CKPT_LAYERS = 2
 
 
 def log(msg: str) -> None:
@@ -327,6 +376,7 @@ def check_flash(dev):
         (8, 2048, 16, 4, 128, True, True, False),
         (8, 1024, 16, 4, 128, True, False, False),
         (8, 2048, 16, 8, 128, True, True, False),   # llama_1b training batch
+        *MESH_SHARD_CASES,
         (2, 1024, 16, 4, 64, False, False, False),
         (2, 1000, 32, 8, 128, True, False, False),  # ragged edge
         (2, 1088, 32, 8, 128, True, False, False),  # 64 past a 128-row tile
@@ -418,6 +468,7 @@ def check_flash_bwd(dev):
         (8, 2048, 16, 8, 128, True, True, False),    # llama_1b training batch
         (8, 1024, 32, 8, 128, True, True, False),    # serving shape, reps 4
         (8, 2048, 32, 8, 128, True, False, False),   # Mixtral training batch
+        *MESH_SHARD_CASES,
         (2, 1024, 16, 16, 64, False, False, False),
         (1, 1024, 8, 2, 256, True, False, False),
         (2, 1000, 32, 8, 128, True, False, False),   # ragged edge
@@ -468,6 +519,8 @@ def check_flash_bwd(dev):
             row[f"{name}_max_abs_err"] = diff
             row[f"{name}_rel_err"] = diff / w.float().abs().max().item()
             row[f"{name}_finite"] = bool(torch.isfinite(a).all())
+        row["dkv_max_abs_err"] = max(row["dk_max_abs_err"],
+                                     row["dv_max_abs_err"])
         for name in ("dq", "dkv"):
             row[f"{name}_bound_ms"], row[f"{name}_bound_by"] = bounds[name]
         if timed:
@@ -2148,6 +2201,342 @@ def time_lm_head_loss(state, cfg, dev):
     log("lm_head_loss " + json.dumps(row))
 
 
+# ---------------------------------------------------------------------------
+# The mesh train step (models/sharding.py, parallel/train_step.py's mesh)
+# ---------------------------------------------------------------------------
+
+def mesh_placement(n: int):
+    """The devices of an n-shard mesh: one card each with n cards or more,
+    else cuda:0 n times (every shard on one card, one after the other:
+    times are one card running every shard, not an n-card speed)."""
+    import torch
+    spread = torch.cuda.device_count() >= n
+    devices = [torch.device("cuda", i if spread else 0) for i in range(n)]
+    log(f"mesh placement: {n} shards on {sorted({str(d) for d in devices})} "
+        + ("(one card each)" if spread else "(every shard on one card: "
+           "times are one card running them all, not a multi-card speed)"))
+    return devices
+
+
+def mesh_label(spec) -> str:
+    return ",".join(f"{k}={v}" for k, v in spec.items())
+
+
+def host_tree(tree):
+    """path -> the whole leaf on the host (a Sharded leaf put together)."""
+    from ray_tpu_torch.parallel.mesh import Sharded
+
+    def rec(t, prefix):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                yield from rec(v, f"{prefix}{k}.")
+            else:
+                yield prefix + k, (v.full("cpu") if isinstance(v, Sharded)
+                                   else v.detach().to("cpu", copy=True))
+    return dict(rec(tree, ""))
+
+
+def leaf_rel_l2(got, want, dev):
+    """Each leaf's relative L2 distance, computed on the card one leaf at
+    a time."""
+    out = {}
+    for path, w in want.items():
+        a, b = got[path].to(dev).float(), w.to(dev).float()
+        out[path] = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+        del a, b
+    return out
+
+
+def training_batch(cfg, seed=0):
+    import numpy as np
+    return {"tokens": np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)).astype(np.int32)}
+
+
+def one_device_reference(cfg, batch, steps, compute_dtype, remat,
+                         calls=None, final=False):
+    """``mesh=None`` from seed 0 for ``steps`` steps on ``batch``: each
+    step's loss, grad norm and aux loss, the adam mu after the first step
+    (the first clipped gradient times 1 - b1) on the host, and with
+    ``final`` the last state's params, mu and nu on the host.  With
+    ``calls`` the MoE routing is recorded there (``routing_log``)."""
+    import torch
+    from ray_tpu_torch.parallel import (init_sharded_state, make_optimizer,
+                                        make_train_step)
+    opt = make_optimizer(warmup_steps=2, total_steps=100)
+    state, _ = init_sharded_state(cfg, None, opt, seed=0)
+    step = make_train_step(cfg, None, opt, None, compute_dtype=compute_dtype,
+                           remat=remat)
+    rows, mu0 = [], None
+    with (routing_log(calls) if calls is not None
+          else contextlib.nullcontext()):
+        for i in range(steps):
+            state, m = step(state, batch)
+            rows.append({k: m[k].item() for k in
+                         ("loss", "grad_norm", "moe_aux_loss")})
+            if i == 0:
+                mu0 = host_tree(state.opt_state["mu"])
+    last = ({"params": host_tree(state.params),
+             "mu": host_tree(state.opt_state["mu"]),
+             "nu": host_tree(state.opt_state["nu"])} if final else None)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, mu0, last
+
+
+def mesh_training(cfg, spec, remat, batch, steps, compute_dtype, per_layer,
+                  ref_rows, ref_mu0, replay=None):
+    """``init_sharded_state`` / ``make_train_step`` on a mesh of ``spec``
+    (seed 0, as the reference), ``steps`` steps on ``batch`` with the
+    launch counters zeroed just before and read after.  The first
+    ``len(ref_rows)`` losses against the reference's (|d loss| <=
+    STEP_LOSS_ATOL; with MESH_COMPARE_STEPS the last of them follows an
+    update with a nonzero learning rate) and the adam mu after step 0,
+    put back together, leaf by leaf (rel. L2 <= STEP_GRAD_REL_L2); the loss finite and falling; B1-B3 launched
+    ``per_layer`` times per layer, step and shard.  With ``replay`` (MoE)
+    step 0 routes as the reference's step did; later steps route freely
+    and their dropped share is read.  -> (stats, launches, state, step)."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.parallel import (init_sharded_state, make_optimizer,
+                                        make_train_step)
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+
+    n = int(np.prod(list(spec.values())))
+    devices = mesh_placement(n)
+    mesh = MeshSpec(**spec).build(devices)
+    counters = attention_counters()
+    opt = make_optimizer(warmup_steps=2, total_steps=100)
+    t0 = time.perf_counter()
+    state, sh = init_sharded_state(cfg, mesh, opt, seed=0)
+    step = make_train_step(cfg, mesh, opt, sh, compute_dtype=compute_dtype,
+                           remat=remat)
+    sync_cards()
+    init_s = time.perf_counter() - t0
+    state_gb = {f"cuda:{i}": torch.cuda.memory_allocated(i) / 1e9
+                for i in cards(devices)}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for c in counters.values():
+        c.launches = 0
+    losses, aux, norms, step_ms, free_calls, gaps = [], [], [], [], [], None
+    for i in range(steps):
+        calls = []
+        route = (routing_log(calls, replay) if replay is not None and i == 0
+                 else routing_log(free_calls) if cfg.num_experts > 1
+                 else contextlib.nullcontext())
+        t = time.perf_counter()
+        with route:
+            state, m = step(state, batch)
+        sync_cards()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(m["loss"].item())
+        aux.append(m["moe_aux_loss"].item())
+        norms.append(m["grad_norm"].item())
+        log(f"mesh step {i} ({mesh_label(spec)}): loss {losses[-1]:.6f}, "
+            f"moe_aux_loss {aux[-1]:.6f}, grad_norm {norms[-1]:.4f}, "
+            f"{step_ms[-1]:.1f} ms")
+        if i == 0:
+            rel = leaf_rel_l2(host_tree(state.opt_state["mu"]), ref_mu0,
+                              devices[0])
+            gaps = {"max_leaf_rel_l2_mu_after_step_0": max(rel.values()),
+                    "worst_leaf": max(rel, key=rel.get),
+                    "leaves": len(rel)}
+            reset_peaks(devices)
+    launches = {k: c.launches for k, c in counters.items()}
+    timed = sorted(step_ms[TRAIN_UNTIMED:])
+    med = timed[len(timed) // 2] if len(timed) % 2 else (
+        timed[len(timed) // 2 - 1] + timed[len(timed) // 2]) / 2
+    loss_diffs = [abs(a - r["loss"]) for a, r in zip(losses, ref_rows)]
+    stats = {"layers": cfg.num_layers, "mesh": spec, "shards": n,
+             "devices": sorted({str(d) for d in devices}),
+             "compute_dtype": str(compute_dtype), "remat": remat,
+             "init_s": init_s, "state_gb_by_card": state_gb,
+             "losses": losses, "moe_aux_losses": aux, "grad_norms": norms,
+             "reference_losses": [r["loss"] for r in ref_rows],
+             "abs_loss_diffs": loss_diffs, **gaps, "step_ms": step_ms,
+             "step_ms_median": med, "tokens_per_s": tokens / (med / 1e3),
+             "peak_gb_by_card": peaks_by_card(devices),
+             "launches_per_step": {k: v / steps for k, v in launches.items()}}
+    if free_calls:
+        stats["dropped_share_free_steps"] = sum(
+            int(c[1]) for c in free_calls) / sum(2 * c[0] for c in free_calls)
+    log("train_mesh " + json.dumps(stats))
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[1]):
+        raise AssertionError(f"mesh training losses not finite and falling: "
+                             f"{losses}")
+    if not (max(loss_diffs) <= STEP_LOSS_ATOL
+            and gaps["max_leaf_rel_l2_mu_after_step_0"] <= STEP_GRAD_REL_L2):
+        raise AssertionError(
+            f"mesh step ({mesh_label(spec)}) differs from mesh=None: |dloss| "
+            f"{loss_diffs} (limit {STEP_LOSS_ATOL}), mu leaf rel L2 "
+            f"{gaps['max_leaf_rel_l2_mu_after_step_0']} (limit "
+            f"{STEP_GRAD_REL_L2})")
+    want = {k: per_layer.get(k, 0) * cfg.num_layers * n * steps
+            for k in counters}
+    if launches != want:
+        raise AssertionError(f"mesh launches over {steps} steps (L = "
+                             f"{cfg.num_layers}, {n} shards): {launches}, "
+                             f"want {want}")
+    return stats, launches, state, step
+
+
+def train_llama_mesh(dev):
+    """Phase train_llama_1b_mesh: llama_1b at full width and depth (bf16
+    compute, fp32 state, full remat) on each mesh of LLAMA_MESHES: every
+    shard runs B1 (forward and replay), B2 and B3 on its rows and heads;
+    the first MESH_COMPARE_STEPS losses against ``mesh=None`` from the same
+    seed and batch."""
+    import torch
+    from ray_tpu_torch.models import config as mcfg
+    cfg = mcfg.llama_1b()
+    batch = training_batch(cfg)
+    ref_rows, ref_mu0, _ = one_device_reference(
+        cfg, batch, MESH_COMPARE_STEPS, torch.bfloat16, True)
+    out = {}
+    for spec in LLAMA_MESHES:
+        stats, launches, state, step = mesh_training(
+            cfg, spec, True, batch, TRAIN_STEPS, torch.bfloat16,
+            FLASH_PER_LAYER, ref_rows, ref_mu0)
+        out[mesh_label(spec)] = (stats, launches)
+        profile_step(step, state, batch,
+                     f"train_step_mesh[{mesh_label(spec)}]")
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_f32_exactness(dev):
+    """Phase train_f32_mesh_exactness: llama_1b's width cut to
+    MESH_F32_LAYERS layers in f32 compute (plain attention), the mesh step
+    against ``mesh=None`` over MESH_F32_STEPS steps: loss and grad norm
+    per step, and every leaf of params, mu and nu, within MESH_F32_RTOL
+    relative."""
+    import torch
+    from ray_tpu_torch.models import config as mcfg
+    cfg = dataclasses.replace(mcfg.llama_1b(), num_layers=MESH_F32_LAYERS)
+    batch = training_batch(cfg)
+    ref_rows, ref_mu0, ref_last = one_device_reference(
+        cfg, batch, MESH_F32_STEPS, torch.float32, True, final=True)
+    spec = LLAMA_MESHES[-1]
+    stats, _, state, _ = mesh_training(
+        cfg, spec, True, batch, MESH_F32_STEPS, torch.float32, {}, ref_rows,
+        ref_mu0)
+    rel = {}
+    for name, tree in (("params", state.params),
+                       ("mu", state.opt_state["mu"]),
+                       ("nu", state.opt_state["nu"])):
+        for path, r in leaf_rel_l2(host_tree(tree), ref_last[name],
+                                   dev).items():
+            rel[f"{name}.{path}"] = r
+    per_step = [max(abs(a - r["loss"]) / abs(r["loss"]),
+                    abs(g - r["grad_norm"]) / r["grad_norm"])
+                for a, g, r in zip(stats["losses"], stats["grad_norms"],
+                                   ref_rows)]
+    row = {"mesh": spec, "layers": cfg.num_layers, "steps": MESH_F32_STEPS,
+           "max_rel_loss_or_grad_norm": max(per_step),
+           "max_leaf_rel_l2": max(rel.values()),
+           "worst_leaf": max(rel, key=rel.get), "leaves": len(rel)}
+    log("train_f32_mesh_exactness " + json.dumps(row))
+    if not (row["max_rel_loss_or_grad_norm"] <= MESH_F32_RTOL
+            and row["max_leaf_rel_l2"] <= MESH_F32_RTOL):
+        raise AssertionError(f"f32 mesh step against mesh=None: {row}")
+    del state
+
+
+def train_mixtral_mesh(dev):
+    """Phase train_mixtral_mesh: the 1-layer Mixtral-8x7B cut on
+    MIXTRAL_MESH (experts split over ep, everything cut over fsdp; dp
+    would hold its 27.4 GB of state twice), full remat.  Step 0 replays
+    the routing of ``mesh=None``'s step on the same seed and batch (routing
+    is global, so it is the same decision; bf16 rounding flips near ties
+    otherwise) and is held to it; the aux loss > 0 every step."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.models import config as mcfg
+    cfg = dataclasses.replace(mcfg.mixtral_8x7b(),
+                              num_layers=MIXTRAL_TRAIN_LAYERS)
+    batch = training_batch(cfg)
+    calls = []
+    ref_rows, ref_mu0, _ = one_device_reference(
+        cfg, batch, 1, torch.bfloat16, True, calls=calls)
+    stats, launches, state, _ = mesh_training(
+        cfg, MIXTRAL_MESH, True, batch, TRAIN_STEPS, torch.bfloat16,
+        FLASH_PER_LAYER, ref_rows, ref_mu0, replay=calls)
+    aux = stats["moe_aux_losses"]
+    if not (all(np.isfinite(aux)) and min(aux) > 0):
+        raise AssertionError(f"mesh moe_aux_loss not finite and above 0: "
+                             f"{aux}")
+    del state
+    return stats, launches
+
+
+def checkpoint_roundtrip(dev):
+    """Phase checkpoint_roundtrip: llama_1b's width cut to CKPT_LAYERS
+    layers, f32 compute, on fsdp=2, tp=2: 4 uninterrupted steps; then 2
+    steps, ``save_pytree``, ``load_pytree`` onto ``mesh=None``, 2 more.
+    The first two losses equal, the last two within 1e-6 relative (the
+    one-device step sums in another order).  Write and read seconds and
+    the file's bytes."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from ray_tpu_torch.models import config as mcfg
+    from ray_tpu_torch.parallel import (init_sharded_state, make_optimizer,
+                                        make_train_step)
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.train import load_pytree, save_pytree
+    from ray_tpu_torch.train.torch_utils import STATE_FILE
+
+    cfg = dataclasses.replace(mcfg.llama_1b(), num_layers=CKPT_LAYERS)
+    batches = [training_batch(cfg, seed) for seed in range(4)]
+    spec = dict(fsdp=2, tp=2)
+    mesh = MeshSpec(**spec).build(mesh_placement(4))
+    opt = make_optimizer(warmup_steps=2, total_steps=100)
+
+    def mesh_state():
+        state, sh = init_sharded_state(cfg, mesh, opt, seed=0)
+        return state, make_train_step(cfg, mesh, opt, sh,
+                                      compute_dtype=torch.float32)
+
+    state, step = mesh_state()
+    want = [step(state, b)[1]["loss"].item() for b in batches]
+    state, step = mesh_state()
+    got = [step(state, b)[1]["loss"].item() for b in batches[:2]]
+    where = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        sync_cards()
+        t = time.perf_counter()
+        save_pytree(where, state)
+        write_s = time.perf_counter() - t
+        size = os.path.getsize(os.path.join(where, STATE_FILE))
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        target, _ = init_sharded_state(cfg, None, opt, seed=1)
+        t = time.perf_counter()
+        state = load_pytree(where, target=target)
+        sync_cards()
+        read_s = time.perf_counter() - t
+        del target
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    step = make_train_step(cfg, None, opt, None, compute_dtype=torch.float32)
+    got += [step(state, b)[1]["loss"].item() for b in batches[2:]]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    row = {"mesh": spec, "layers": cfg.num_layers, "losses_resumed": got,
+           "losses_uninterrupted": want, "rel_diffs": rel,
+           "write_s": write_s, "read_s": read_s, "bytes": size,
+           "resumed_on": "mesh=None", "step": int(state.step)}
+    log("checkpoint_roundtrip " + json.dumps(row))
+    if not (got[:2] == want[:2] and max(rel[2:]) <= 1e-6
+            and int(state.step) == 4):
+        raise AssertionError(f"resumed run differs: {row}")
+    del state
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2257,11 +2646,44 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("train_llama_1b_splash"):
         _, splash_launches = train_llama(dev, splash=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("train_llama_1b_mesh"):
+        llama_mesh = train_llama_mesh(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("train_f32_mesh_exactness"):
+        mesh_f32_exactness(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("train_mixtral_mesh"):
+        _, mixtral_mesh = train_mixtral_mesh(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("checkpoint_roundtrip"):
+        checkpoint_roundtrip(dev)
+    mesh_launches = {f"train_mesh[{label}]": launches
+                     for label, (_, launches) in llama_mesh.items()}
+    mesh_launches[f"train_mixtral_mesh[{mesh_label(MIXTRAL_MESH)}]"] = (
+        mixtral_mesh)
 
     main_row, bwd_row = flash_rows[0], bwd_rows[0]
     shard_row = next(r for r in flash_rows
                      if r["shape"] == [8, 2048, 16, 4, 128])
     sdpa_covers = "dq, dk and dv in one call: B2 + B3 together"
+
+    def shard_rows(rows, keys):
+        """The mesh shard shapes' rows of a kernel phase, by mesh."""
+        at = {tuple(r["shape"]): r for r in rows}
+        return {label: {"shape": list(c[:5]),
+                        **{k: at[tuple(c[:5])][key] for k, key in keys}}
+                for label, c in zip(MESH_SHARD_LABELS, MESH_SHARD_CASES)}
+
+    def bwd_keys(name):
+        return [(k, f"{name}_{k}") for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by")] + [
+            ("library_ms", "sdpa_bwd_ms"),
+            ("max_abs_err", f"{name}_max_abs_err")]
     kernels = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -2272,14 +2694,18 @@ def main() -> int:
                      + train_launches["flash_attention_fwd"]
                      + mixtral_serve["flash_launches"]
                      + mixtral_tp["flash_launches"]
-                     + mixtral_train["flash_attention_fwd"]),
+                     + mixtral_train["flash_attention_fwd"]
+                     + sum(m["flash_attention_fwd"]
+                           for m in mesh_launches.values())),
         "launches_by_path": {
             "serve": serve_launches, "serve_paged_spec": spec_launches,
             "serve_tp2": tp_launches,
             "train": train_launches["flash_attention_fwd"],
             "serve_mixtral": mixtral_serve["flash_launches"],
             "serve_mixtral_tp2": mixtral_tp["flash_launches"],
-            "train_mixtral": mixtral_train["flash_attention_fwd"]},
+            "train_mixtral": mixtral_train["flash_attention_fwd"],
+            **{k: m["flash_attention_fwd"]
+               for k, m in mesh_launches.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -2289,6 +2715,9 @@ def main() -> int:
         "tp2_shard_shape": {k: shard_row[k] for k in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
+        "mesh_shard_shapes": shard_rows(flash_rows, [
+            (k, k) for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "max_abs_err")]),
     }, {
         "name": "flash_attention_bwd_dq",
         "route": "cuda",
@@ -2296,10 +2725,12 @@ def main() -> int:
         "replaces": "ray_tpu/ops/flash_attention.py:201",
         "design": HOPPER_DESIGN,
         "launches": (train_launches["flash_attention_bwd_dq"]
-                     + mixtral_train["flash_attention_bwd_dq"]),
+                     + mixtral_train["flash_attention_bwd_dq"]
+                     + sum(m["flash_attention_bwd_dq"] for m in mesh_launches.values())),
         "launches_by_path": {
             "train": train_launches["flash_attention_bwd_dq"],
-            "train_mixtral": mixtral_train["flash_attention_bwd_dq"]},
+            "train_mixtral": mixtral_train["flash_attention_bwd_dq"],
+            **{k: m["flash_attention_bwd_dq"] for k, m in mesh_launches.items()}},
         "max_abs_err": max(r["dq_max_abs_err"] for r in bwd_rows),
         "ms": bwd_row["dq_ms"],
         "plain_ms": bwd_row["dq_plain_ms"],
@@ -2307,6 +2738,7 @@ def main() -> int:
         "bound_by": bwd_row["dq_bound_by"],
         "library_ms": bwd_row["sdpa_bwd_ms"],
         "library_covers": sdpa_covers,
+        "mesh_shard_shapes": shard_rows(bwd_rows, bwd_keys("dq")),
     }, {
         "name": "flash_attention_bwd_dkv",
         "route": "cuda",
@@ -2314,18 +2746,20 @@ def main() -> int:
         "replaces": "ray_tpu/ops/flash_attention.py:248",
         "design": HOPPER_DESIGN,
         "launches": (train_launches["flash_attention_bwd_dkv"]
-                     + mixtral_train["flash_attention_bwd_dkv"]),
+                     + mixtral_train["flash_attention_bwd_dkv"]
+                     + sum(m["flash_attention_bwd_dkv"] for m in mesh_launches.values())),
         "launches_by_path": {
             "train": train_launches["flash_attention_bwd_dkv"],
-            "train_mixtral": mixtral_train["flash_attention_bwd_dkv"]},
-        "max_abs_err": max(max(r["dk_max_abs_err"], r["dv_max_abs_err"])
-                           for r in bwd_rows),
+            "train_mixtral": mixtral_train["flash_attention_bwd_dkv"],
+            **{k: m["flash_attention_bwd_dkv"] for k, m in mesh_launches.items()}},
+        "max_abs_err": max(r["dkv_max_abs_err"] for r in bwd_rows),
         "ms": bwd_row["dkv_ms"],
         "plain_ms": bwd_row["dkv_plain_ms"],
         "bound_ms": bwd_row["dkv_bound_ms"],
         "bound_by": bwd_row["dkv_bound_by"],
         "library_ms": bwd_row["sdpa_bwd_ms"],
         "library_covers": sdpa_covers,
+        "mesh_shard_shapes": shard_rows(bwd_rows, bwd_keys("dkv")),
     }]
     # B4 on the splash training path (softcap 0, as llama_1b has none);
     # the capped kernel's numbers beside them, where no library call

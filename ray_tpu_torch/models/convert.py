@@ -13,6 +13,11 @@ dimension, row-parallel output weights on their second-to-last, the KV
 cache on its KV-head axis, everything else replicated.  Each shard takes
 one contiguous block of a split dimension, as JAX's even split does, so
 shard s holds q heads and KV heads of the same GQA groups.
+
+On a device mesh (``sharded_state_from_numpy``) a train state is cut by
+its shardings (``parallel/train_step.state_shardings``): each numpy leaf
+is cut on the host and each device's block goes straight to it, equal to
+what JAX's ``addressable_shards`` hold for the same shardings.
 """
 
 from __future__ import annotations
@@ -116,3 +121,29 @@ def train_state_from_numpy(params: Mapping[str, Any], mu: Mapping[str, Any],
     return TrainState(params=p, opt_state=opt_state,
                       step=torch.tensor(int(np.asarray(step)),
                                         dtype=torch.int32, device=device))
+
+
+def sharded_state_from_numpy(params: Mapping[str, Any], mu: Mapping[str, Any],
+                             nu: Mapping[str, Any], count: Any, step: Any,
+                             shardings):
+    """``train_state_from_numpy`` onto a mesh: a JAX ``TrainState`` (numpy
+    leaves) -> the port's sharded ``TrainState`` placed by ``shardings``
+    (a ``TrainState`` of ``NamedSharding`` trees, as ``state_shardings``
+    gives).  Every leaf is cut on the host, so no device holds the whole
+    tree; params require grad."""
+    from ..parallel.mesh import device_put, split
+    from ..parallel.train_step import TrainState
+
+    def put(tree, sh, grad=False):
+        return device_put(params_from_numpy(tree, "cpu"), sh,
+                          requires_grad=grad)
+
+    def scalar(x, sh):
+        return split(_leaf(np.asarray(x, np.int32), "cpu", None), sh)
+
+    return TrainState(
+        params=put(params, shardings.params, True),
+        opt_state={"mu": put(mu, shardings.opt_state["mu"]),
+                   "nu": put(nu, shardings.opt_state["nu"]),
+                   "count": scalar(count, shardings.opt_state["count"])},
+        step=scalar(step, shardings.step))

@@ -65,6 +65,21 @@ class SavePolicy:
     dots: bool = False
 
 
+def base_name(n: str) -> str:
+    """A value's name without its device suffix (``"attn_q@3"`` is device
+    3's ``"attn_q"``): the name a save policy matches."""
+    return n.split("@", 1)[0]
+
+
+def on_device(steps: Sequence[Step], i: int,
+              shared: FrozenSet[str] = frozenset()) -> List[Step]:
+    """Device i's copy of a layer's steps: every value name but those in
+    ``shared`` gets the suffix ``@i``."""
+    def ren(names):
+        return tuple(n if n in shared else f"{n}@{i}" for n in names)
+    return [st._replace(ins=ren(st.ins), outs=ren(st.outs)) for st in steps]
+
+
 def dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """[B, S, ...] @ w -> [B, S, N] in a's dtype (w cast to it)."""
     a2 = a.reshape(a.shape[0] * a.shape[1], -1)
@@ -121,13 +136,13 @@ class _Plan:
         needed = set()
         for st, keep in zip(self.steps, self.keep_graph):
             if st.kind == DOT:
-                needed.add(st.ins[0])
+                needed.update(st.ins)       # a weight may be computed too
             elif st.kind == LOCAL and not keep:
                 needed.update(st.ins)
 
         def saved(n):
             st = self.steps[self.producer[n]]
-            return policy is None or n in policy.names or (
+            return policy is None or base_name(n) in policy.names or (
                 policy.dots and st.kind == DOT)
 
         # what the backward reads, and what recomputing it reads in turn

@@ -1,0 +1,80 @@
+"""Sharding rules: PartitionSpec trees for transformer params and batches.
+
+Counterpart of ``ray_tpu/models/sharding.py``, rule for rule.  Parallelism
+is written as specs over a named mesh (``parallel/mesh.py``), one entry per
+dimension of a leaf, and the mesh train step (``parallel/train_step.py``)
+runs the collectives those specs imply:
+
+* ``dp``   — pure data parallel (batch axis)
+* ``fsdp`` — ZeRO-style sharded data parallel: params/optimizer sharded,
+             batch also split here
+* ``tp``   — tensor parallel: attention heads / MLP width
+* ``sp``   — sequence/context parallel (ring attention; ROADMAP A7)
+* ``ep``   — expert parallel (MoE expert dim)
+* ``pp``   — pipeline stages (ROADMAP A7)
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+from ..parallel.mesh import PartitionSpec as P
+from .config import TransformerConfig
+
+BATCH_AXES = ("dp", "fsdp")
+
+
+def batch_spec() -> P:
+    """tokens [B, S]: batch over dp+fsdp, sequence over sp."""
+    return P(BATCH_AXES, "sp")
+
+
+def logical_param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
+    """PartitionSpec tree matching init_params' structure."""
+    def norm_spec(stacked: bool):
+        p = {"scale": P(None, None) if stacked else P(None)}
+        if not cfg.use_rmsnorm:
+            p["bias"] = P(None, None) if stacked else P(None)
+        return p
+
+    attn = {
+        "wq": P(None, "fsdp", "tp"),
+        "wk": P(None, "fsdp", "tp"),
+        "wv": P(None, "fsdp", "tp"),
+        "wo": P(None, "tp", "fsdp"),
+    }
+    if not cfg.use_rmsnorm:
+        attn.update({"bq": P(None, "tp"), "bk": P(None, "tp"),
+                     "bv": P(None, "tp"), "bo": P(None, "fsdp")})
+
+    blocks: Dict[str, Any] = {
+        "attn_norm": norm_spec(True),
+        "attn": attn,
+        "mlp_norm": norm_spec(True),
+    }
+    if cfg.num_experts > 1:
+        blocks["moe"] = {
+            "router": P(None, "fsdp", None),
+            "w_gate": P(None, "ep", "fsdp", "tp"),
+            "w_in": P(None, "ep", "fsdp", "tp"),
+            "w_out": P(None, "ep", "tp", "fsdp"),
+        }
+    else:
+        mlp = {"w_in": P(None, "fsdp", "tp"), "w_out": P(None, "tp", "fsdp")}
+        if cfg.use_swiglu:
+            mlp["w_gate"] = P(None, "fsdp", "tp")
+        else:
+            mlp["b_in"] = P(None, "tp")
+            mlp["b_out"] = P(None, "fsdp")
+        blocks["mlp"] = mlp
+
+    specs: Dict[str, Any] = {
+        "embed": {"tokens": P("fsdp", "tp")},
+        "blocks": blocks,
+        "final_norm": norm_spec(False),
+    }
+    if not cfg.use_rope:
+        specs["embed"]["pos"] = P(None, "fsdp")
+    if not cfg.tied_embeddings:
+        specs["lm_head"] = P("fsdp", "tp")
+    return specs

@@ -17,6 +17,9 @@ Counterpart of ``ray_tpu/models/transformer.py``:
 * The loss: ``causal_lm_loss`` with the blockwise LM head and cross entropy
   (``chunked_cross_entropy``, a ``torch.autograd.Function`` whose backward
   recomputes one chunk's logits at a time).
+* Over a device mesh (``mesh=``; the section at the end): every device
+  runs its shard of each layer, with the all-gathers and sums the
+  reference's sharding rules imply inside the layer's remat steps.
 * MoE (``num_experts > 1``): the block's MLP is ``ops/moe.py``'s
   ``moe_mlp``, one step whose residuals carry no names (the JAX package
   tags nothing inside it), so every remat policy replays it; the blocks'
@@ -25,7 +28,9 @@ Counterpart of ``ray_tpu/models/transformer.py``:
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple, Union
+import functools
+import math
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -52,76 +57,85 @@ FLASH_RESIDUALS = ("attn_q", "attn_k", "attn_v", "attn_out", "attn_lse")
 # ---------------------------------------------------------------------------
 
 def init_params(generator: torch.Generator, cfg: TransformerConfig,
-                dtype=torch.float32) -> Params:
+                dtype=torch.float32, place=None) -> Params:
     """Random params with the JAX package's keys and shapes, drawn from
     ``generator`` on its device.  (Values differ from the JAX package's
-    draws; tests convert JAX params instead.)"""
+    draws; tests convert JAX params instead.)  ``place(path, leaf)``
+    (optional; paths as ``"blocks.attn.wq"``) takes each leaf as soon as
+    it is made, in draw order, and returns what the tree holds: the mesh's
+    init cuts each leaf into its devices' blocks there and drops it."""
     h, hd = cfg.hidden_size, cfg.head_dim
     nh, nkv, m, L = cfg.num_heads, cfg.num_kv_heads, cfg.mlp_size, cfg.num_layers
     dev = generator.device
+    put = place or (lambda path, leaf: leaf)
 
-    def normal(shape, std):
+    def normal(path, shape, std):
         x = torch.randn(shape, generator=generator, dtype=dtype, device=dev)
-        return x.mul_(std)
+        return put(path, x.mul_(std))
 
-    def dense(shape, fan_in):
-        return normal(shape, fan_in ** -0.5)
+    def dense(path, shape, fan_in):
+        return normal(path, shape, fan_in ** -0.5)
 
-    def zeros(shape):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+    def zeros(path, shape):
+        return put(path, torch.zeros(shape, dtype=dtype, device=dev))
 
-    def norm_p():
-        p = {"scale": torch.ones((L, h), dtype=dtype, device=dev)}
+    def ones(path, shape):
+        return put(path, torch.ones(shape, dtype=dtype, device=dev))
+
+    def norm_p(name, shape):
+        p = {"scale": ones(f"{name}.scale", shape)}
         if not cfg.use_rmsnorm:
-            p["bias"] = zeros((L, h))
+            p["bias"] = zeros(f"{name}.bias", shape)
         return p
 
     blocks: Params = {
-        "attn_norm": norm_p(),
+        "attn_norm": norm_p("blocks.attn_norm", (L, h)),
         "attn": {
-            "wq": dense((L, h, nh * hd), h),
-            "wk": dense((L, h, nkv * hd), h),
-            "wv": dense((L, h, nkv * hd), h),
-            "wo": dense((L, nh * hd, h), nh * hd),
+            "wq": dense("blocks.attn.wq", (L, h, nh * hd), h),
+            "wk": dense("blocks.attn.wk", (L, h, nkv * hd), h),
+            "wv": dense("blocks.attn.wv", (L, h, nkv * hd), h),
+            "wo": dense("blocks.attn.wo", (L, nh * hd, h), nh * hd),
         },
-        "mlp_norm": norm_p(),
+        "mlp_norm": norm_p("blocks.mlp_norm", (L, h)),
     }
     if not cfg.use_rmsnorm or cfg.use_qkv_bias:
         # GPT-2 style (all biases) or Qwen-2 style (Q/K/V biases only)
-        blocks["attn"]["bq"] = zeros((L, nh * hd))
-        blocks["attn"]["bk"] = zeros((L, nkv * hd))
-        blocks["attn"]["bv"] = zeros((L, nkv * hd))
+        blocks["attn"]["bq"] = zeros("blocks.attn.bq", (L, nh * hd))
+        blocks["attn"]["bk"] = zeros("blocks.attn.bk", (L, nkv * hd))
+        blocks["attn"]["bv"] = zeros("blocks.attn.bv", (L, nkv * hd))
     if not cfg.use_rmsnorm:
-        blocks["attn"]["bo"] = zeros((L, h))
+        blocks["attn"]["bo"] = zeros("blocks.attn.bo", (L, h))
     if cfg.num_experts > 1:
         e = cfg.num_experts
         blocks["moe"] = {
-            "router": dense((L, h, e), h),
-            "w_gate": dense((L, e, h, m), h),
-            "w_in": dense((L, e, h, m), h),
-            "w_out": dense((L, e, m, h), m),
+            "router": dense("blocks.moe.router", (L, h, e), h),
+            "w_gate": dense("blocks.moe.w_gate", (L, e, h, m), h),
+            "w_in": dense("blocks.moe.w_in", (L, e, h, m), h),
+            "w_out": dense("blocks.moe.w_out", (L, e, m, h), m),
         }
     else:
-        mlp: Params = {"w_in": dense((L, h, m), h),
-                       "w_out": dense((L, m, h), m)}
+        mlp: Params = {"w_in": dense("blocks.mlp.w_in", (L, h, m), h),
+                       "w_out": dense("blocks.mlp.w_out", (L, m, h), m)}
         if cfg.use_swiglu:
-            mlp["w_gate"] = dense((L, h, m), h)
+            mlp["w_gate"] = dense("blocks.mlp.w_gate", (L, h, m), h)
         else:
-            mlp["b_in"] = zeros((L, m))
-            mlp["b_out"] = zeros((L, h))
+            mlp["b_in"] = zeros("blocks.mlp.b_in", (L, m))
+            mlp["b_out"] = zeros("blocks.mlp.b_out", (L, h))
         blocks["mlp"] = mlp
 
     params: Params = {
-        "embed": {"tokens": normal((cfg.vocab_size, h), 0.02)},
+        "embed": {"tokens": normal("embed.tokens", (cfg.vocab_size, h),
+                                   0.02)},
         "blocks": blocks,
-        "final_norm": {"scale": torch.ones((h,), dtype=dtype, device=dev)},
+        "final_norm": {"scale": ones("final_norm.scale", (h,))},
     }
     if not cfg.use_rope:
-        params["embed"]["pos"] = normal((cfg.max_seq_len, h), 0.01)
+        params["embed"]["pos"] = normal("embed.pos", (cfg.max_seq_len, h),
+                                        0.01)
     if not cfg.use_rmsnorm:
-        params["final_norm"]["bias"] = zeros((h,))
+        params["final_norm"]["bias"] = zeros("final_norm.bias", (h,))
     if not cfg.tied_embeddings:
-        params["lm_head"] = dense((h, cfg.vocab_size), h)
+        params["lm_head"] = dense("lm_head", (h, cfg.vocab_size), h)
     return params
 
 
@@ -229,16 +243,19 @@ def _norm_step(name: str, x: str, out: str, lp: Params,
 
 
 def _layer_steps(lp: Params, cfg: TransformerConfig, positions: torch.Tensor,
-                 lead: Tuple[int, int], is_cuda: bool,
-                 dtype: torch.dtype) -> List[rm.Step]:
+                 lead: Tuple[int, int], is_cuda: bool, dtype: torch.dtype,
+                 with_mlp: bool = True) -> List[rm.Step]:
     """One transformer block on ``dtype`` activations as steps over named
     values: the input "x", the layer's params by path ("attn.wq", ...), the
     output "y" (and with MoE the layer's aux loss "moe_aux").  Values named
     as in the JAX package's checkpoint_name tags are kept by the policies
-    that save those names."""
+    that save those names.  Head counts come from the weights' last
+    dimension (a tp shard's own).  ``with_mlp=False`` leaves out the steps
+    from "mlp_in" to "mlp_out" (the mesh's MoE brings its own)."""
     b, s = lead
-    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     attn = lp["attn"]
+    nh, nkv = attn["wq"].shape[-1] // hd, attn["wk"].shape[-1] // hd
     theta = cfg.rope_theta
     qkv_bias = "bq" in attn
 
@@ -278,7 +295,7 @@ def _layer_steps(lp: Params, cfg: TransformerConfig, positions: torch.Tensor,
         rm.Step("attn_residual", _add, ("x", "attn_proj", *bo), ("x2",),
                 rm.LINEAR, _add_bwd(attn.get("bo"))),
         _norm_step("mlp_norm", "x2", "mlp_in", lp, cfg),
-        *(_moe_steps(cfg) if cfg.num_experts > 1
+        *(() if not with_mlp else _moe_steps(cfg) if cfg.num_experts > 1
           else _mlp_steps(lp["mlp"], cfg)),
         rm.Step("mlp_residual", _add, ("x2", "mlp_out"), ("y",), rm.LINEAR,
                 _add_bwd(None)),
@@ -424,22 +441,44 @@ def remat_policy(remat: Union[bool, str, None]
 
 def apply_trunk(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
                 compute_dtype=torch.bfloat16,
-                remat: Union[bool, str, None] = False
+                remat: Union[bool, str, None] = False, mesh=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """tokens: [B, S] -> (final hidden states [B, S, H], aux dict).
 
     The trunk stops before the LM head so the loss can run the head
     blockwise (``chunked_cross_entropy``).  ``remat`` (``remat_policy``)
     says what each layer keeps for the backward; the backward recomputes
-    the rest, the attention forward too when its residuals are not kept."""
+    the rest, the attention forward too when its residuals are not kept.
+    With a ``mesh`` (a ``Mesh``, or its ``MeshLayout``), ``params`` holds
+    ``Sharded`` leaves and ``tokens`` is a list of the row blocks
+    (``MeshLayout.rows`` order), each on its leader's device; the hidden
+    states come back as such a list."""
     _, policy = remat_policy(remat)
-    x = embed_tokens(params, tokens, cfg, compute_dtype)
-    positions = torch.arange(tokens.shape[1], device=x.device)
+    layout = _layout(mesh)
+    if layout is None:
+        x = embed_tokens(params, tokens, cfg, compute_dtype)
+        positions = torch.arange(tokens.shape[1], device=x.device)
+        layers = unbind_layers(params["blocks"], cfg.num_layers)
+        block = functools.partial(block_forward, cfg=cfg,
+                                  positions=positions, policy=policy)
+    else:
+        x, positions, layers = layout.embed(params, tokens, cfg,
+                                            compute_dtype)
+        # each block leaf's spec without its layer dimension
+        specs = {path: leaf.sharding.spec[1:] for path, leaf in
+                 _flat(params["blocks"]).items()}
+        block = functools.partial(_mesh_block, specs=specs, cfg=cfg,
+                                  positions=positions, policy=policy,
+                                  layout=layout)
     aux = []
-    for lp in unbind_layers(params["blocks"], cfg.num_layers):
-        x, a = block_forward(x, lp, cfg, positions, policy)
+    for lp in layers:
+        x, a = block(x, lp)
         aux.append(a)
-    x = _norm(x, params["final_norm"], cfg)
+    if layout is None:
+        x = _norm(x, params["final_norm"], cfg)
+    else:
+        x = [_norm(x[i], _part(params["final_norm"], i), cfg)
+             for i in layout.leaders]
     return x, {"moe_aux_loss": torch.stack(aux).mean()}
 
 
@@ -537,29 +576,29 @@ def causal_lm_loss(params: Params, batch: Dict[str, torch.Tensor],
                    cfg: TransformerConfig, compute_dtype=torch.bfloat16,
                    moe_aux_weight: float = 0.01,
                    remat: Union[bool, str, None] = False,
-                   loss_chunk: Optional[int] = 0):
+                   loss_chunk: Optional[int] = 0, mesh=None):
     """batch: {"tokens": [B, S+1]} or {"tokens", "targets"}, optionally
     "loss_mask" [B, S].  Returns (loss, metrics).
 
     loss_chunk: sequence-chunk size for the blockwise LM head.  0 (default)
     chunks at 512 when the full logits tensor would be large
     (S*V > 2**25 elements); None disables; an int forces that chunk size.
+
+    With a ``mesh`` (a ``Mesh``, or its ``MeshLayout``), ``params`` holds
+    ``Sharded`` leaves and ``batch`` is a list of such dicts, one per row
+    block of ``batch_spec()`` in batch order, each on its leader's device
+    (``MeshLayout``); the loss and the metrics are the whole batch's, on
+    the first device.
     """
-    if "targets" in batch:
-        tokens, targets = batch["tokens"], batch["targets"]
-    else:
-        tokens, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+    if mesh is not None:
+        return _mesh_loss(params, batch, cfg, compute_dtype, moe_aux_weight,
+                          remat, loss_chunk, _layout(mesh))
+    tokens, targets = _split_targets(batch)
     s = tokens.shape[1]
     if loss_chunk == 0:
         loss_chunk = 512 if s * cfg.vocab_size > 2 ** 25 else None
     x, aux = apply_trunk(params, tokens, cfg, compute_dtype, remat=remat)
-    if loss_chunk:
-        w = lm_head_weight(params, cfg, x.dtype)
-        nll = chunked_cross_entropy(x, w, targets, min(loss_chunk, s))
-    else:
-        logits = (x @ lm_head_weight(params, cfg, x.dtype)).float()
-        logp = torch.log_softmax(logits, dim=-1)
-        nll = -logp.gather(-1, targets[..., None].long())[..., 0]
+    nll = _nll(x, lm_head_weight(params, cfg, x.dtype), targets, loss_chunk)
     mask = batch.get("loss_mask")
     if mask is None:
         loss = nll.mean()
@@ -568,6 +607,384 @@ def causal_lm_loss(params: Params, batch: Dict[str, torch.Tensor],
     else:
         loss = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1)
         denom = mask.sum()
+    total = loss + moe_aux_weight * aux["moe_aux_loss"]
+    return total, {"loss": loss, "moe_aux_loss": aux["moe_aux_loss"],
+                   "tokens": denom}
+
+
+def _split_targets(batch: Dict[str, torch.Tensor]):
+    if "targets" in batch:
+        return batch["tokens"], batch["targets"]
+    return batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+
+
+def _nll(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
+         loss_chunk: Optional[int]) -> torch.Tensor:
+    """Per-token NLL [B, S] f32 of the head ``w`` [H, V] (x's dtype) on x."""
+    if loss_chunk:
+        return chunked_cross_entropy(x, w, targets,
+                                     min(loss_chunk, x.shape[1]))
+    logp = torch.log_softmax((x @ w).float(), dim=-1)
+    return -logp.gather(-1, targets[..., None].long())[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# Over a mesh
+# ---------------------------------------------------------------------------
+#
+# One process runs every device's part of the step, as XLA's SPMD program
+# runs on every device of the reference's mesh, and builds one autograd
+# graph over all of them.  The batch's rows are cut over dp x fsdp
+# (``sharding.batch_spec``): a *row block*, held by the ep x tp devices
+# that share its dp and fsdp indices.  The block's first device, its
+# *leader*, embeds its tokens and copies the embedding to the others (an
+# ``all_gather`` of one part), and computes the final norm, the LM head
+# and the loss on its rows.  Every device runs each layer on its own copy
+# of the residual stream, with its tp shard's q/KV heads and MLP columns
+# and its ep shard's experts: parameters cut over fsdp are all-gathered
+# inside the layer (a remat policy that does not keep them gathers them
+# again in the backward), and the partial outputs of ``wo`` and ``w_out``
+# are summed over tp (``all_reduce``) before the output biases are added,
+# once.  MoE
+# routes once per layer over the whole batch (``moe.route_rows``: the
+# global capacity and positions), each ep shard computes its experts'
+# buffer rows (a reduce-scatter over the row blocks gives each device a
+# slice of the global buffer and an all-gather returns the outputs), and
+# the partial outputs are summed over ep x tp.  Each function in the graph
+# is the whole model's, so a replicated parameter's gradient is the sum of
+# its copies' gradients (``parallel/train_step.py`` sums them).
+
+def _part(tree: Params, i: int) -> Params:
+    """Device i's blocks of a tree of ``Sharded`` leaves."""
+    return {k: _part(v, i) if isinstance(v, dict) else v.parts[i]
+            for k, v in tree.items()}
+
+
+class MeshLayout:
+    """Which device holds which rows and who does what on a mesh."""
+
+    def __init__(self, mesh):
+        from ..parallel import mesh as pm
+        sp, pp = pm.mesh_axis_size(mesh, "sp"), pm.mesh_axis_size(mesh, "pp")
+        if sp > 1 or pp > 1:
+            raise NotImplementedError(
+                "a mesh with sp > 1 or pp > 1 is not ported to ray_tpu_torch "
+                "yet (ROADMAP: queue A7, ring attention and the pipeline)")
+        self.mesh = mesh
+        self.devices = mesh.device_list
+        self.shape = mesh.shape
+        #: the row blocks' devices, in batch order; each leader first
+        self.rows = pm.axis_groups(mesh, ("ep", "tp"))
+        self.leaders = [g[0] for g in self.rows]
+        #: per (ep, tp) index: the devices of every row block
+        self.batch = pm.axis_groups(mesh, ("dp", "fsdp"))
+        self.tp = pm.axis_groups(mesh, ("tp",))
+        self.fsdp = pm.axis_groups(mesh, ("fsdp",))
+        self.ep_index = [mesh.coords(i)["ep"] for i in range(len(self.devices))]
+
+    def on(self, idx: Sequence[int]) -> List[torch.device]:
+        return [self.devices[i] for i in idx]
+
+    def gather_to(self, leaf, targets: Sequence[int]) -> Dict[int, torch.Tensor]:
+        """A ``Sharded`` leaf whole on each device of ``targets``
+        (differentiable: all-gathers, the last dimension first, each onto
+        the devices the next one reads from)."""
+        from ..parallel import mesh as pm
+        mesh = leaf.sharding.mesh
+        stages = [(d, pm.spec_axes(e)) for d, e in
+                  enumerate(leaf.sharding.spec)
+                  if math.prod(self.shape[a] for a in pm.spec_axes(e)) > 1]
+        stages.reverse()
+        needs, want = [], set(targets)
+        for _, axes in reversed(stages):
+            needs.append(want)
+            want = {j for g in pm.axis_groups(mesh, axes) if want & set(g)
+                    for j in g}
+        needs.reverse()
+        parts = list(leaf.parts)
+        for (dim, axes), need in zip(stages, needs):
+            new = [None] * len(parts)
+            for g in pm.axis_groups(mesh, axes):
+                to = [j for j in g if j in need]
+                if to:
+                    outs = pm.all_gather([parts[j] for j in g], dim,
+                                         self.on(to))
+                    for j, o in zip(to, outs):
+                        new[j] = o
+            parts = new
+        return {t: parts[t] for t in targets}
+
+    def embed(self, params: Params, tokens: Sequence[torch.Tensor],
+              cfg: TransformerConfig, compute_dtype):
+        """Each leader embeds its rows and copies them to its row block's
+        devices -> (x per device, positions per device, the layers' params
+        per device)."""
+        from ..parallel import mesh as pm
+        emb = self.gather_to(params["embed"]["tokens"], self.leaders)
+        pos = (self.gather_to(params["embed"]["pos"], self.leaders)
+               if not cfg.use_rope else None)
+        xs: List[Optional[torch.Tensor]] = [None] * len(self.devices)
+        for g, lead, tok in zip(self.rows, self.leaders, tokens):
+            x = emb[lead][tok.long()].to(compute_dtype)
+            if pos is not None:
+                x = x + pos[lead][:tok.shape[1]][None].to(compute_dtype)
+            for i, xi in zip(g, pm.all_gather([x], 0, self.on(g))):
+                xs[i] = xi
+        s = tokens[0].shape[1]
+        positions = [torch.arange(s, device=d) for d in self.devices]
+        per_device = [unbind_layers(_part(params["blocks"], i),
+                                    cfg.num_layers)
+                      for i in range(len(self.devices))]
+        layers = [list(lps) for lps in zip(*per_device)]
+        return xs, positions, layers
+
+
+def _layout(mesh) -> Optional[MeshLayout]:
+    """None, a mesh's layout, or the layout given."""
+    if mesh is None or isinstance(mesh, MeshLayout):
+        return mesh
+    return MeshLayout(mesh)
+
+
+def _collective(name: str, fn, bwd, ins, outs) -> rm.Step:
+    return rm.Step(name, lambda *p: tuple(fn(p)), tuple(ins), tuple(outs),
+                   rm.LINEAR, lambda *g: tuple(bwd(g)))
+
+
+def _sum_steps(value: str, groups, layout: MeshLayout) -> List[rm.Step]:
+    """``value`` summed over each group (``all_reduce``) into
+    ``value + "+"``; nothing for groups of one."""
+    from ..parallel import mesh as pm
+    steps = []
+    for g in groups:
+        if len(g) == 1:
+            continue
+        devs = layout.on(g)
+        steps.append(_collective(
+            f"{value}_sum", lambda p, d=devs: pm.sum_parts(p, d),
+            lambda gr, d=devs: pm.sum_parts(gr, d),
+            [f"{value}@{j}" for j in g], [f"{value}+@{j}" for j in g]))
+    return steps
+
+
+def _rewire(steps: List[rm.Step], old: str, new: str) -> List[rm.Step]:
+    return [st._replace(ins=tuple(new if n == old else n for n in st.ins))
+            for st in steps]
+
+
+def _mesh_block(xs, lps, specs: Dict[str, Any], cfg: TransformerConfig,
+                positions, policy, layout: MeshLayout):
+    """One block over every device of the mesh as one remat layer; ``specs``
+    holds each block leaf's spec without its layer dimension."""
+    from ..parallel import mesh as pm
+    n = len(xs)
+    moe = cfg.num_experts > 1
+    values = {f"x@{i}": x for i, x in enumerate(xs)}
+    flats = [_flat(lp) for lp in lps]
+    steps: List[rm.Step] = []
+    gathers: List[rm.Step] = []
+    fsdp = layout.shape["fsdp"]
+    leaders = set(layout.leaders)
+    for path, spec in specs.items():
+        dim = next((d for d, e in enumerate(spec)
+                    if "fsdp" in pm.spec_axes(e)), None)
+        cut = dim is not None and fsdp > 1
+        for i in range(n):
+            values[f"{path}#@{i}" if cut else f"{path}@{i}"] = flats[i][path]
+        if not cut:
+            continue
+        for g in layout.fsdp:
+            if path == "moe.router" and g[0] not in leaders:
+                continue                  # only a row block's leader routes
+            devs = layout.on(g)
+            sizes = [flats[j][path].shape[dim] for j in g]
+            gathers.append(_collective(
+                "gather", lambda p, d=devs, k=dim: pm.gather_parts(p, k, d),
+                lambda gr, d=devs, k=dim, z=sizes: pm.scatter_sum(gr, k, z, d),
+                [f"{path}#@{j}" for j in g], [f"{path}@{j}" for j in g]))
+    per = [rm.on_device(_layer_steps(lps[i], cfg, positions[i],
+                                     xs[i].shape[:2], xs[i].is_cuda,
+                                     xs[i].dtype, not moe), i)
+           for i in range(n)]
+
+    def cut_after(value):
+        heads, tails = [], []
+        for i, st in enumerate(per):
+            k = next(j for j, x in enumerate(st) if f"{value}@{i}" in x.outs)
+            heads.append(st[:k + 1])
+            tails.append(st[k + 1:])
+        return [x for h in heads for x in h], tails
+
+    def summed(value, groups):
+        nonlocal per
+        head, per = cut_after(value)
+        sums = _sum_steps(value, groups, layout)
+        if sums:
+            per = [_rewire(st, f"{value}@{i}", f"{value}+@{i}")
+                   for i, st in enumerate(per)]
+        return head + sums
+
+    steps += summed("attn_proj", layout.tp)
+    if moe:
+        head, per = cut_after("mlp_in")
+        steps += head + _mesh_moe_steps(cfg, layout, [x.shape[:2] for x in xs])
+    else:
+        steps += summed("mlp_out" if cfg.use_swiglu else "mlp_proj",
+                        layout.tp)
+    steps += [x for st in per for x in st]
+    steps = _gathers_first_used(gathers, steps)
+    outs = tuple(f"y@{i}" for i in range(n))
+    if moe:
+        *ys, aux = rm.run(steps, values, outs + ("moe_aux",), policy)
+        return ys, aux
+    ys = rm.run(steps, values, outs, policy)
+    return list(ys), torch.zeros((), dtype=torch.float32,
+                                 device=layout.devices[0])
+
+
+def _gathers_first_used(gathers: List[rm.Step], steps: List[rm.Step]
+                        ) -> List[rm.Step]:
+    """Each gather step placed just before the first step that reads what
+    it gathers, so the backward reduce-scatters a gathered weight's
+    gradient soon after its last use."""
+    first = {}
+    for k, st in enumerate(steps):
+        for n in st.ins:
+            first.setdefault(n, k)
+    at: Dict[int, List[rm.Step]] = {}
+    for g in gathers:
+        at.setdefault(min(first.get(n, len(steps)) for n in g.outs),
+                      []).append(g)
+    out = []
+    for k, st in enumerate(steps):
+        out += at.get(k, []) + [st]
+    return out + at.get(len(steps), [])
+
+
+def _mesh_moe_steps(cfg: TransformerConfig, layout: MeshLayout,
+                    leads) -> List[rm.Step]:
+    """The sparse MLP over the mesh: "mlp_in@i" -> "mlp_out@i" on every
+    device, and the layer's aux loss "moe_aux".  Every step's residuals
+    are unnamed, so every remat policy replays them, as the one-device
+    ``moe`` step."""
+    from ..parallel import mesh as pm
+    n = len(layout.devices)
+    e, k = cfg.num_experts, cfg.experts_per_token
+    ep = layout.shape["ep"]
+    e_loc = e // ep
+    blocks = len(layout.batch[0])
+    rows_total = sum(leads[j][0] for j in layout.leaders)
+    cap = moe_ops.capacity(cfg.expert_capacity_factor, k, rows_total,
+                           leads[0][1], e)
+    c_pad = -(-cap // blocks) * blocks        # the buffer cut over row blocks
+    steps = [rm.Step("router", rm.dot, (f"mlp_in@{j}", f"moe.router@{j}"),
+                     (f"router_logits@{j}",), rm.DOT)
+             for j in layout.leaders]
+
+    def route(*logits):
+        r = moe_ops.route_rows(logits, k, cap)
+        got = [None] * n
+        t0 = 0
+        for g, lg in zip(layout.rows, logits):
+            t = lg.shape[0] * lg.shape[1]
+            rg = moe_ops.Routing(*(f[t0:t0 + t] for f in r[:4]), r.aux)
+            t0 += t
+            for i, w in zip(g, pm.all_gather([rg.weight], 0, layout.on(g))):
+                dest, src, here = moe_ops.local_slots(
+                    rg, cap, layout.ep_index[i] * e_loc, e_loc, c_pad)
+                d = layout.devices[i]
+                got[i] = (dest.to(d), src.to(d), w * here.to(d))
+        return (*(v for trio in got for v in trio), r.aux)
+
+    steps.append(rm.Step(
+        "moe_route", route, tuple(f"router_logits@{j}" for j in
+                                  layout.leaders),
+        tuple(f"moe_{v}@{i}" for i in range(n) for v in ("dest", "src", "wt"))
+        + ("moe_aux",)))
+    xs, xs_part, ys_part, ys = "moe_xs", "moe_xs_part", "moe_ys_part", "moe_ys"
+    if blocks == 1:
+        xs_part, ys_part = xs, ys
+    out = "mlp_out" if all(len(g) == 1 for g in layout.rows) else "mlp_part"
+    for i in range(n):
+        steps.append(rm.Step(
+            "moe_dispatch",
+            lambda x, dest: moe_ops.dispatch(x, dest, e_loc, c_pad),
+            (f"mlp_in@{i}", f"moe_dest@{i}"), (f"{xs}@{i}",)))
+    if blocks > 1:
+        for g in layout.batch:
+            devs = layout.on(g)
+            sizes = [c_pad // blocks] * blocks
+            steps.append(_collective(
+                "moe_scatter",
+                lambda p, d=devs, z=sizes: pm.scatter_sum(p, 1, z, d),
+                lambda gr, d=devs: pm.gather_parts(gr, 1, d),
+                [f"{xs}@{j}" for j in g], [f"{xs_part}@{j}" for j in g]))
+    for i in range(n):
+        steps.append(rm.Step(
+            "moe_experts", moe_ops.experts,
+            (f"{xs_part}@{i}", f"moe.w_gate@{i}", f"moe.w_in@{i}",
+             f"moe.w_out@{i}"), (f"{ys_part}@{i}",)))
+    if blocks > 1:
+        for g in layout.batch:
+            devs = layout.on(g)
+            sizes = [c_pad // blocks] * blocks
+            steps.append(_collective(
+                "moe_gather", lambda p, d=devs: pm.gather_parts(p, 1, d),
+                lambda gr, d=devs, z=sizes: pm.scatter_sum(gr, 1, z, d),
+                [f"{ys_part}@{j}" for j in g], [f"{ys}@{j}" for j in g]))
+    for i in range(n):
+        steps.append(rm.Step(
+            "moe_combine",
+            lambda y, src, wt, lead=tuple(leads[i]): moe_ops.combine(
+                y, src, wt, lead),
+            (f"{ys}@{i}", f"moe_src@{i}", f"moe_wt@{i}"), (f"{out}@{i}",)))
+    if out != "mlp_out":
+        for g in layout.rows:
+            devs = layout.on(g)
+            steps.append(_collective(
+                "moe_sum", lambda p, d=devs: pm.sum_parts(p, d),
+                lambda gr, d=devs: pm.sum_parts(gr, d),
+                [f"{out}@{j}" for j in g], [f"mlp_out@{j}" for j in g]))
+    return steps
+
+
+def _mesh_loss(params: Params, batch: Sequence[Dict[str, torch.Tensor]],
+               cfg: TransformerConfig, compute_dtype, moe_aux_weight: float,
+               remat, loss_chunk: Optional[int], layout: MeshLayout):
+    """``causal_lm_loss`` over a mesh: each leader's NLL summed over its
+    rows, the row blocks' sums added in batch order on the first device
+    and divided by the whole batch's token count (or ``loss_mask`` sum)."""
+    from ..parallel import mesh as pm
+    if len(batch) != len(layout.rows):
+        raise ValueError(f"{len(batch)} row blocks for a mesh of "
+                         f"{len(layout.rows)} (dp x fsdp)")
+    split = [_split_targets(b) for b in batch]
+    s = split[0][0].shape[1]
+    if loss_chunk == 0:
+        loss_chunk = 512 if s * cfg.vocab_size > 2 ** 25 else None
+    xs, aux = apply_trunk(params, [t for t, _ in split], cfg, compute_dtype,
+                          remat=remat, mesh=layout)
+    head = (params["embed"]["tokens"] if cfg.tied_embeddings
+            else params["lm_head"])
+    heads = layout.gather_to(head, layout.leaders)
+    dev = layout.devices[0]
+    sums, counts = [], []
+    for lead, x, (_, targets), b in zip(layout.leaders, xs, split, batch):
+        w = heads[lead].T if cfg.tied_embeddings else heads[lead]
+        nll = _nll(x, w.to(x.dtype), targets, loss_chunk)
+        mask = b.get("loss_mask")
+        if mask is not None:
+            nll = nll * mask
+            counts.append(mask.sum().to(dev))
+        sums.append(nll.sum().to(dev))
+    total_nll = pm.ordered_sum(sums)
+    if counts:
+        denom = pm.ordered_sum(counts)
+        loss = total_nll / torch.clamp_min(denom, 1)
+    else:
+        denom = torch.full((), sum(t.numel() for t, _ in split),
+                           dtype=torch.int32, device=dev)
+        loss = total_nll / denom
     total = loss + moe_aux_weight * aux["moe_aux_loss"]
     return total, {"loss": loss, "moe_aux_loss": aux["moe_aux_loss"],
                    "tokens": denom}

@@ -33,7 +33,7 @@ are.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -144,7 +144,7 @@ def top_k_routing(router_logits: torch.Tensor, k: int, capacity: int
     return dispatch, combine, aux
 
 
-def _experts(xs: torch.Tensor, w_gate: torch.Tensor, w_in: torch.Tensor,
+def experts(xs: torch.Tensor, w_gate: torch.Tensor, w_in: torch.Tensor,
              w_out: torch.Tensor) -> torch.Tensor:
     """SwiGLU per expert: xs [E, C, H] -> [E, C, H] in xs's dtype."""
     dt = xs.dtype
@@ -165,25 +165,64 @@ def moe_route(x: torch.Tensor, router_w: torch.Tensor,
                       cap)
 
 
+def dispatch(x: torch.Tensor, dest: torch.Tensor, e: int, cap: int
+             ) -> torch.Tensor:
+    """x [B, S, H] into an [e, cap, H] buffer: each (token, choice) pair's
+    token row into its row ``dest`` [T, k]; pairs with ``dest == e * cap``
+    all land in one spare row past the buffer, which is cut off.  A row no
+    pair fills stays zero."""
+    b, s, h = x.shape
+    tokens = x.reshape(b * s, h)
+    xs = tokens.new_zeros((e * cap + 1, h)).index_put(
+        (dest,), tokens[:, None, :].expand(-1, dest.shape[1], -1))
+    return xs[:-1].view(e, cap, h)
+
+
+def combine(out_e: torch.Tensor, src: torch.Tensor, weight: torch.Tensor,
+            lead: Tuple[int, int]) -> torch.Tensor:
+    """Each token's sum of its pairs' expert rows ``src`` [T, k] of out_e
+    [E, C, H], weighted by ``weight`` [T, k] (cast to out_e's dtype first,
+    as the reference casts its combine tensor; summed in f32) -> [*lead,
+    H].  A pair that adds nothing reads any row with weight 0."""
+    h = out_e.shape[-1]
+    rows = out_e.reshape(-1, h)[src]
+    wts = weight.to(out_e.dtype).float()
+    out = (rows.float() * wts[..., None]).sum(1).to(out_e.dtype)
+    return out.view(*lead, h)
+
+
 def moe_experts(x: torch.Tensor, r: Routing, cap: int, w_gate: torch.Tensor,
                 w_in: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
     """The experts' SwiGLU on x [B, S, H] routed by ``r``, combined with the
     routing weights -> [B, S, H].  The result is linear in ``w_out``'s
     rows: experts split on M (tensor parallelism) give partial sums of it."""
-    b, s, h = x.shape
-    e, k = w_gate.shape[0], r.expert.shape[1]
-    tokens = x.reshape(b * s, h)
-    # dispatch: each kept pair's token row into its slot; dropped pairs all
-    # land in one spare row past the buffer, which is cut off
-    dest = torch.where(r.kept, r.slot, e * cap)
-    xs = tokens.new_zeros((e * cap + 1, h)).index_put(
-        (dest,), tokens[:, None, :].expand(-1, k, -1))
-    out_e = _experts(xs[:-1].view(e, cap, h), w_gate, w_in, w_out)
-    # combine: a dropped pair reads slot 0 with weight 0
-    rows = out_e.reshape(e * cap, h)[torch.where(r.kept, r.slot, 0)]
-    wts = r.weight.to(x.dtype).float()
-    out = (rows.float() * wts[..., None]).sum(1).to(x.dtype)
-    return out.view(b, s, h)
+    b, s, _ = x.shape
+    e = w_gate.shape[0]
+    xs = dispatch(x, torch.where(r.kept, r.slot, e * cap), e, cap)
+    out_e = experts(xs, w_gate, w_in, w_out)
+    # a dropped pair reads slot 0 with weight 0
+    return combine(out_e, torch.where(r.kept, r.slot, 0), r.weight, (b, s))
+
+
+def route_rows(logits: Sequence[torch.Tensor], k: int, cap: int) -> Routing:
+    """The row blocks' router logits ([b_i, S, E] each, in batch order)
+    routed once, as one batch, on the first block's device: the global
+    capacity and the positions counted over every block's tokens."""
+    first = logits[0]
+    flat = torch.cat([lg.reshape(-1, lg.shape[-1]).to(first.device)
+                      for lg in logits])
+    return route(flat, k, cap)
+
+
+def local_slots(r: Routing, cap: int, e0: int, e_loc: int, c_pad: int):
+    """For the experts [e0, e0 + e_loc) of one expert shard, whose buffer
+    holds ``c_pad >= cap`` rows an expert: (each pair's row there, or
+    ``e_loc * c_pad`` for a pair the shard does not compute; each pair's
+    row to read back, 0 for those; whether the shard computes the pair)."""
+    here = r.kept & (r.expert >= e0) & (r.expert < e0 + e_loc)
+    row = (r.expert - e0) * c_pad + (r.slot - r.expert * cap)
+    return (torch.where(here, row, e_loc * c_pad), torch.where(here, row, 0),
+            here)
 
 
 def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,

@@ -214,16 +214,21 @@ def splash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tensors (``splash_kernel_declines``); the caller is expected to fall
     back to ``mha``.
     The block sizes tile the plain versions (CPU tensors), forward and
-    backward apart; on the card the kernel's own tiles apply.  ``mesh``
-    must be None (one card; sharding is ROADMAP A5); ``batch_axes``,
-    ``manual`` and ``interpret`` are accepted for the JAX signature and
-    ignored: there is no shard_map and no interpret mode here.
+    backward apart; on the card the kernel's own tiles apply.  With a
+    ``mesh`` (the counterpart of the reference's ``_shard_map_call``), q,
+    k and v are cut over the mesh's ``batch_axes`` (rows; the heads stay
+    whole) unless they are ``Sharded`` already, and every device runs this
+    function on its own rows, as the mesh trunk calls it per device: the
+    output is ``Sharded`` like q.  ``manual`` and ``interpret`` are
+    accepted for the JAX signature and ignored: there is no shard_map and
+    no interpret mode here.
     """
-    del batch_axes, manual, interpret
+    del manual, interpret
+    kw = dict(causal=causal, logit_softcap=logit_softcap, block_q=block_q,
+              block_kv=block_kv, block_q_bwd=block_q_bwd,
+              block_kv_bwd=block_kv_bwd)
     if mesh is not None:
-        raise NotImplementedError(
-            "splash_mha over a device mesh is not ported to ray_tpu_torch "
-            "yet (ROADMAP: queue A5, DDP / FSDP)")
+        return _per_device(q, k, v, mesh, batch_axes, kw)
     b, seq_q, num_heads, head_dim = q.shape
     seq_kv, num_kv = k.shape[1], k.shape[2]
     reason = (splash_supported(seq_q, seq_kv, num_heads, num_kv, head_dim)
@@ -238,3 +243,16 @@ def splash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qs = q * (head_dim ** -0.5)
     out = splash_attention(qs, k, v, causal, logit_softcap, blocks)
     return out.to(q.dtype)
+
+
+def _per_device(q, k, v, mesh, batch_axes, kw):
+    """``splash_mha`` on each device's rows of the batch axes -> a
+    ``Sharded`` output, or None when it declines."""
+    from ..parallel.mesh import NamedSharding, PartitionSpec, Sharded
+    axes = tuple(a for a in batch_axes if a in mesh.axis_names)
+    sh = NamedSharding(mesh, PartitionSpec(axes or None))
+    q, k, v = (x if isinstance(x, Sharded) else Sharded(
+        [x[sl].to(d) for sl, d in zip(sh.slices(x.shape), mesh.device_list)],
+        sh) for x in (q, k, v))
+    outs = [splash_mha(*p, **kw) for p in zip(q.parts, k.parts, v.parts)]
+    return None if any(o is None for o in outs) else Sharded(outs, q.sharding)

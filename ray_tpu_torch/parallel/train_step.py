@@ -1,18 +1,30 @@
-"""The single-card train step: forward, backward and the optimizer update.
+"""The train step: forward, backward and the optimizer update, on one card
+or over a device mesh.
 
 Counterpart of ``ray_tpu/parallel/train_step.py`` with the same entry points
-(``make_optimizer``, ``init_sharded_state``, ``make_train_step``,
-``make_eval_step``) and a ``mesh`` that must be ``None``: one card, no
-sharding yet.  The optimizer is the JAX package's optax chain,
-``clip_by_global_norm -> adamw(warmup_cosine_decay_schedule)``, written out
-on tensors with ``torch._foreach_*`` (no optax, no ``torch.optim``), so the
-two packages take the same steps:
+(``make_optimizer``, ``state_shardings``, ``init_sharded_state``,
+``make_train_step``, ``make_eval_step``).  The optimizer is the JAX
+package's optax chain, ``clip_by_global_norm -> adamw(
+warmup_cosine_decay_schedule)``, written out on tensors with
+``torch._foreach_*`` (no optax, no ``torch.optim``), so the two packages
+take the same steps:
 
 * the clip scales the grads by ``max_norm / g_norm`` only when
   ``g_norm >= max_norm``, with no epsilon;
 * the schedule reads the step count before it increments, so the first
   step's learning rate is the warmup's start, 0;
 * AdamW (eps 1e-8, eps_root 0) decays every leaf: there is no mask.
+
+``mesh=None`` runs on one device.  With a mesh (``parallel/mesh.py``), the
+state's leaves are ``Sharded`` by ``models/sharding.logical_param_specs``
+(``state_shardings``: the adam moments like the param they track, the
+counts replicated), one process drives every device
+(``models/transformer.py``'s mesh section) and the step computes what the
+reference's global step computes: the loss and its gradients over the
+whole batch, whose rows are cut over dp x fsdp; every replicated block's
+gradient summed over its copies, in device order on the first copy's
+device, so every copy holds the same bits; one global gradient norm
+(each element counted once) and clip; AdamW on each device's blocks.
 
 The step updates params and optimizer state in place (the JAX step donates
 them) and never waits for the card: its metrics stay 0-d device tensors.
@@ -28,8 +40,11 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
+from ..models import sharding as shard_rules
 from ..models import transformer
 from ..models.config import TransformerConfig
+from .mesh import (Mesh, NamedSharding, PartitionSpec, Sharded,
+                   named_sharding, split, sum_parts)
 
 Params = Dict[str, Any]
 
@@ -104,10 +119,19 @@ class Optimizer:
         """One step on the flat leaf lists (``_leaves`` order), in place:
         grads are clipped in place, then mu, nu, count and params advance.
         Returns the global norm of the unclipped grads."""
-        mu, nu = _leaves(opt_state["mu"]), _leaves(opt_state["nu"])
-        count = opt_state["count"]
         g_norm = torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(grads)))
+        self.apply_(grads, _leaves(opt_state["mu"]),
+                    _leaves(opt_state["nu"]), opt_state["count"], params,
+                    g_norm)
+        return g_norm
+
+    @torch.no_grad()
+    def apply_(self, grads: List[torch.Tensor], mu: List[torch.Tensor],
+               nu: List[torch.Tensor], count: torch.Tensor,
+               params: List[torch.Tensor], g_norm: torch.Tensor) -> None:
+        """The clip by ``g_norm`` (the global norm of the unclipped grads)
+        and the AdamW step on flat leaf lists of one device, in place."""
         clip = torch.where(g_norm < self.grad_clip, torch.ones_like(g_norm),
                            self.grad_clip / g_norm)
         torch._foreach_mul_(grads, clip)
@@ -129,7 +153,6 @@ class Optimizer:
         torch._foreach_mul_(upd, -self.schedule(count))
         torch._foreach_add_(params, upd)
         count.add_(1)
-        return g_norm
 
 
 def make_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.1,
@@ -142,30 +165,101 @@ def make_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.1,
                      b1=b1, b2=b2, grad_clip=grad_clip)
 
 
-def _single_card(mesh, sp_axis: Optional[str] = None) -> None:
-    if mesh is not None:
-        raise _not_ported("a device mesh (mesh must be None: one card)",
-                          "queue A5, DDP / FSDP")
+def _refuse(sp_axis, grad_quant_enabled=False, zero_sharded_update=False):
     if sp_axis is not None:
         raise _not_ported("sequence parallelism (sp_axis)",
                           "queue A7, ring attention")
+    if grad_quant_enabled:
+        raise _not_ported("quantized gradient collectives",
+                          "queue A9, parallel/quant_collectives.py")
+    if zero_sharded_update:
+        raise _not_ported("the ZeRO-sharded update",
+                          "queue A9, parallel/zero.py")
+
+
+def _check_mesh(cfg: TransformerConfig, mesh: Mesh,
+                device=None) -> transformer.MeshLayout:
+    """The mesh's layout; a mesh the step cannot run raises."""
+    if device is not None:
+        raise ValueError("with a mesh the step runs on the mesh's devices; "
+                         "device must be None")
+    layout = transformer.MeshLayout(mesh)     # sp > 1 or pp > 1 raise
+    tp = mesh.shape["tp"]
+    if cfg.num_heads % tp or cfg.num_kv_heads % tp:
+        raise ValueError(f"tp={tp} does not divide num_heads "
+                         f"{cfg.num_heads} and num_kv_heads "
+                         f"{cfg.num_kv_heads}")
+    if cfg.num_experts % mesh.shape["ep"]:
+        raise ValueError(f"ep={mesh.shape['ep']} does not divide "
+                         f"num_experts {cfg.num_experts}")
+    return layout
+
+
+def _flat_paths(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_paths(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def state_shardings(cfg: TransformerConfig, mesh: Mesh) -> TrainState:
+    """The ``NamedSharding`` tree of a TrainState: the adam moments sharded
+    like the param they track (ZeRO), the counts replicated.  The port's
+    optimizer state has one fixed structure, so the reference's
+    ``optimizer`` and ``example_state_shapes`` arguments are not taken."""
+    param_sh = named_sharding(mesh, shard_rules.logical_param_specs(cfg))
+    rep = NamedSharding(mesh, PartitionSpec())
+    return TrainState(params=param_sh,
+                      opt_state={"mu": param_sh, "nu": param_sh,
+                                 "count": rep},
+                      step=rep)
+
+
+def _replicated_zero(sharding: NamedSharding) -> Sharded:
+    return Sharded([torch.zeros((), dtype=torch.int32, device=d)
+                    for d in sharding.mesh.device_list], sharding)
 
 
 def init_sharded_state(cfg: TransformerConfig, mesh, optimizer: Optimizer,
                        seed: int = 0, param_dtype=torch.float32,
                        device: Optional[Union[str, torch.device]] = None):
-    """Random params from ``seed`` and a fresh optimizer state on ``device``
-    (default: the card) -> (state, None).  The second value stands where
-    the JAX package returns the state's shardings."""
-    _single_card(mesh)
-    dev = device_mod.resolve(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    params = transformer.init_params(gen, cfg, dtype=param_dtype)
-    for p in _leaves(params):
-        p.requires_grad_(True)
-    state = TrainState(params=params, opt_state=optimizer.init(params),
-                       step=torch.zeros((), dtype=torch.int32, device=dev))
-    return state, None
+    """Random params from ``seed`` and a fresh optimizer state -> (state,
+    shardings).  ``mesh=None``: on ``device`` (default: the card), and the
+    shardings are None.  With a mesh the params are drawn as ``mesh=None``
+    draws them on the mesh's first device, leaf by leaf, and each leaf is
+    cut into its devices' blocks and dropped at once, so no device ever
+    holds the whole state."""
+    if mesh is None:
+        dev = device_mod.resolve(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = transformer.init_params(gen, cfg, dtype=param_dtype)
+        for p in _leaves(params):
+            p.requires_grad_(True)
+        state = TrainState(params=params, opt_state=optimizer.init(params),
+                           step=torch.zeros((), dtype=torch.int32,
+                                            device=dev))
+        return state, None
+    _check_mesh(cfg, mesh, device)
+    sh = state_shardings(cfg, mesh)
+    at = _flat_paths(sh.params)
+    gen = torch.Generator(device=mesh.device_list[0]).manual_seed(seed)
+    params = transformer.init_params(
+        gen, cfg, dtype=param_dtype,
+        place=lambda path, leaf: split(leaf, at[path], requires_grad=True))
+
+    def zeros(leaf: Sharded) -> Sharded:
+        return Sharded([torch.zeros_like(p) for p in leaf.parts],
+                       leaf.sharding)
+
+    state = TrainState(
+        params=params,
+        opt_state={"mu": _map(zeros, params), "nu": _map(zeros, params),
+                   "count": _replicated_zero(sh.opt_state["count"])},
+        step=_replicated_zero(sh.step))
+    return state, sh
 
 
 def _to_device(batch: Dict[str, Any], dev: torch.device
@@ -198,15 +292,20 @@ def make_train_step(cfg: TransformerConfig, mesh, optimizer: Optimizer,
     ``tokens``, ``grad_norm`` (of the unclipped grads) and ``total_loss``,
     as 0-d device tensors.  ``remat``: False/None, True/"full",
     "save_acts", "save_mlp" or "dots" (``transformer.remat_policy``).
+    With a ``mesh``, ``state`` is ``init_sharded_state``'s (or
+    ``models.convert.sharded_state_from_numpy``'s, or ``load_pytree``'s
+    with these shardings), and a state whose leaves are not sharded as
+    ``state_sh`` (default: ``state_shardings(cfg, mesh)``) says raises; the
+    batch's rows are cut over dp x fsdp (the batch size must divide by dp x
+    fsdp), each row block moves to its leader device, and the metrics lie
+    on the mesh's first device.  ``mesh=None`` ignores ``state_sh``.
     """
-    _single_card(mesh, sp_axis)
-    if grad_quant_enabled:
-        raise _not_ported("quantized gradient collectives",
-                          "queue A9, parallel/quant_collectives.py")
-    if zero_sharded_update:
-        raise _not_ported("the ZeRO-sharded update",
-                          "queue A9, parallel/zero.py")
+    _refuse(sp_axis, grad_quant_enabled, zero_sharded_update)
     transformer.remat_policy(remat)  # an unknown policy raises now
+    if mesh is not None:
+        layout = _check_mesh(cfg, mesh, device)
+        return _mesh_train_step(cfg, optimizer, compute_dtype, remat, layout,
+                                _sharded_as(cfg, layout, state_sh))
     dev = device_mod.resolve(device)
 
     def step(state: TrainState, batch: Dict[str, Any]):
@@ -233,8 +332,24 @@ def make_eval_step(cfg: TransformerConfig, mesh, state_sh=None,
                    compute_dtype=torch.bfloat16, sp_axis: Optional[str] = None,
                    device: Optional[Union[str, torch.device]] = None
                    ) -> Callable:
-    """Returns ``eval_fn(params, batch) -> metrics`` (no gradients)."""
-    _single_card(mesh, sp_axis)
+    """Returns ``eval_fn(params, batch) -> metrics`` (no gradients); with
+    a ``mesh``, ``params`` is a sharded state's params, held to
+    ``state_sh`` as ``make_train_step`` holds the state, and the batch is
+    cut as it cuts it."""
+    _refuse(sp_axis)
+    if mesh is not None:
+        layout = _check_mesh(cfg, mesh, device)
+        check = _sharded_as(cfg, layout, state_sh)
+
+        @torch.no_grad()
+        def mesh_eval(params: Params, batch: Dict[str, Any]):
+            check(params)
+            _, metrics = transformer.causal_lm_loss(
+                params, _row_blocks(batch, layout), cfg,
+                compute_dtype=compute_dtype, mesh=layout)
+            return metrics
+
+        return mesh_eval
     dev = device_mod.resolve(device)
 
     @torch.no_grad()
@@ -244,3 +359,96 @@ def make_eval_step(cfg: TransformerConfig, mesh, state_sh=None,
         return metrics
 
     return eval_fn
+
+
+def _sharded_as(cfg: TransformerConfig, layout: transformer.MeshLayout,
+                state_sh: Optional[TrainState]) -> Callable[[Params], None]:
+    """A check that a params tree lies on the layout's mesh, each leaf cut
+    as ``state_sh`` (default: ``state_shardings``) says."""
+    want = {path: s.spec for path, s in _flat_paths(
+        (state_sh or state_shardings(cfg, layout.mesh)).params).items()}
+
+    def check(params: Params) -> None:
+        got = _flat_paths(params)
+        mesh = next(iter(got.values())).sharding.mesh
+        if mesh.device_list != layout.devices or mesh.shape != layout.shape:
+            raise ValueError("the state lives on another mesh than the "
+                             "step's")
+        if {path: leaf.sharding.spec for path, leaf in got.items()} != want:
+            raise ValueError("the state's leaves are not sharded as the "
+                             "step's state_sh says")
+    return check
+
+
+def _row_blocks(batch: Dict[str, Any], layout: transformer.MeshLayout
+                ) -> List[Dict[str, torch.Tensor]]:
+    """A numpy batch cut into its row blocks (``batch_spec``: the rows over
+    dp x fsdp), each on its leader's device."""
+    n = len(layout.rows)
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n:
+        raise ValueError(f"dp x fsdp = {n} does not divide the batch's "
+                         f"{rows} rows")
+    w = rows // n
+    return [_to_device({k: v[r * w:(r + 1) * w] for k, v in batch.items()},
+                       layout.devices[lead])
+            for r, lead in enumerate(layout.leaders)]
+
+
+def _mesh_train_step(cfg: TransformerConfig, optimizer: Optimizer,
+                     compute_dtype, remat, layout: transformer.MeshLayout,
+                     check: Callable[[Params], None]) -> Callable:
+    n = len(layout.devices)
+    first = layout.devices[0]
+
+    def step(state: TrainState, batch: Dict[str, Any]):
+        check(state.params)
+        leaves = _leaves(state.params)
+        total, metrics = transformer.causal_lm_loss(
+            state.params, _row_blocks(batch, layout), cfg,
+            compute_dtype=compute_dtype, remat=remat, mesh=layout)
+        got = torch.autograd.grad(total, [p for leaf in leaves
+                                          for p in leaf.parts],
+                                  allow_unused=True)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        with torch.no_grad():
+            grads, norms = _sum_copies(leaves, got, first)
+            g_norm = torch.linalg.vector_norm(torch.stack(norms))
+            mu, nu = _leaves(state.opt_state["mu"]), _leaves(
+                state.opt_state["nu"])
+            count = state.opt_state["count"].parts
+            for i in range(n):
+                optimizer.apply_(
+                    [g[i] for g in grads], [m.parts[i] for m in mu],
+                    [v.parts[i] for v in nu], count[i],
+                    [p.parts[i] for p in leaves],
+                    g_norm.to(layout.devices[i], copy=i > 0))
+            for s in state.step.parts:
+                s.add_(1)
+        metrics["grad_norm"] = g_norm
+        metrics["total_loss"] = total.detach()
+        return state, metrics
+
+    return step
+
+
+def _sum_copies(leaves: List[Sharded], got, first: torch.device):
+    """Each leaf's gradient per device: the sum of the gradients of every
+    copy of its block (in device order, on the first copy's device; a copy
+    nothing used adds nothing), one tensor per copy.  And the norm of each
+    distinct block on ``first``, in leaf and block order."""
+    grads, norms, k = [], [], 0
+    for leaf in leaves:
+        parts = list(got[k:k + len(leaf.parts)])
+        k += len(leaf.parts)
+        out: List[Optional[torch.Tensor]] = [None] * len(parts)
+        for g in leaf.sharding.replica_groups():
+            devs = [leaf.parts[j].device for j in g]
+            summed = sum_parts([parts[j] for j in g], devs)
+            if summed[0] is None:
+                summed = [torch.zeros_like(leaf.parts[j]) for j in g]
+            for j, t in zip(g, summed):
+                out[j] = t
+            norms.append(torch.linalg.vector_norm(summed[0]).to(first))
+        grads.append(out)
+    return grads, norms

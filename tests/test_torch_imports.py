@@ -1,7 +1,6 @@
 """The port stands alone: every module of ray_tpu_torch imports with jax and
 ray_tpu blocked, no module (nor chip_smoke.py or decode_dispatch_ab.py)
-imports either, the entry points never drop to the CPU on their own, and no
-CUDA source issues Ampere's instructions."""
+imports either, the entry points never drop to the CPU on their own, and no CUDA source uses Ampere's instructions."""
 
 import ast
 import os
@@ -46,12 +45,14 @@ def test_every_module_imports_with_jax_and_ray_tpu_blocked():
     res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    # models.{config,convert,decode,paged_decode,remat,speculative,
-    # transformer}, ops.{_build,attention,flash_attention,moe,
-    # splash_attention}, parallel.{mesh,train_step}, serve.llm, device and
-    # the four subpackages
-    assert int(res.stdout.split()[-1]) >= 20, res.stdout
-    for name in ("ray_tpu_torch.ops.moe", "ray_tpu_torch.parallel.mesh"):
+    # models.{config,convert,decode,paged_decode,remat,sharding,
+    # speculative,transformer}, ops.{_build,attention,flash_attention,moe,
+    # splash_attention}, parallel.{mesh,train_step}, serve.llm,
+    # train.torch_utils, device and the five subpackages
+    assert int(res.stdout.split()[-1]) >= 23, res.stdout
+    for name in ("ray_tpu_torch.ops.moe", "ray_tpu_torch.parallel.mesh",
+                 "ray_tpu_torch.models.sharding",
+                 "ray_tpu_torch.train.torch_utils"):
         assert name in res.stdout.split(), res.stdout
 
 

@@ -25,6 +25,7 @@ from ray_tpu_torch.models import config as tcfg
 from ray_tpu_torch.models import transformer as ttr
 from ray_tpu_torch.models.convert import params_from_numpy
 from ray_tpu_torch.ops import splash_attention as tsa
+from ray_tpu_torch.parallel import mesh as tmesh
 from ray_tpu_torch.parallel import train_step as tts
 
 OUT_ATOL = 2e-5
@@ -108,7 +109,9 @@ def test_plain_backward_matches_jax_vjp_on_the_same_residuals():
 
 def test_decline_contract_warns_once():
     """D=64 is declined with None and exactly one RuntimeWarning over two
-    calls; a non-None mesh raises (one card only)."""
+    calls; over a mesh every device runs its rows of the batch axes (the
+    same output, put back together), and batch axes that do not divide the
+    batch raise."""
     q, k, v, _ = (torch.from_numpy(x) for x in _inputs(s=128, d=64))
     tsa._warned = False
     with warnings.catch_warnings(record=True) as caught:
@@ -122,9 +125,14 @@ def test_decline_contract_warns_once():
     assert tsa.splash_supported(256, 256, 4, 2, 128) is None
     assert "seq" in tsa.splash_supported(200, 200, 4, 2, 128)
     assert "kv heads" in tsa.splash_supported(256, 256, 4, 3, 128)
-    q, k, v, _ = (torch.from_numpy(x) for x in _inputs(s=128))
-    with pytest.raises(NotImplementedError, match="A5"):
-        tsa.splash_mha(q, k, v, mesh=object())
+    q, k, v, _ = (torch.from_numpy(x) for x in _inputs(b=4, s=128))
+    mesh = tmesh.MeshSpec(dp=2, fsdp=2).build(["cpu"] * 4)
+    out = tsa.splash_mha(q, k, v, mesh=mesh)
+    assert [p.shape[0] for p in out.parts] == [1] * 4
+    torch.testing.assert_close(out.full(), tsa.splash_mha(q, k, v), rtol=0,
+                               atol=0)
+    with pytest.raises(ValueError, match="divide"):
+        tsa.splash_mha(q[:3], k[:3], v[:3], mesh=mesh)
 
 
 def test_pick_block_matches_jax():

@@ -28,6 +28,7 @@ from ray_tpu_torch.models import transformer as ttr
 from ray_tpu_torch.models.convert import (params_from_numpy,
                                           train_state_from_numpy)
 from ray_tpu_torch.ops import flash_attention as tflash
+from ray_tpu_torch.parallel import mesh as tmesh
 from ray_tpu_torch.parallel import train_step as tts
 
 FLAGS = {
@@ -322,8 +323,12 @@ def test_train_step_refuses_what_is_not_ported():
         tts.make_train_step(tc, None, opt, None, device="cpu", remat=remat)
     with pytest.raises(ValueError, match="unknown remat"):
         tts.make_train_step(tc, None, opt, None, device="cpu", remat="x")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tts.init_sharded_state(tc, object(), opt, device="cpu")
+    # a mesh is ported now (tests/test_torch_mesh_train.py); its sp and pp
+    # axes are not
+    for spec in (dict(sp=2, fsdp=1), dict(pp=2, fsdp=1)):
+        with pytest.raises(NotImplementedError, match="mesh.*A7"):
+            tts.init_sharded_state(
+                tc, tmesh.MeshSpec(**spec).build(["cpu"] * 2), opt)
 
 
 def test_init_and_eval_step_on_cpu():
