@@ -157,8 +157,30 @@ script exits non-zero:
       tp=2``, 2 steps, ``save_pytree``, ``load_pytree`` onto ``mesh=None``
       and 2 more: the losses equal 4 uninterrupted steps (the resumed
       ones within 1e-6 relative); write and read seconds and bytes.
+   e. ``train_llama_1b_dp``: the dp-manual step (``parallel/zero.py``,
+      ``parallel/quant_collectives.py``) as bench.py's training arms
+      without splash drive it, in its order: ``off`` (the default step),
+      ``quant``, ``zero`` and ``quant+zero``, through ``make_train_step``'s
+      keywords, on llama_1b at full width and depth over ``dp=2`` (fp32
+      state, bf16 compute, full remat; ``OptimizerSpec(total_steps=10)``
+      as bench.py builds it).  zero's first three losses within
+      STEP_LOSS_ATOL of off's and its params' change over them (from
+      init) within STEP_GRAD_REL_L2 per leaf, beside the reading of off's
+      change one update short; quant's losses within 5e-3 of off's and
+      a 2-step rerun equal bit for bit; quant+zero's within 1e-2; each
+      arm's loss finite and falling, B1-B3 2/1/1 per layer, step and
+      replica; ZeRO's resident state 2 n 4 (dp - 1) bytes under off's;
+      replica 0's flat gradient quantized on the card and on the host
+      (equal scales, int8 flips only at half-integers); step ms,
+      tokens/s, the bytes each step's collectives name, resident and peak
+      GB, one step profiled per arm (the quantize and dequantize spans
+      apart); then a 2-layer f32 cut at full width: zero against off over
+      4 steps, the loss, every param leaf and the flat moments within
+      1e-4.  With both replicas on one card no byte crosses a wire: the
+      quantized arms can only cost time here.
 10. A JSON line of kernels (each path's launches; the mesh paths'
-    under ``train_mesh[...]``; B1-B3 at each mesh's shard shape, checked
+    under ``train_mesh[...]``, the dp arms' under ``train_dp[...]``;
+    B1-B3 at each mesh's shard shape, checked
     and timed in phases 3 and 4, under ``mesh_shard_shapes``), then the contract line
     ``{"ok": true, "device": {...}}`` as the last line of output.
 
@@ -289,14 +311,37 @@ MIXTRAL_MESH = dict(fsdp=2, ep=2)
 MESH_COMPARE_STEPS = 3
 # one shard's attention on those meshes (B, S, H, KV, D, causal, timed,
 # strided), checked and timed in the kernel phases: llama_1b on fsdp=2,tp=2
-# and on dp=2,fsdp=2,tp=2, Mixtral on fsdp=2,ep=2
+# and on dp=2,fsdp=2,tp=2, Mixtral on fsdp=2,ep=2, and one replica's rows
+# of llama_1b on the dp=2 mesh of train_llama_1b_dp
 MESH_SHARD_CASES = ((4, 2048, 8, 4, 128, True, True, False),
                     (2, 2048, 8, 4, 128, True, True, False),
-                    (4, 2048, 32, 8, 128, True, True, False))
+                    (4, 2048, 32, 8, 128, True, True, False),
+                    (4, 2048, 16, 8, 128, True, True, False))
 MESH_SHARD_LABELS = ("llama_1b fsdp=2,tp=2", "llama_1b dp=2,fsdp=2,tp=2",
-                     "mixtral fsdp=2,ep=2")
+                     "mixtral fsdp=2,ep=2", "llama_1b dp=2")
 MESH_F32_LAYERS, MESH_F32_STEPS, MESH_F32_RTOL = 2, 3, 1e-4
 CKPT_LAYERS = 2
+# the dp-manual step (parallel/zero.py): bench.py's training arms without
+# splash, in its order, each (name, grad_quant, zero), on dp=2, with the
+# steps each arm runs (quant+zero's cut to keep the phase near a minute;
+# its step time is then the median of steps 2-3)
+DP = 2
+DP_ARMS = (("off", False, False), ("quant", True, False),
+           ("zero", False, True), ("quant+zero", True, True))
+DP_ARM_STEPS = {"off": TRAIN_STEPS, "quant": TRAIN_STEPS,
+                "zero": TRAIN_STEPS, "quant+zero": 4}
+# against the default step's losses: the reference's own tolerances for
+# the quantized arms (tests/test_chipspeed.py)
+QUANT_STEP_LOSS_ATOL, QUANT_ZERO_STEP_LOSS_ATOL = 5e-3, 1e-2
+QUANT_RERUN_STEPS = 2
+# quantization on the card against the host: a flip of one int8 step only
+# where x/scale lies this close to a half-integer
+HALF_INT_TOL = 1e-6
+# ZeRO's resident state after init against the arithmetic (the moments
+# the allocator's blocks round)
+ZERO_STATE_RTOL = 0.02
+DP_F32_LAYERS, DP_F32_STEPS, DP_F32_RTOL = 2, 4, 1e-4
+QUANT_RANGES = ("quantize_int8_block", "dequantize_int8_block")
 
 
 def log(msg: str) -> None:
@@ -2038,8 +2083,18 @@ def profile_step(step, state, batch, name: str):
         metrics["loss"].item()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the quantized collectives' passes are record_function ranges
+    # (parallel/quant_collectives.py): on the device timeline each is a
+    # span over its kernels, read apart and left out of the kernels' sums
+    ranges = {}
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if e.key in QUANT_RANGES:
+            ranges[e.key] = e.device_time_total / 1e3
+        else:
+            kernels.append(e)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     by_category = {}
@@ -2053,7 +2108,8 @@ def profile_step(step, state, batch, name: str):
         "by_category_ms": dict(sorted(by_category.items(),
                                       key=lambda kv: -kv[1])),
         "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3
-                           for e in top}}))
+                           for e in top},
+        **({"quant_ranges_device_span_ms": ranges} if ranges else {})}))
 
 
 def kernel_category(name: str) -> str:
@@ -2222,8 +2278,9 @@ def mesh_label(spec) -> str:
     return ",".join(f"{k}={v}" for k, v in spec.items())
 
 
-def host_tree(tree):
-    """path -> the whole leaf on the host (a Sharded leaf put together)."""
+def host_tree(tree, device="cpu"):
+    """path -> a copy of the whole leaf on ``device``, the host by default
+    (a Sharded leaf put together)."""
     from ray_tpu_torch.parallel.mesh import Sharded
 
     def rec(t, prefix):
@@ -2231,17 +2288,22 @@ def host_tree(tree):
             if isinstance(v, dict):
                 yield from rec(v, f"{prefix}{k}.")
             else:
-                yield prefix + k, (v.full("cpu") if isinstance(v, Sharded)
-                                   else v.detach().to("cpu", copy=True))
+                yield prefix + k, (v.full(device) if isinstance(v, Sharded)
+                                   else v.detach().to(device, copy=True))
     return dict(rec(tree, ""))
 
 
-def leaf_rel_l2(got, want, dev):
+def leaf_rel_l2(got, want, dev, base=None):
     """Each leaf's relative L2 distance, computed on the card one leaf at
-    a time."""
+    a time; with ``base``, that of the changes ``got - base`` and ``want -
+    base``."""
     out = {}
     for path, w in want.items():
         a, b = got[path].to(dev).float(), w.to(dev).float()
+        if base is not None:
+            p0 = base[path].to(dev).float()
+            a, b = a - p0, b - p0
+            del p0
         out[path] = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
         del a, b
     return out
@@ -2537,6 +2599,310 @@ def checkpoint_roundtrip(dev):
     del state
 
 
+# ---------------------------------------------------------------------------
+# The dp-manual train step (parallel/zero.py, parallel/quant_collectives.py)
+# ---------------------------------------------------------------------------
+
+def median(values):
+    v = sorted(values)
+    k = len(v) // 2
+    return v[k] if len(v) % 2 else (v[k - 1] + v[k]) / 2
+
+
+def dp_arm(cfg, mesh, spec, quant, zero, batch, steps, compute_dtype,
+           capture=(), capture_device="cpu"):
+    """One of bench.py's training arms on ``mesh`` (dp only), built as
+    bench.py builds it (``init_zero_state`` for ZeRO, else
+    ``init_sharded_state``; ``make_train_step`` with its keywords), seed 0,
+    ``steps`` steps on ``batch`` with the launch counters zeroed just
+    before and read after.  The state's bytes on each card after init
+    (beside what was there before), each step's loss and time, the peak
+    per card, and the params put back together on ``capture_device``
+    after each step count in ``capture`` (0: as init drew them).  ->
+    (stats, launches, state, step, captured)."""
+    import torch
+    from ray_tpu_torch.parallel import (init_sharded_state, init_zero_state,
+                                        make_train_step)
+    devices = mesh.device_list
+    counters = attention_counters()
+    sync_cards()
+    before = {i: torch.cuda.memory_allocated(i) for i in cards(devices)}
+    t0 = time.perf_counter()
+    if zero:
+        state, sh = init_zero_state(cfg, mesh, spec)
+    else:
+        state, sh = init_sharded_state(cfg, mesh, spec.build())
+    step = make_train_step(cfg, mesh, spec.build(), sh,
+                           compute_dtype=compute_dtype, remat=True,
+                           grad_quant_enabled=quant,
+                           zero_sharded_update=zero, opt_spec=spec)
+    sync_cards()
+    init_s = time.perf_counter() - t0
+    resident = {f"cuda:{i}": torch.cuda.memory_allocated(i) - before[i]
+                for i in cards(devices)}
+    reset_peaks(devices)
+    for c in counters.values():
+        c.launches = 0
+    losses, norms, step_ms, captured = [], [], [], {}
+    if 0 in capture:
+        captured[0] = host_tree(state.params, capture_device)
+    for i in range(steps):
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        sync_cards()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        if i + 1 in capture:
+            captured[i + 1] = host_tree(state.params, capture_device)
+    launches = {k: c.launches for k, c in counters.items()}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    stats = {"layers": cfg.num_layers, "compute_dtype": str(compute_dtype),
+             "steps": steps, "init_s": init_s, "losses": losses,
+             "grad_norms": norms, "step_ms": step_ms,
+             "resident_bytes_by_card": resident,
+             "peak_gb_by_card": peaks_by_card(devices),
+             "opt_state_bytes": step.opt_state_bytes,
+             "collective_bytes": {f"{op}/{dt}": v for (op, dt), v in
+                                  step.collective_bytes.items()},
+             "launches_per_step": {k: v / steps for k, v in launches.items()}}
+    if steps > TRAIN_UNTIMED:
+        med = median(step_ms[TRAIN_UNTIMED:])
+        flops = cfg.flops_per_token(TRAIN_SEQ) * tokens
+        stats.update(step_ms_median=med, tokens_per_s=tokens / (med / 1e3),
+                     share_of_bf16_peak=flops / (med / 1e3) / PEAK_BF16_FLOPS)
+    return stats, launches, state, step, captured
+
+
+def free_cards():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def replica_flat_grad(state, cfg, batch, dp, npad):
+    """Replica 0's gradient on its rows, flat in the step's order (sorted
+    leaves, ``ravel_pytree``'s), zero-padded to ``npad``, on its card."""
+    import torch
+    import torch.nn.functional as F
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.parallel.train_step import _leaves, _map
+    params = _map(lambda s: s.parts[0], state.params)
+    leaves = _leaves(params)
+    dev = leaves[0].device
+    rows = TRAIN_BATCH // dp
+    tokens = torch.from_numpy(batch["tokens"][:rows]).to(dev)
+    total, _ = transformer.causal_lm_loss(params, {"tokens": tokens}, cfg,
+                                          remat=True)
+    grads = torch.autograd.grad(total, leaves)
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    del grads
+    return F.pad(flat, (0, npad - flat.numel()))
+
+
+def quantize_card_vs_cpu(flat, dp):
+    """``quantize_int8_block`` on the card and on the host on the same flat
+    gradient, cut [dp, npad/dp] as the reduce-scatter cuts it: the scales
+    equal, the int8 payload equal but for one step at x/scale within
+    HALF_INT_TOL of a half-integer (counted)."""
+    import torch
+    from ray_tpu_torch.parallel import quant_collectives as qc
+    x = flat.reshape(dp, -1)
+    q_card, s_card = qc.quantize_int8_block(x)
+    torch.cuda.synchronize()
+    x_host = x.cpu()
+    q_host, s_host = qc.quantize_int8_block(x_host)
+    q_card, s_card = q_card.cpu(), s_card.cpu()
+    diff = (q_card.to(torch.int16) - q_host.to(torch.int16)).abs()
+    at = diff.nonzero(as_tuple=True)
+    y = (x_host.reshape(dp, -1, qc.DEFAULT_BLOCK)
+         / s_host[..., None]).reshape(dp, -1)[at].abs()
+    off_half = (y - y.floor() - 0.5).abs()
+    row = {"elements": x.numel(), "scales_equal": torch.equal(s_card, s_host),
+           "int8_flips": int(at[0].numel()),
+           "largest_flip": int(diff.max()),
+           "flips_off_half_integer": int((off_half > HALF_INT_TOL).sum()),
+           "amax": float(x_host.abs().max())}
+    log("quantize_card_vs_cpu " + json.dumps(row))
+    if not (row["scales_equal"] and row["largest_flip"] <= 1
+            and row["flips_off_half_integer"] == 0):
+        raise AssertionError(f"quantize on the card differs from the host: "
+                             f"{row}")
+
+
+def dp_f32_exactness(devices):
+    """An f32 cut of llama_1b to DP_F32_LAYERS layers at full width on
+    dp=2: ZeRO against the default step over DP_F32_STEPS steps (warmup 2,
+    so the params move): each step's loss, every param leaf, and the flat
+    mu and nu within DP_F32_RTOL relative."""
+    import torch
+    from ray_tpu_torch.models import config as mcfg
+    from ray_tpu_torch.parallel import OptimizerSpec
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.parallel.train_step import _leaves
+    cfg = dataclasses.replace(mcfg.llama_1b(), num_layers=DP_F32_LAYERS)
+    mesh = MeshSpec(dp=DP, fsdp=1).build(devices)
+    spec = OptimizerSpec(warmup_steps=2, total_steps=100)
+    batch = training_batch(cfg)
+    runs = {}
+    for name, zero in (("off", False), ("zero", True)):
+        stats, _, state, _, _ = dp_arm(cfg, mesh, spec, False, zero, batch,
+                                       DP_F32_STEPS, torch.float32)
+        moments = {}
+        for k in ("mu", "nu"):
+            m = state.opt_state[k]
+            moments[k] = (m.full("cpu") if zero else torch.cat(
+                [leaf.full("cpu").reshape(-1) for leaf in _leaves(m)]))
+        runs[name] = (stats["losses"], host_tree(state.params), moments)
+        del state
+        free_cards()
+    (l_off, p_off, m_off), (l_zero, p_zero, m_zero) = runs["off"], runs["zero"]
+    rel = leaf_rel_l2(p_zero, p_off, devices[0])
+    for k in ("mu", "nu"):
+        a, b = m_zero[k][:m_off[k].numel()], m_off[k]
+        rel[k] = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+    row = {"layers": cfg.num_layers, "steps": DP_F32_STEPS,
+           "max_rel_loss": max(abs(a - b) / abs(b)
+                               for a, b in zip(l_zero, l_off)),
+           "max_leaf_rel_l2": max(rel.values()),
+           "worst_leaf": max(rel, key=rel.get), "leaves": len(rel)}
+    log("train_f32_dp_exactness " + json.dumps(row))
+    if not (row["max_rel_loss"] <= DP_F32_RTOL
+            and row["max_leaf_rel_l2"] <= DP_F32_RTOL):
+        raise AssertionError(f"f32 ZeRO step against the default step: "
+                             f"{row}")
+
+
+def train_llama_dp(dev):
+    """Phase train_llama_1b_dp: bench.py's training arms without splash,
+    in its order (off, quant, zero, quant+zero), on llama_1b at full width
+    and depth (bf16 compute, fp32 state, full remat) over a dp=2 mesh, as
+    bench.py builds them (``OptimizerSpec(total_steps=max(TRAIN_STEPS,
+    10))``, ``make_train_step``'s keywords).  zero against off: the first
+    MESH_COMPARE_STEPS losses within STEP_LOSS_ATOL and the params' change
+    over them within STEP_GRAD_REL_L2 per leaf (the warmup's learning
+    rates move the params by about 1e-5 each, so the params themselves
+    could not tell a skipped update; off's change one step short is
+    printed beside, the reading such a fault gives); quant against off
+    within QUANT_STEP_LOSS_ATOL, and a rerun of QUANT_RERUN_STEPS steps
+    equal bit for bit; quant+zero within QUANT_ZERO_STEP_LOSS_ATOL.  Every
+    arm: the loss finite and falling, B1-B3 launched FLASH_PER_LAYER times
+    per layer, step and replica.  The resident state after init against
+    the arithmetic (ZeRO holds 2 n 4 (dp - 1) bytes fewer); one step
+    profiled per arm; quantization on the card against the host; then the
+    f32 2-layer cut (``dp_f32_exactness``)."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.models import config as mcfg
+    from ray_tpu_torch.parallel import OptimizerSpec
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.parallel.quant_collectives import DEFAULT_BLOCK
+    from ray_tpu_torch.parallel.zero import _padded, _param_count
+    cfg = mcfg.llama_1b()
+    n = _param_count(cfg, torch.float32)
+    devices = mesh_placement(DP)
+    mesh = MeshSpec(dp=DP, fsdp=1).build(devices)
+    spec = OptimizerSpec(total_steps=max(TRAIN_STEPS, 10))
+    batch = training_batch(cfg)
+    arms, out = {}, {}
+    for name, quant, zero in DP_ARMS:
+        steps = DP_ARM_STEPS[name]
+        capture = (QUANT_RERUN_STEPS,) if name == "quant" else ()
+        stats, launches, state, step, captured = dp_arm(
+            cfg, mesh, spec, quant, zero, batch, steps, torch.bfloat16,
+            capture)
+        log(f"train_dp[{name}] " + json.dumps(stats))
+        losses = stats["losses"]
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[1]):
+            raise AssertionError(f"dp arm {name}: losses not finite and "
+                                 f"falling: {losses}")
+        want = {k: FLASH_PER_LAYER.get(k, 0) * cfg.num_layers * DP * steps
+                for k in launches}
+        if launches != want:
+            raise AssertionError(f"dp arm {name}: launches over {steps} "
+                                 f"steps (L = {cfg.num_layers}, dp {DP}): "
+                                 f"{launches}, want {want}")
+        profile_step(step, state, batch, f"train_step_dp[{name}]")
+        if name == "zero":
+            flat = replica_flat_grad(state, cfg, batch, DP,
+                                     _padded(n, DP, DEFAULT_BLOCK))
+            quantize_card_vs_cpu(flat, DP)
+            del flat
+        arms[name] = (stats, captured)
+        out[name] = (stats, launches)
+        del state, step
+        free_cards()
+    off, _ = arms["off"]
+    rows = {}
+    for name, limit, k in (("zero", STEP_LOSS_ATOL, MESH_COMPARE_STEPS),
+                           ("quant", QUANT_STEP_LOSS_ATOL, None),
+                           ("quant+zero", QUANT_ZERO_STEP_LOSS_ATOL, None)):
+        got = arms[name][0]["losses"][:k]
+        rows[name] = {"abs_loss_diffs": [abs(a - b) for a, b in zip(
+            got, off["losses"])], "limit": limit,
+            "off_loss_drop": off["losses"][0] - off["losses"][len(got) - 1]}
+    # zero's update against off's: the params' change from off's init (both
+    # draw seed 0; a zero init that differed would only add to it) over the
+    # compared steps, each arm run again for them with its params kept on
+    # the card, so that the timed runs' peaks stay their own
+    k = MESH_COMPARE_STEPS
+    kept = {}
+    for name, zero, capture in (("off", False, (0, k - 1, k)),
+                                ("zero", True, (k,))):
+        _, _, state, step, kept[name] = dp_arm(
+            cfg, mesh, spec, False, zero, batch, k, torch.bfloat16, capture,
+            devices[0])
+        del state, step
+        free_cards()
+    got, want = kept["zero"], kept["off"]
+    rel = leaf_rel_l2(got[k], want[k], dev, base=want[0])
+    short = leaf_rel_l2(want[k - 1], want[k], dev, base=want[0])
+    del kept, got, want
+    free_cards()
+    rows["zero"].update(
+        max_leaf_rel_l2_param_change=max(rel.values()),
+        worst_leaf=max(rel, key=rel.get), leaves=len(rel),
+        min_leaf_rel_l2_one_update_short=min(short.values()))
+    # the quant arm again from the same seed: the same bits
+    stats, _, state, _, captured = dp_arm(
+        cfg, mesh, spec, True, False, batch, QUANT_RERUN_STEPS,
+        torch.bfloat16, (QUANT_RERUN_STEPS,))
+    del state
+    free_cards()
+    first = arms["quant"][1][QUANT_RERUN_STEPS]
+    again = captured[QUANT_RERUN_STEPS]
+    rows["quant"]["rerun_losses_equal"] = (
+        stats["losses"] == arms["quant"][0]["losses"][:QUANT_RERUN_STEPS])
+    rows["quant"]["rerun_params_equal"] = all(
+        torch.equal(again[p], first[p]) for p in first)
+    # ZeRO's resident state against the arithmetic: the Adam moments split
+    # over dp instead of held by every replica
+    saved = {c: off["resident_bytes_by_card"][c]
+             - arms["zero"][0]["resident_bytes_by_card"][c]
+             for c in off["resident_bytes_by_card"]}
+    expect = 2 * n * 4 * (DP - 1) / len(saved)
+    rows["zero"].update(resident_bytes_saved_by_card=saved,
+                        resident_bytes_saved_expected=expect)
+    log(f"card: {card_line()}")
+    log("train_dp_checks " + json.dumps(rows))
+    bad = [name for name, r in rows.items()
+           if max(r["abs_loss_diffs"]) > r["limit"]]
+    if bad:
+        raise AssertionError(f"dp arms' losses off the default step's: "
+                             f"{bad}: {rows}")
+    if rows["zero"]["max_leaf_rel_l2_param_change"] > STEP_GRAD_REL_L2:
+        raise AssertionError(f"zero params off the default step's: {rows}")
+    if not (rows["quant"]["rerun_losses_equal"]
+            and rows["quant"]["rerun_params_equal"]):
+        raise AssertionError(f"quant rerun differs: {rows['quant']}")
+    if any(abs(s - expect) > ZERO_STATE_RTOL * expect
+           for s in saved.values()):
+        raise AssertionError(f"ZeRO's resident state against the "
+                             f"arithmetic: {saved}, expect {expect}")
+    dp_f32_exactness(devices)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2662,10 +3028,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("checkpoint_roundtrip"):
         checkpoint_roundtrip(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("train_llama_1b_dp"):
+        llama_dp = train_llama_dp(dev)
     mesh_launches = {f"train_mesh[{label}]": launches
                      for label, (_, launches) in llama_mesh.items()}
     mesh_launches[f"train_mixtral_mesh[{mesh_label(MIXTRAL_MESH)}]"] = (
         mixtral_mesh)
+    mesh_launches.update({f"train_dp[{name}]": launches
+                          for name, (_, launches) in llama_dp.items()})
 
     main_row, bwd_row = flash_rows[0], bwd_rows[0]
     shard_row = next(r for r in flash_rows

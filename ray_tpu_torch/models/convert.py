@@ -18,6 +18,9 @@ On a device mesh (``sharded_state_from_numpy``) a train state is cut by
 its shardings (``parallel/train_step.state_shardings``): each numpy leaf
 is cut on the host and each device's block goes straight to it, equal to
 what JAX's ``addressable_shards`` hold for the same shardings.
+``zero_state_from_numpy`` carries the state of the JAX package's ZeRO step
+(``parallel/zero.py``: params replicated, Adam's mu and nu flat vectors
+split over dp) into the port's.
 """
 
 from __future__ import annotations
@@ -147,3 +150,43 @@ def sharded_state_from_numpy(params: Mapping[str, Any], mu: Mapping[str, Any],
                    "nu": put(nu, shardings.opt_state["nu"]),
                    "count": scalar(count, shardings.opt_state["count"])},
         step=scalar(step, shardings.step))
+
+
+def zero_state_from_numpy(params: Mapping[str, Any], mu_flat: Any,
+                          nu_flat: Any, count: Any, step: Any, mesh):
+    """A JAX ``init_zero_state`` state -> the port's (``parallel/zero.py``)
+    on a dp-only ``mesh``: ``params`` (the param tree) replicated, each
+    replica's leaves views of one flat buffer in ``ravel_pytree`` order;
+    ``mu_flat`` and ``nu_flat`` (optax's flat [npad] moments) split
+    ``P("dp")``, each device getting its chunk; ``count`` (the adam
+    count) and ``step`` replicated.  All as numpy.  -> (state,
+    shardings)."""
+    from ..parallel.mesh import split
+    from ..parallel.train_step import TrainState, _leaves
+    from ..parallel.zero import (_flat_replicas, _spans, _validate_mesh,
+                                 _zero_shardings)
+
+    _validate_mesh(mesh)
+    host = params_from_numpy(params, "cpu")
+    spans = _spans(host)
+    mu, nu = (_leaf(np.asarray(x, np.float32), "cpu", None)
+              for x in (mu_flat, nu_flat))
+    _, place = _flat_replicas(mesh, mu.shape[0], _leaves(host)[0].dtype,
+                              spans)
+
+    def rec(tree, prefix):
+        return {k: rec(v, f"{prefix}{k}.") if isinstance(v, dict)
+                else place(prefix + k, v) for k, v in tree.items()}
+
+    def scalar(x, sharding):
+        return split(_leaf(np.asarray(x, np.int32), "cpu", None), sharding)
+
+    placed = rec(host, "")
+    sh = _zero_shardings(placed, mesh)
+    state = TrainState(
+        params=placed,
+        opt_state={"mu": split(mu, sh.opt_state["mu"]),
+                   "nu": split(nu, sh.opt_state["nu"]),
+                   "count": scalar(count, sh.opt_state["count"])},
+        step=scalar(step, sh.step))
+    return state, sh

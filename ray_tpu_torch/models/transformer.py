@@ -56,17 +56,19 @@ FLASH_RESIDUALS = ("attn_q", "attn_k", "attn_v", "attn_out", "attn_lse")
 # Init
 # ---------------------------------------------------------------------------
 
-def init_params(generator: torch.Generator, cfg: TransformerConfig,
+def init_params(generator: Optional[torch.Generator], cfg: TransformerConfig,
                 dtype=torch.float32, place=None) -> Params:
     """Random params with the JAX package's keys and shapes, drawn from
     ``generator`` on its device.  (Values differ from the JAX package's
     draws; tests convert JAX params instead.)  ``place(path, leaf)``
     (optional; paths as ``"blocks.attn.wq"``) takes each leaf as soon as
     it is made, in draw order, and returns what the tree holds: the mesh's
-    init cuts each leaf into its devices' blocks there and drops it."""
+    init cuts each leaf into its devices' blocks there and drops it.
+    ``generator=None`` gives the tree's shapes only, as tensors on the
+    ``meta`` device (the counterpart of ``jax.eval_shape`` on the init)."""
     h, hd = cfg.hidden_size, cfg.head_dim
     nh, nkv, m, L = cfg.num_heads, cfg.num_kv_heads, cfg.mlp_size, cfg.num_layers
-    dev = generator.device
+    dev = generator.device if generator is not None else torch.device("meta")
     put = place or (lambda path, leaf: leaf)
 
     def normal(path, shape, std):

@@ -305,13 +305,23 @@ def gather_parts(parts, dim: int, devices) -> List[torch.Tensor]:
 
 
 def scatter_sum(grads, dim: int, sizes, devices) -> List:
-    """The sum cut along ``dim`` into blocks of ``sizes``, block i on
-    ``devices[i]``."""
-    total = ordered_sum(grads)
-    if total is None:
-        return [None] * len(sizes)
-    return [b.to(d, copy=True).contiguous()
-            for b, d in zip(torch.split(total, list(sizes), dim), devices)]
+    """The sum cut along ``dim`` into blocks of ``sizes``: block i added up
+    on ``devices[i]`` from every part's block i, in part order (the bits
+    of ``ordered_sum``, with no whole sum held anywhere)."""
+    blocks = [None if g is None else torch.split(g, list(sizes), dim)
+              for g in grads]
+    out = []
+    for i, d in enumerate(devices):
+        total = None
+        for b in blocks:
+            if b is None:
+                continue
+            if total is None:
+                total = b[i].to(d, copy=True).contiguous()
+            else:
+                total.add_(b[i].to(d))
+        out.append(total)
+    return out
 
 
 def sum_parts(parts, devices) -> List:

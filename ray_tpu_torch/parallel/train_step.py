@@ -28,6 +28,8 @@ device, so every copy holds the same bits; one global gradient norm
 
 The step updates params and optimizer state in place (the JAX step donates
 them) and never waits for the card: its metrics stay 0-d device tensors.
+With ``grad_quant_enabled`` or ``zero_sharded_update`` the step is
+``zero.make_dp_train_step``'s, as in the reference.
 """
 
 from __future__ import annotations
@@ -76,6 +78,11 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported to ray_tpu_torch yet (ROADMAP: {item})")
 
 
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """The L2 norm of every leaf together (``optax.global_norm``)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+
 _ADAM_EPS = 1e-8   # optax.adamw's default, which the JAX package keeps
 
 
@@ -119,8 +126,7 @@ class Optimizer:
         """One step on the flat leaf lists (``_leaves`` order), in place:
         grads are clipped in place, then mu, nu, count and params advance.
         Returns the global norm of the unclipped grads."""
-        g_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+        g_norm = global_norm(grads)
         self.apply_(grads, _leaves(opt_state["mu"]),
                     _leaves(opt_state["nu"]), opt_state["count"], params,
                     g_norm)
@@ -135,6 +141,15 @@ class Optimizer:
         clip = torch.where(g_norm < self.grad_clip, torch.ones_like(g_norm),
                            self.grad_clip / g_norm)
         torch._foreach_mul_(grads, clip)
+        self.adamw_(grads, mu, nu, count, params)
+
+    @torch.no_grad()
+    def adamw_(self, grads: List[torch.Tensor], mu: List[torch.Tensor],
+               nu: List[torch.Tensor], count: torch.Tensor,
+               params: List[torch.Tensor]) -> None:
+        """The elementwise stage, everything but the clip: optax's
+        ``adamw`` on flat leaf lists of one device, in place (mu, nu,
+        count and params advance)."""
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, grads, alpha=1 - self.b1)
         torch._foreach_mul_(nu, self.b2)
@@ -165,16 +180,10 @@ def make_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.1,
                      b1=b1, b2=b2, grad_clip=grad_clip)
 
 
-def _refuse(sp_axis, grad_quant_enabled=False, zero_sharded_update=False):
+def _refuse(sp_axis):
     if sp_axis is not None:
         raise _not_ported("sequence parallelism (sp_axis)",
                           "queue A7, ring attention")
-    if grad_quant_enabled:
-        raise _not_ported("quantized gradient collectives",
-                          "queue A9, parallel/quant_collectives.py")
-    if zero_sharded_update:
-        raise _not_ported("the ZeRO-sharded update",
-                          "queue A9, parallel/zero.py")
 
 
 def _check_mesh(cfg: TransformerConfig, mesh: Mesh,
@@ -205,11 +214,13 @@ def _flat_paths(tree, prefix=""):
     return out
 
 
-def state_shardings(cfg: TransformerConfig, mesh: Mesh) -> TrainState:
+def state_shardings(cfg: TransformerConfig, mesh: Mesh, optimizer=None,
+                    example_state_shapes=None) -> TrainState:
     """The ``NamedSharding`` tree of a TrainState: the adam moments sharded
     like the param they track (ZeRO), the counts replicated.  The port's
     optimizer state has one fixed structure, so the reference's
-    ``optimizer`` and ``example_state_shapes`` arguments are not taken."""
+    ``optimizer`` and ``example_state_shapes`` (which it walks to find
+    that structure) are taken and not used."""
     param_sh = named_sharding(mesh, shard_rules.logical_param_specs(cfg))
     rep = NamedSharding(mesh, PartitionSpec())
     return TrainState(params=param_sh,
@@ -280,7 +291,10 @@ def make_train_step(cfg: TransformerConfig, mesh, optimizer: Optimizer,
                     sp_axis: Optional[str] = None,
                     remat: Union[bool, str, None] = True, *,
                     grad_quant_enabled: bool = False,
+                    quant_block: Optional[int] = None,
+                    quant_stochastic: bool = False,
                     zero_sharded_update: bool = False,
+                    opt_spec=None,
                     device: Optional[Union[str, torch.device]] = None
                     ) -> Callable:
     """Returns ``step(state, batch) -> (state, metrics)``.
@@ -299,13 +313,42 @@ def make_train_step(cfg: TransformerConfig, mesh, optimizer: Optimizer,
     batch's rows are cut over dp x fsdp (the batch size must divide by dp x
     fsdp), each row block moves to its leader device, and the metrics lie
     on the mesh's first device.  ``mesh=None`` ignores ``state_sh``.
+
+    With ``grad_quant_enabled`` and/or ``zero_sharded_update`` the step is
+    ``zero.make_dp_train_step``'s (a dp-only mesh: reduce-scatter, update,
+    all-gather, the wire int8 block-scaled under ``grad_quant_enabled``;
+    the ZeRO state from ``zero.init_zero_state`` and the update from
+    ``opt_spec``).  With both off, ``quant_block``, ``quant_stochastic``
+    and ``opt_spec`` are ignored, as the reference ignores them.
+
+    The step carries the reference's accounting: ``batch_sharding`` (the
+    batch's ``NamedSharding``; None without a mesh), ``collective_bytes``
+    (``{(op, dtype): bytes}`` a device puts on the wire each step: a ring
+    all-reduce of the f32 gradients moves twice their bytes when dp x fsdp
+    > 1) and ``opt_state_bytes`` (the Adam moments and count a replica
+    holds).
     """
-    _refuse(sp_axis, grad_quant_enabled, zero_sharded_update)
+    _refuse(sp_axis)
     transformer.remat_policy(remat)  # an unknown policy raises now
+    if grad_quant_enabled or zero_sharded_update:
+        if mesh is None:
+            raise ValueError("grad_quant_enabled / zero_sharded_update "
+                             "shard over a mesh's dp axis; pass a mesh")
+        if device is not None:
+            raise ValueError("with a mesh the step runs on the mesh's "
+                             "devices; device must be None")
+        from . import zero
+        return zero.make_dp_train_step(
+            cfg, mesh, optimizer, state_sh, compute_dtype=compute_dtype,
+            sp_axis=sp_axis, remat=remat, grad_quant=grad_quant_enabled,
+            quant_block=quant_block or zero.DEFAULT_BLOCK,
+            quant_stochastic=quant_stochastic,
+            zero_update=zero_sharded_update, opt_spec=opt_spec)
     if mesh is not None:
         layout = _check_mesh(cfg, mesh, device)
-        return _mesh_train_step(cfg, optimizer, compute_dtype, remat, layout,
+        step = _mesh_train_step(cfg, optimizer, compute_dtype, remat, layout,
                                 _sharded_as(cfg, layout, state_sh))
+        return _accounted(step, cfg, mesh)
     dev = device_mod.resolve(device)
 
     def step(state: TrainState, batch: Dict[str, Any]):
@@ -325,6 +368,21 @@ def make_train_step(cfg: TransformerConfig, mesh, optimizer: Optimizer,
         state.step.add_(1)
         return state, metrics
 
+    return _accounted(step, cfg, None)
+
+
+def _accounted(step: Callable, cfg: TransformerConfig, mesh) -> Callable:
+    """``step`` with the reference's accounting attributes
+    (``ray_tpu/parallel/train_step.py``'s ``make_train_step``): the
+    compiler-placed f32 gradient all-reduce over dp x fsdp, counted as a
+    ring's two passes, and fully replicated Adam state."""
+    dp = 1 if mesh is None else mesh.shape["dp"] * mesh.shape["fsdp"]
+    n = cfg.num_params()
+    step.batch_sharding = (None if mesh is None else
+                           NamedSharding(mesh, shard_rules.batch_spec()))
+    step.collective_bytes = ({("all_reduce", "float32"): 2 * n * 4}
+                             if dp > 1 else {})
+    step.opt_state_bytes = 2 * n * 4 + 8
     return step
 
 

@@ -15,7 +15,7 @@ counterpart of orbax's restore with target shardings).
 from __future__ import annotations
 
 import os
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -47,9 +47,16 @@ def _to_host(tree: Any) -> Any:
     return tree
 
 
-def save_pytree(path: str, tree: Any) -> str:
+def save_pytree(path: str, tree: Any, *,
+                use_orbax: Optional[bool] = None) -> str:
     """Save a tree (a dict of tensors, ``Sharded`` leaves or a
-    ``TrainState``) under ``path`` (a directory). Returns the path."""
+    ``TrainState``) under ``path`` (a directory). Returns the path.
+    The port writes one ``state.pt`` whatever the tree, so ``use_orbax``
+    (the reference's choice of orbax for sharded trees) may be None or
+    False; True raises ValueError."""
+    if use_orbax:
+        raise ValueError("the port writes one state.pt with torch.save; "
+                         "it has no orbax path (use_orbax=True)")
     os.makedirs(path, exist_ok=True)
     dest = os.path.join(path, STATE_FILE)
     tmp = dest + ".tmp"

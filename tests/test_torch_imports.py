@@ -47,12 +47,14 @@ def test_every_module_imports_with_jax_and_ray_tpu_blocked():
     assert res.returncode == 0, res.stderr
     # models.{config,convert,decode,paged_decode,remat,sharding,
     # speculative,transformer}, ops.{_build,attention,flash_attention,moe,
-    # splash_attention}, parallel.{mesh,train_step}, serve.llm,
-    # train.torch_utils, device and the five subpackages
-    assert int(res.stdout.split()[-1]) >= 23, res.stdout
+    # splash_attention}, parallel.{mesh,quant_collectives,train_step,zero},
+    # serve.llm, train.torch_utils, device and the five subpackages
+    assert int(res.stdout.split()[-1]) >= 25, res.stdout
     for name in ("ray_tpu_torch.ops.moe", "ray_tpu_torch.parallel.mesh",
                  "ray_tpu_torch.models.sharding",
-                 "ray_tpu_torch.train.torch_utils"):
+                 "ray_tpu_torch.train.torch_utils",
+                 "ray_tpu_torch.parallel.zero",
+                 "ray_tpu_torch.parallel.quant_collectives"):
         assert name in res.stdout.split(), res.stdout
 
 

@@ -409,8 +409,10 @@ def test_mesh_refusals():
             tts.make_train_step(tc, mesh(2, **spec), opt, None)
         with pytest.raises(NotImplementedError, match="A7"):
             tts.make_eval_step(tc, mesh(2, **spec), None)
+    # the dp-manual step is ported (tests/test_torch_zero.py): it shards
+    # over dp only, and this mesh has fsdp=2
     for kw in (dict(zero_sharded_update=True), dict(grad_quant_enabled=True)):
-        with pytest.raises(NotImplementedError, match="A9"):
+        with pytest.raises(ValueError, match="dp axis only"):
             tts.make_train_step(tc, ok, opt, sh, **kw)
     with pytest.raises(NotImplementedError, match="A7"):
         tts.make_train_step(tc, ok, opt, sh, sp_axis="sp")
@@ -459,6 +461,25 @@ def test_collectives_and_their_backward():
     assert len(one) == 1 and one[0].shape == (2, 9)
     got = torch.autograd.grad(one, parts, [torch.ones(2, 9)])
     assert all(torch.equal(x, torch.ones(2, 3)) for x in got)
+
+
+def test_scatter_sum_adds_each_block_in_part_order():
+    """Block i summed on its own device from every part's block i: the
+    bits of the whole sum in part order, along any dim and for blocks of
+    any size; a None part adds nothing, and a lone part is copied."""
+    rng = np.random.default_rng(6)
+    parts = [torch.from_numpy(rng.standard_normal((3, 7)).astype(np.float32))
+             for _ in range(3)]
+    sizes, devs = [2, 5], [torch.device("cpu")] * 2
+    got = tmesh.scatter_sum([parts[0], None, parts[1], parts[2]], 1, sizes,
+                            devs)
+    want = ((parts[0] + parts[1]) + parts[2]).split(sizes, 1)
+    assert all(torch.equal(a, b) and a.is_contiguous()
+               for a, b in zip(got, want))
+    lone = tmesh.scatter_sum([None, parts[0]], 0, [1, 2], devs)
+    assert all(torch.equal(a, b) for a, b in zip(lone, parts[0].split([1, 2])))
+    assert lone[0].data_ptr() != parts[0].data_ptr()
+    assert tmesh.scatter_sum([None, None], 0, [1, 2], devs) == [None, None]
 
 
 def test_axis_groups_and_slices_follow_the_mesh_order():
