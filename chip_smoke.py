@@ -14,8 +14,9 @@ script exits non-zero:
 3. Kernel B1 (flash forward) against its plain PyTorch version on the card,
    at the shapes the serving path gives it (Llama-3-8B prefill: B=8,
    S=2048 and S=1024, H=32, KV=8, D=128, causal; a tp=2 shard's: H=16,
-   KV=4), and at each mesh phase's shard shape (``MESH_SHARD_CASES``),
-   plus D=64 non-causal,
+   KV=4), and at each mesh phase's shard shape (``MESH_SHARD_CASES``:
+   the ring's hops at sp=2, the off-diagonal one with no mask, and a
+   pipeline microbatch among them), plus D=64 non-causal,
    D=256, a ragged S (1000, and 1088: 64 rows past a 128-row tile) and q,
    k, v as head slices of one fused tensor (strided views).  Times of the
    kernel, the plain version and one library call
@@ -138,7 +139,7 @@ script exits non-zero:
    shard on cuda:0 with one card, one card each with enough cards):
    a. ``train_llama_1b_mesh``: llama_1b as phase 6 trains it, on
       ``fsdp=2, tp=2`` and on ``dp=2, fsdp=2, tp=2``: state from seed 0,
-      8 steps, loss finite and falling, B1-B3 launched 2/1/1 times per
+      5 steps, loss finite and falling, B1-B3 launched 2/1/1 times per
       layer, step and shard; the first three losses within STEP_LOSS_ATOL
       of ``mesh=None``'s from the same seed and batch (step 0's learning
       rate is 0, so the third is the first after an update) and the adam
@@ -148,7 +149,9 @@ script exits non-zero:
    b. ``train_f32_mesh_exactness``: llama_1b's width cut to 2 layers in
       f32 (plain attention) on ``dp=2, fsdp=2, tp=2``, 3 steps against
       ``mesh=None``: loss and grad norm, and every leaf of params, mu and
-      nu, within 1e-4 relative.
+      nu, within 1e-4 relative; the same for f. below's three runs on a
+      4-layer cut and 4 rows (the ring's recurrence under sp; leaves
+      merged from the pipeline's stages).
    c. ``train_mixtral_mesh``: Mixtral's 1-layer cut on ``fsdp=2, ep=2``
       (global routing, experts split over ep): step 0 replays the routing
       of ``mesh=None``'s step and is held to it as in a.; aux loss > 0
@@ -178,8 +181,22 @@ script exits non-zero:
       4 steps, the loss, every param leaf and the flat moments within
       1e-4.  With both replicas on one card no byte crosses a wire: the
       quantized arms can only cost time here.
+   f. ``train_llama_1b_sp_pp``: ring attention alone at llama_1b's
+      attention shape (8, 2048, 16, 8, 128) on ``sp=2`` through B1-B3
+      against the same call through their plain versions (out within
+      2e-2, dq/dk/dv within 2e-2 of the largest magnitude, bitwise
+      repeatable) and ``ulysses_attention`` against plain attention; then
+      llama_1b uncut (bf16 compute, fp32 state, full remat) through
+      ``make_train_step(sp_axis="sp")`` on ``sp=2`` and through
+      ``init_pp_state`` / ``make_pp_train_step`` on ``pp=2`` with 4
+      microbatches, GPipe and interleaved (V=2), 4 steps each on the
+      batch pre-shifted: the first three losses and mu after step 0 held
+      to ``mesh=None``'s as in a.; B1/B2/B3 96/48/48 a step on sp=2 (3
+      ring hops a layer, forward and replay) and 128/64/64 on pp=2 (each
+      layer once per microbatch); one step of each profiled.
 10. A JSON line of kernels (each path's launches; the mesh paths'
-    under ``train_mesh[...]``, the dp arms' under ``train_dp[...]``;
+    under ``train_mesh[...]``, the dp arms' under ``train_dp[...]``, the
+    sp and pipeline runs' under ``train_sp_pp[...]``;
     B1-B3 at each mesh's shard shape, checked
     and timed in phases 3 and 4, under ``mesh_shard_shapes``), then the contract line
     ``{"ok": true, "device": {...}}`` as the last line of output.
@@ -309,18 +326,55 @@ MIXTRAL_MESH = dict(fsdp=2, ep=2)
 # gives step 0 a learning rate of 0, so the third is the first loss after
 # an update that moved the params
 MESH_COMPARE_STEPS = 3
+# llama_1b's steps on each mesh of LLAMA_MESHES (the median is of steps
+# 2-4)
+MESH_TRAIN_STEPS = 5
 # one shard's attention on those meshes (B, S, H, KV, D, causal, timed,
 # strided), checked and timed in the kernel phases: llama_1b on fsdp=2,tp=2
-# and on dp=2,fsdp=2,tp=2, Mixtral on fsdp=2,ep=2, and one replica's rows
-# of llama_1b on the dp=2 mesh of train_llama_1b_dp
+# and on dp=2,fsdp=2,tp=2, Mixtral on fsdp=2,ep=2, one replica's rows of
+# llama_1b on the dp=2 mesh of train_llama_1b_dp, a ring hop of llama_1b on
+# sp=2 (the diagonal one causal, the off-diagonal one with no mask) and a
+# pipeline microbatch of llama_1b at M=4 (train_llama_1b_sp_pp)
 MESH_SHARD_CASES = ((4, 2048, 8, 4, 128, True, True, False),
                     (2, 2048, 8, 4, 128, True, True, False),
                     (4, 2048, 32, 8, 128, True, True, False),
-                    (4, 2048, 16, 8, 128, True, True, False))
+                    (4, 2048, 16, 8, 128, True, True, False),
+                    (8, 1024, 16, 8, 128, True, True, False),
+                    (8, 1024, 16, 8, 128, False, True, False),
+                    (2, 2048, 16, 8, 128, True, True, False))
 MESH_SHARD_LABELS = ("llama_1b fsdp=2,tp=2", "llama_1b dp=2,fsdp=2,tp=2",
-                     "mixtral fsdp=2,ep=2", "llama_1b dp=2")
+                     "mixtral fsdp=2,ep=2", "llama_1b dp=2",
+                     "llama_1b sp=2 diagonal hop",
+                     "llama_1b sp=2 off-diagonal hop (no mask)",
+                     "llama_1b pp=2 microbatch (M=4)")
 MESH_F32_LAYERS, MESH_F32_STEPS, MESH_F32_RTOL = 2, 3, 1e-4
 CKPT_LAYERS = 2
+# sequence parallelism and the pipeline (ops/ring_attention.py,
+# parallel/pipeline.py): llama_1b through make_train_step on sp=2 and
+# through make_pp_train_step on pp=2, GPipe and interleaved (V=2), each
+# (label, mesh, virtual stages; None for the sp step), M microbatches
+SP_PP_RUNS = (("sp=2", dict(sp=2), None), ("pp=2", dict(pp=2), 1),
+              ("pp=2,V=2", dict(pp=2), 2))
+PP_MICROBATCHES = 4
+SP_PP_STEPS = 4
+# B1/B2/B3 launches per layer and step, worked out from the code: at sp=2
+# the ring runs 3 hops a layer (shard 0 its own block, shard 1 its own and
+# shard 0's), forward and full remat's replay; a pipeline stage runs each
+# of its layers once per microbatch, forward and replay (every stage
+# rematerialises in full)
+SP_PP_PER_LAYER = {
+    "sp=2": {"flash_attention_fwd": 6, "flash_attention_bwd_dq": 3,
+             "flash_attention_bwd_dkv": 3},
+    "pp=2": {"flash_attention_fwd": 2 * PP_MICROBATCHES,
+             "flash_attention_bwd_dq": PP_MICROBATCHES,
+             "flash_attention_bwd_dkv": PP_MICROBATCHES}}
+SP_PP_PER_LAYER["pp=2,V=2"] = SP_PP_PER_LAYER["pp=2"]
+# the ring alone at llama_1b's attention shape over sp=2
+RING_SHAPE = (8, 2048, 16, 8, 128)
+# their f32 check (train_f32_mesh_exactness) on llama_1b's width cut to 4
+# layers (pp=2 x V=2 needs a multiple of 4) and the batch's first 4 rows
+# (one per microbatch)
+SP_PP_F32_LAYERS, SP_PP_F32_ROWS = 4, 4
 # the dp-manual step (parallel/zero.py): bench.py's training arms without
 # splash, in its order, each (name, grad_quant, zero), on dp=2, with the
 # steps each arm runs (quant+zero's cut to keep the phase near a minute;
@@ -553,7 +607,7 @@ def check_flash_bwd(dev):
         again = kernels()
         torch.cuda.synchronize()
         same_bits = all(torch.equal(a, b_) for a, b_ in zip(got, again))
-        args = fa._bwd_reference_args(q, k, v, out, lse, dout, causal)
+        args = fa._bwd_reference_args(q, k, v, dout, lse, delta, causal)
         want = fa.flash_attention_bwd_reference(q, k, v, out, lse, dout,
                                                 causal)
         bounds = attention_bwd_bounds_ms(b, s, h, kv, d, causal)
@@ -672,7 +726,7 @@ def check_splash(dev, clock_hz):
             row[f"{name}_bound_ms"], row[f"{name}_bound_by"] = ms, by
             row[f"{name}_bound_terms_ms"] = terms
         if timed:
-            args = fa._bwd_reference_args(qs, k, v, out, lse, dout, causal,
+            args = fa._bwd_reference_args(qs, k, v, dout, lse, delta, causal,
                                           blk, blk, cap, 1.0)
             row["fwd_ms"] = time_ms(
                 lambda: sa._splash_fwd(qs, k, v, causal, cap, blk, blk), 10)
@@ -749,10 +803,20 @@ def peak_gb(devices=None):
     return max(torch.cuda.max_memory_allocated(i) for i in cards(devices)) / 1e9
 
 
-def peaks_by_card(devices):
+def peaks_by_card(devices, base=None):
+    """Each card's peak of allocated memory since ``reset_peaks``, GB,
+    less ``base`` (bytes by card index: what the card held before the
+    run, such as the reference's compared trees)."""
     import torch
-    return {f"cuda:{i}": torch.cuda.max_memory_allocated(i) / 1e9
-            for i in cards(devices)}
+    base = base or {}
+    return {f"cuda:{i}": (torch.cuda.max_memory_allocated(i)
+                          - base.get(i, 0)) / 1e9 for i in cards(devices)}
+
+
+def allocated(devices):
+    """Bytes allocated on each card of ``devices``, by card index."""
+    import torch
+    return {i: torch.cuda.memory_allocated(i) for i in cards(devices)}
 
 
 def tp_placement():
@@ -2319,9 +2383,10 @@ def one_device_reference(cfg, batch, steps, compute_dtype, remat,
                          calls=None, final=False):
     """``mesh=None`` from seed 0 for ``steps`` steps on ``batch``: each
     step's loss, grad norm and aux loss, the adam mu after the first step
-    (the first clipped gradient times 1 - b1) on the host, and with
-    ``final`` the last state's params, mu and nu on the host.  With
-    ``calls`` the MoE routing is recorded there (``routing_log``)."""
+    (the first clipped gradient times 1 - b1), and with ``final`` the last
+    state's params, mu and nu, copies on the state's card (the compared
+    trees never cross to the host).  With ``calls`` the MoE routing is
+    recorded there (``routing_log``)."""
     import torch
     from ray_tpu_torch.parallel import (init_sharded_state, make_optimizer,
                                         make_train_step)
@@ -2337,10 +2402,10 @@ def one_device_reference(cfg, batch, steps, compute_dtype, remat,
             rows.append({k: m[k].item() for k in
                          ("loss", "grad_norm", "moe_aux_loss")})
             if i == 0:
-                mu0 = host_tree(state.opt_state["mu"])
-    last = ({"params": host_tree(state.params),
-             "mu": host_tree(state.opt_state["mu"]),
-             "nu": host_tree(state.opt_state["nu"])} if final else None)
+                mu0 = host_tree(state.opt_state["mu"], state.step.device)
+    last = ({name: host_tree(tree, state.step.device) for name, tree in
+             (("params", state.params), ("mu", state.opt_state["mu"]),
+              ("nu", state.opt_state["nu"]))} if final else None)
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -2370,14 +2435,15 @@ def mesh_training(cfg, spec, remat, batch, steps, compute_dtype, per_layer,
     mesh = MeshSpec(**spec).build(devices)
     counters = attention_counters()
     opt = make_optimizer(warmup_steps=2, total_steps=100)
+    base = allocated(devices)
     t0 = time.perf_counter()
     state, sh = init_sharded_state(cfg, mesh, opt, seed=0)
     step = make_train_step(cfg, mesh, opt, sh, compute_dtype=compute_dtype,
                            remat=remat)
     sync_cards()
     init_s = time.perf_counter() - t0
-    state_gb = {f"cuda:{i}": torch.cuda.memory_allocated(i) / 1e9
-                for i in cards(devices)}
+    state_gb = {f"cuda:{i}": (b - base[i]) / 1e9
+                for i, b in allocated(devices).items()}
     tokens = TRAIN_BATCH * TRAIN_SEQ
     for c in counters.values():
         c.launches = 0
@@ -2399,8 +2465,8 @@ def mesh_training(cfg, spec, remat, batch, steps, compute_dtype, per_layer,
             f"moe_aux_loss {aux[-1]:.6f}, grad_norm {norms[-1]:.4f}, "
             f"{step_ms[-1]:.1f} ms")
         if i == 0:
-            rel = leaf_rel_l2(host_tree(state.opt_state["mu"]), ref_mu0,
-                              devices[0])
+            rel = leaf_rel_l2(host_tree(state.opt_state["mu"], devices[0]),
+                              ref_mu0, devices[0])
             gaps = {"max_leaf_rel_l2_mu_after_step_0": max(rel.values()),
                     "worst_leaf": max(rel, key=rel.get),
                     "leaves": len(rel)}
@@ -2418,7 +2484,7 @@ def mesh_training(cfg, spec, remat, batch, steps, compute_dtype, per_layer,
              "reference_losses": [r["loss"] for r in ref_rows],
              "abs_loss_diffs": loss_diffs, **gaps, "step_ms": step_ms,
              "step_ms_median": med, "tokens_per_s": tokens / (med / 1e3),
-             "peak_gb_by_card": peaks_by_card(devices),
+             "peak_gb_by_card": peaks_by_card(devices, base),
              "launches_per_step": {k: v / steps for k, v in launches.items()}}
     if free_calls:
         stats["dropped_share_free_steps"] = sum(
@@ -2458,7 +2524,7 @@ def train_llama_mesh(dev):
     out = {}
     for spec in LLAMA_MESHES:
         stats, launches, state, step = mesh_training(
-            cfg, spec, True, batch, TRAIN_STEPS, torch.bfloat16,
+            cfg, spec, True, batch, MESH_TRAIN_STEPS, torch.bfloat16,
             FLASH_PER_LAYER, ref_rows, ref_mu0)
         out[mesh_label(spec)] = (stats, launches)
         profile_step(step, state, batch,
@@ -2470,41 +2536,62 @@ def train_llama_mesh(dev):
 
 
 def mesh_f32_exactness(dev):
-    """Phase train_f32_mesh_exactness: llama_1b's width cut to
-    MESH_F32_LAYERS layers in f32 compute (plain attention), the mesh step
-    against ``mesh=None`` over MESH_F32_STEPS steps: loss and grad norm
-    per step, and every leaf of params, mu and nu, within MESH_F32_RTOL
-    relative."""
+    """Phase train_f32_mesh_exactness: llama_1b's width in f32 compute
+    (plain attention; the ring's recurrence under sp), cut to
+    MESH_F32_LAYERS layers for the mesh step on dp=2,fsdp=2,tp=2 and to
+    SP_PP_F32_LAYERS and SP_PP_F32_ROWS rows for each run of SP_PP_RUNS
+    (the sp step and the pipeline), against ``mesh=None`` on the same
+    cut and rows over MESH_F32_STEPS
+    steps: loss and grad norm per step, and every leaf of params, mu and
+    nu (merged from stages), within MESH_F32_RTOL relative."""
     import torch
     from ray_tpu_torch.models import config as mcfg
-    cfg = dataclasses.replace(mcfg.llama_1b(), num_layers=MESH_F32_LAYERS)
-    batch = training_batch(cfg)
-    ref_rows, ref_mu0, ref_last = one_device_reference(
-        cfg, batch, MESH_F32_STEPS, torch.float32, True, final=True)
+
+    def reference(layers, rows=TRAIN_BATCH):
+        cfg = dataclasses.replace(mcfg.llama_1b(), num_layers=layers)
+        batch = {k: v[:rows] for k, v in training_batch(cfg).items()}
+        return (cfg, batch, *one_device_reference(
+            cfg, batch, MESH_F32_STEPS, torch.float32, True, final=True))
+
+    def check(label, stats, state, virtual):
+        rel = {}
+        for name, tree in (("params", state.params),
+                           ("mu", state.opt_state["mu"]),
+                           ("nu", state.opt_state["nu"])):
+            for path, r in leaf_rel_l2(merged_host_tree(tree, virtual, dev),
+                                       ref_last[name], dev).items():
+                rel[f"{name}.{path}"] = r
+        per_step = [max(abs(a - r["loss"]) / abs(r["loss"]),
+                        abs(g - r["grad_norm"]) / r["grad_norm"])
+                    for a, g, r in zip(stats["losses"], stats["grad_norms"],
+                                       ref_rows)]
+        row = {"run": label, "layers": cfg.num_layers,
+               "steps": MESH_F32_STEPS,
+               "max_rel_loss_or_grad_norm": max(per_step),
+               "max_leaf_rel_l2": max(rel.values()),
+               "worst_leaf": max(rel, key=rel.get), "leaves": len(rel)}
+        log("train_f32_mesh_exactness " + json.dumps(row))
+        if not (row["max_rel_loss_or_grad_norm"] <= MESH_F32_RTOL
+                and row["max_leaf_rel_l2"] <= MESH_F32_RTOL):
+            raise AssertionError(f"f32 step against mesh=None: {row}")
+
+    cfg, batch, ref_rows, ref_mu0, ref_last = reference(MESH_F32_LAYERS)
     spec = LLAMA_MESHES[-1]
     stats, _, state, _ = mesh_training(
         cfg, spec, True, batch, MESH_F32_STEPS, torch.float32, {}, ref_rows,
         ref_mu0)
-    rel = {}
-    for name, tree in (("params", state.params),
-                       ("mu", state.opt_state["mu"]),
-                       ("nu", state.opt_state["nu"])):
-        for path, r in leaf_rel_l2(host_tree(tree), ref_last[name],
-                                   dev).items():
-            rel[f"{name}.{path}"] = r
-    per_step = [max(abs(a - r["loss"]) / abs(r["loss"]),
-                    abs(g - r["grad_norm"]) / r["grad_norm"])
-                for a, g, r in zip(stats["losses"], stats["grad_norms"],
-                                   ref_rows)]
-    row = {"mesh": spec, "layers": cfg.num_layers, "steps": MESH_F32_STEPS,
-           "max_rel_loss_or_grad_norm": max(per_step),
-           "max_leaf_rel_l2": max(rel.values()),
-           "worst_leaf": max(rel, key=rel.get), "leaves": len(rel)}
-    log("train_f32_mesh_exactness " + json.dumps(row))
-    if not (row["max_rel_loss_or_grad_norm"] <= MESH_F32_RTOL
-            and row["max_leaf_rel_l2"] <= MESH_F32_RTOL):
-        raise AssertionError(f"f32 mesh step against mesh=None: {row}")
+    check(mesh_label(spec), stats, state, None)
     del state
+    cfg, batch, ref_rows, ref_mu0, ref_last = reference(SP_PP_F32_LAYERS,
+                                                        SP_PP_F32_ROWS)
+    for label, spec, virtual in SP_PP_RUNS:
+        stats, _, state, _, _ = sp_pp_training(
+            cfg, label, spec, virtual, batch, MESH_F32_STEPS, torch.float32,
+            {}, ref_rows, ref_mu0)
+        check(label, stats, state, virtual)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def train_mixtral_mesh(dev):
@@ -2602,6 +2689,218 @@ def checkpoint_roundtrip(dev):
 # ---------------------------------------------------------------------------
 # The dp-manual train step (parallel/zero.py, parallel/quant_collectives.py)
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism and the pipeline (ops/ring_attention.py,
+# parallel/pipeline.py)
+# ---------------------------------------------------------------------------
+
+def merged_host_tree(tree, virtual, device):
+    """``host_tree`` of a staged tree (``virtual`` stages; None: not
+    staged) on ``device`` with every block leaf merged back to [L, ...]."""
+    from ray_tpu_torch.parallel.pipeline import merge_layers
+    host = host_tree(tree, device)
+    if virtual is None:
+        return host
+    return {path: merge_layers({"blocks": {"x": t}}, virtual)["blocks"]["x"]
+            if path.startswith("blocks.") else t
+            for path, t in host.items()}
+
+
+def sp_pp_training(cfg, label, spec, virtual, batch, steps, compute_dtype,
+                   per_layer, ref_rows, ref_mu0):
+    """llama_1b (or its cut) from seed 0 on the mesh ``spec``: through
+    ``make_train_step(sp_axis="sp")`` when ``virtual`` is None, else
+    through ``init_pp_state`` / ``make_pp_train_step`` with ``virtual``
+    stages and PP_MICROBATCHES microbatches; ``steps`` steps on ``batch``
+    given pre-shifted (``tokens`` and ``targets``, each dividing by sp),
+    the launch counters zeroed just before and read just after.  The
+    first ``len(ref_rows)`` losses against ``mesh=None``'s (|d loss| <=
+    STEP_LOSS_ATOL) and the adam mu after step 0, put back together (and
+    merged from stages), leaf by leaf (rel. L2 <= STEP_GRAD_REL_L2); the
+    loss finite and falling; B1-B3 launched ``per_layer`` times per layer
+    and step.  -> (stats, launches, state, step, shifted batch)."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.parallel import (init_pp_state, init_sharded_state,
+                                        make_optimizer, make_pp_train_step,
+                                        make_train_step)
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+
+    n = int(np.prod(list(spec.values())))
+    devices = mesh_placement(n)
+    mesh = MeshSpec(fsdp=1, **spec).build(devices)
+    counters = attention_counters()
+    opt = make_optimizer(warmup_steps=2, total_steps=100)
+    base = allocated(devices)
+    t0 = time.perf_counter()
+    if virtual is None:
+        state, sh = init_sharded_state(cfg, mesh, opt, seed=0)
+        step = make_train_step(cfg, mesh, opt, sh,
+                               compute_dtype=compute_dtype, sp_axis="sp",
+                               remat=True)
+    else:
+        state, sh = init_pp_state(cfg, mesh, opt, seed=0,
+                                  virtual_stages=virtual)
+        step = make_pp_train_step(cfg, mesh, opt, sh,
+                                  num_microbatches=PP_MICROBATCHES,
+                                  compute_dtype=compute_dtype,
+                                  virtual_stages=virtual)
+    sync_cards()
+    init_s = time.perf_counter() - t0
+    state_gb = {f"cuda:{i}": (b - base[i]) / 1e9
+                for i, b in allocated(devices).items()}
+    shifted = {"tokens": batch["tokens"][:, :-1],
+               "targets": batch["tokens"][:, 1:]}
+    tokens = shifted["targets"].size
+    for c in counters.values():
+        c.launches = 0
+    losses, norms, step_ms, gaps = [], [], [], None
+    for i in range(steps):
+        t = time.perf_counter()
+        state, m = step(state, shifted)
+        sync_cards()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        log(f"{label} step {i}: loss {losses[-1]:.6f}, grad_norm "
+            f"{norms[-1]:.4f}, {step_ms[-1]:.1f} ms")
+        if i == 0:
+            rel = leaf_rel_l2(merged_host_tree(state.opt_state["mu"],
+                                               virtual, devices[0]),
+                              ref_mu0, devices[0])
+            gaps = {"max_leaf_rel_l2_mu_after_step_0": max(rel.values()),
+                    "worst_leaf": max(rel, key=rel.get), "leaves": len(rel)}
+            reset_peaks(devices)
+    launches = {k: c.launches for k, c in counters.items()}
+    timed = sorted(step_ms[1:])
+    med = timed[len(timed) // 2] if len(timed) % 2 else (
+        timed[len(timed) // 2 - 1] + timed[len(timed) // 2]) / 2
+    flops = cfg.flops_per_token(TRAIN_SEQ) * tokens
+    loss_diffs = [abs(a - r["loss"]) for a, r in zip(losses, ref_rows)]
+    stats = {"run": label, "layers": cfg.num_layers, "mesh": spec,
+             "virtual_stages": virtual,
+             "microbatches": None if virtual is None else PP_MICROBATCHES,
+             "shards": n, "devices": sorted({str(d) for d in devices}),
+             "compute_dtype": str(compute_dtype), "init_s": init_s,
+             "state_gb_by_card": state_gb, "losses": losses,
+             "grad_norms": norms,
+             "reference_losses": [r["loss"] for r in ref_rows],
+             "abs_loss_diffs": loss_diffs, **gaps, "step_ms": step_ms,
+             "step_ms_median": med, "tokens_per_s": tokens / (med / 1e3),
+             "share_of_bf16_peak": flops / (med / 1e3) / PEAK_BF16_FLOPS,
+             "peak_gb_by_card": peaks_by_card(devices, base),
+             "launches_per_step": {k: v / steps for k, v in launches.items()}}
+    log("train_sp_pp " + json.dumps(stats))
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[1]):
+        raise AssertionError(f"{label} losses not finite and falling: "
+                             f"{losses}")
+    if not (max(loss_diffs) <= STEP_LOSS_ATOL
+            and gaps["max_leaf_rel_l2_mu_after_step_0"] <= STEP_GRAD_REL_L2):
+        raise AssertionError(
+            f"{label} step differs from mesh=None: |dloss| {loss_diffs} "
+            f"(limit {STEP_LOSS_ATOL}), mu leaf rel L2 "
+            f"{gaps['max_leaf_rel_l2_mu_after_step_0']} (limit "
+            f"{STEP_GRAD_REL_L2})")
+    want = {k: per_layer.get(k, 0) * cfg.num_layers * steps
+            for k in counters}
+    if launches != want:
+        raise AssertionError(f"{label} launches over {steps} steps (L = "
+                             f"{cfg.num_layers}): {launches}, want {want}")
+    return stats, launches, state, step, shifted
+
+
+def check_ring(dev):
+    """``ring_attention`` on sp=2 at RING_SHAPE in bf16, through B1-B3
+    against the same call through their plain versions: out within
+    OUT_ATOL, dq, dk and dv within GRAD_RTOL of the plain version's
+    largest magnitude, the kernels' run bitwise repeatable; its forward
+    and forward + backward timed.  ``ulysses_attention`` against plain
+    attention (B1's plain version on the whole sequence), within
+    OUT_ATOL."""
+    import torch
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import ring_attention as ra
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+
+    mesh = MeshSpec(sp=2, fsdp=1).build(mesh_placement(2))
+    b, s, h, kv, d = RING_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16).requires_grad_()
+               for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+    g = torch.randn((b, s, h, d), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+
+    def ring(backward=True):
+        out = ra.ring_attention(q, k, v, mesh, "sp")
+        if not backward:
+            return out
+        loss = sum((p.float() * g[sl].to(p.device).float()).sum().to(dev)
+                   for p, sl in zip(out.parts, out.sharding.slices(g.shape)))
+        return (out.full(dev), *torch.autograd.grad(loss, (q, k, v)))
+
+    got, again = ring(), ring()
+    with patched(ra, "_flash_fwd",
+                 lambda q, k, v, causal: fa.flash_attention_reference(
+                     q, k, v, causal)), \
+            patched(ra, "_flash_bwd_stats", fa.flash_bwd_stats_reference):
+        want = ring()
+    sync_cards()
+    row = {"shape": list(RING_SHAPE), "sp": 2,
+           "bitwise_repeatable": all(torch.equal(a, b_)
+                                     for a, b_ in zip(got, again)),
+           "out_max_abs_err": (got[0].float() - want[0].float()).abs()
+           .max().item()}
+    for name, a, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        row[f"{name}_rel_err"] = ((a.float() - w.float()).abs().max()
+                                  / w.float().abs().max()).item()
+    row["fwd_ms"] = time_ms(lambda: ring(False), 5)
+    row["fwd_bwd_ms"] = time_ms(ring, 3)
+    uly = ra.ulysses_attention(q.detach(), k.detach(), v.detach(), mesh,
+                               "sp").full(dev)
+    plain = fa.flash_attention_reference(q.detach(), k.detach(), v.detach(),
+                                         True)[0]
+    row["ulysses_out_max_abs_err"] = (uly.float() - plain.float()).abs() \
+        .max().item()
+    log("ring_attention " + json.dumps(row))
+    bad = [n for n in ("dq", "dk", "dv") if not row[f"{n}_rel_err"]
+           <= GRAD_RTOL]
+    if (bad or not row["bitwise_repeatable"]
+            or not row["out_max_abs_err"] <= OUT_ATOL
+            or not row["ulysses_out_max_abs_err"] <= OUT_ATOL):
+        raise AssertionError(f"ring / ulysses attention through the kernels "
+                             f"against their plain versions: {row}")
+    del q, k, v, g, got, again, want, uly, plain
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_llama_sp_pp(dev):
+    """Phase train_llama_1b_sp_pp: the ring alone (``check_ring``), then
+    llama_1b at full width and depth (bf16 compute, fp32 state, full remat)
+    through each run of SP_PP_RUNS, held to ``mesh=None``'s first
+    MESH_COMPARE_STEPS steps from the same seed and batch; one step of each
+    profiled."""
+    import torch
+    from ray_tpu_torch.models import config as mcfg
+    cfg = mcfg.llama_1b()
+    batch = training_batch(cfg)
+    check_ring(dev)
+    ref_rows, ref_mu0, _ = one_device_reference(
+        cfg, batch, MESH_COMPARE_STEPS, torch.bfloat16, True)
+    out = {}
+    for label, spec, virtual in SP_PP_RUNS:
+        stats, launches, state, step, shifted = sp_pp_training(
+            cfg, label, spec, virtual, batch, SP_PP_STEPS, torch.bfloat16,
+            SP_PP_PER_LAYER[label], ref_rows, ref_mu0)
+        out[label] = (stats, launches)
+        profile_step(step, state, shifted, f"train_step[{label}]")
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
 
 def median(values):
     v = sorted(values)
@@ -3032,12 +3331,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("train_llama_1b_dp"):
         llama_dp = train_llama_dp(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("train_llama_1b_sp_pp"):
+        sp_pp = train_llama_sp_pp(dev)
     mesh_launches = {f"train_mesh[{label}]": launches
                      for label, (_, launches) in llama_mesh.items()}
     mesh_launches[f"train_mixtral_mesh[{mesh_label(MIXTRAL_MESH)}]"] = (
         mixtral_mesh)
     mesh_launches.update({f"train_dp[{name}]": launches
                           for name, (_, launches) in llama_dp.items()})
+    mesh_launches.update({f"train_sp_pp[{label}]": launches
+                          for label, (_, launches) in sp_pp.items()})
 
     main_row, bwd_row = flash_rows[0], bwd_rows[0]
     shard_row = next(r for r in flash_rows
@@ -3046,9 +3351,9 @@ def main() -> int:
 
     def shard_rows(rows, keys):
         """The mesh shard shapes' rows of a kernel phase, by mesh."""
-        at = {tuple(r["shape"]): r for r in rows}
-        return {label: {"shape": list(c[:5]),
-                        **{k: at[tuple(c[:5])][key] for k, key in keys}}
+        at = {(tuple(r["shape"]), r["causal"]): r for r in rows}
+        return {label: {"shape": list(c[:5]), "causal": c[5],
+                        **{k: at[tuple(c[:5]), c[5]][key] for k, key in keys}}
                 for label, c in zip(MESH_SHARD_LABELS, MESH_SHARD_CASES)}
 
     def bwd_keys(name):

@@ -20,7 +20,8 @@ is cut on the host and each device's block goes straight to it, equal to
 what JAX's ``addressable_shards`` hold for the same shardings.
 ``zero_state_from_numpy`` carries the state of the JAX package's ZeRO step
 (``parallel/zero.py``: params replicated, Adam's mu and nu flat vectors
-split over dp) into the port's.
+split over dp) into the port's, and ``pp_state_from_numpy`` the staged
+state of its pipeline (``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -190,3 +191,59 @@ def zero_state_from_numpy(params: Mapping[str, Any], mu_flat: Any,
                    "count": scalar(count, sh.opt_state["count"])},
         step=scalar(step, sh.step))
     return state, sh
+
+
+def pp_state_from_numpy(cfg, mesh, numpy_state: Mapping[str, Any],
+                        virtual_stages: int = 1):
+    """A JAX ``init_pp_state`` state -> the port's staged, sharded state
+    (``parallel/pipeline.py``) on ``mesh`` -> (state, shardings).
+
+    ``numpy_state`` holds numpy leaves under ``params`` (the param tree),
+    ``mu`` and ``nu`` (optax's adam moments, trees of the same shape),
+    ``count`` (the adam count) and ``step``.  Block leaves come staged
+    [P, V*Lc, ...], as the reference's ``init_pp_state`` holds them, or
+    stacked [L, ...] and are then partitioned here over the mesh's pp with
+    ``virtual_stages``.  Each leaf is cut on the host by
+    ``pipeline.pp_state_shardings``; params require grad."""
+    from ..parallel.mesh import device_put, split
+    from ..parallel.pipeline import partition_layers, pp_state_shardings
+    from ..parallel.train_step import TrainState
+
+    sh = pp_state_shardings(cfg, mesh)
+    pp = mesh.shape["pp"]
+
+    def staged(tree):
+        tree = params_from_numpy(tree, "cpu")
+        blocks = tree["blocks"]
+        stacked = (next(_leaves_of(blocks)).ndim
+                   == next(_leaves_of(_block_shapes(cfg))).ndim)
+        return partition_layers(tree, pp, virtual_stages) if stacked else tree
+
+    def put(tree, shardings, grad=False):
+        return device_put(staged(tree), shardings, requires_grad=grad)
+
+    def scalar(x, sharding):
+        return split(_leaf(np.asarray(x, np.int32), "cpu", None), sharding)
+
+    state = TrainState(
+        params=put(numpy_state["params"], sh.params, True),
+        opt_state={"mu": put(numpy_state["mu"], sh.opt_state["mu"]),
+                   "nu": put(numpy_state["nu"], sh.opt_state["nu"]),
+                   "count": scalar(numpy_state["count"],
+                                   sh.opt_state["count"])},
+        step=scalar(numpy_state["step"], sh.step))
+    return state, sh
+
+
+def _leaves_of(tree):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, Mapping):
+            yield from _leaves_of(v)
+        else:
+            yield v
+
+
+def _block_shapes(cfg):
+    from .transformer import init_params
+    return init_params(None, cfg)["blocks"]

@@ -9,9 +9,9 @@ runs the collectives those specs imply:
 * ``fsdp`` — ZeRO-style sharded data parallel: params/optimizer sharded,
              batch also split here
 * ``tp``   — tensor parallel: attention heads / MLP width
-* ``sp``   — sequence/context parallel (ring attention; ROADMAP A7)
+* ``sp``   — sequence/context parallel (ring attention, ``ops/ring_attention.py``)
 * ``ep``   — expert parallel (MoE expert dim)
-* ``pp``   — pipeline stages (ROADMAP A7)
+* ``pp``   — pipeline stages (``parallel/pipeline.py``)
 """
 
 from __future__ import annotations

@@ -19,7 +19,8 @@ Counterpart of ``ray_tpu/models/transformer.py``:
   recomputes one chunk's logits at a time).
 * Over a device mesh (``mesh=``; the section at the end): every device
   runs its shard of each layer, with the all-gathers and sums the
-  reference's sharding rules imply inside the layer's remat steps.
+  reference's sharding rules imply, and under sp the ring, inside the
+  layer's remat steps.
 * MoE (``num_experts > 1``): the block's MLP is ``ops/moe.py``'s
   ``moe_mlp``, one step whose residuals carry no names (the JAX package
   tags nothing inside it), so every remat policy replays it; the blocks'
@@ -452,7 +453,7 @@ def apply_trunk(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     says what each layer keeps for the backward; the backward recomputes
     the rest, the attention forward too when its residuals are not kept.
     With a ``mesh`` (a ``Mesh``, or its ``MeshLayout``), ``params`` holds
-    ``Sharded`` leaves and ``tokens`` is a list of the row blocks
+    ``Sharded`` leaves and ``tokens`` is a list of the tiles
     (``MeshLayout.rows`` order), each on its leader's device; the hidden
     states come back as such a list."""
     _, policy = remat_policy(remat)
@@ -587,8 +588,8 @@ def causal_lm_loss(params: Params, batch: Dict[str, torch.Tensor],
     (S*V > 2**25 elements); None disables; an int forces that chunk size.
 
     With a ``mesh`` (a ``Mesh``, or its ``MeshLayout``), ``params`` holds
-    ``Sharded`` leaves and ``batch`` is a list of such dicts, one per row
-    block of ``batch_spec()`` in batch order, each on its leader's device
+    ``Sharded`` leaves and ``batch`` is a list of such dicts, one per tile
+    of ``batch_spec()`` in batch order, each on its leader's device
     (``MeshLayout``); the loss and the metrics are the whole batch's, on
     the first device.
     """
@@ -636,22 +637,26 @@ def _nll(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
 #
 # One process runs every device's part of the step, as XLA's SPMD program
 # runs on every device of the reference's mesh, and builds one autograd
-# graph over all of them.  The batch's rows are cut over dp x fsdp
-# (``sharding.batch_spec``): a *row block*, held by the ep x tp devices
-# that share its dp and fsdp indices.  The block's first device, its
-# *leader*, embeds its tokens and copies the embedding to the others (an
-# ``all_gather`` of one part), and computes the final norm, the LM head
-# and the loss on its rows.  Every device runs each layer on its own copy
+# graph over all of them.  The batch's rows are cut over dp x fsdp and its
+# sequence over sp (``sharding.batch_spec``): a *tile*, held by the ep x
+# tp devices that share its dp, fsdp and sp indices.  The tile's first
+# device, its *leader*, embeds its tokens and copies the embedding to the
+# others (an ``all_gather`` of one part), and computes the final norm, the
+# LM head and the loss on its tokens.  Under sp each device's RoPE
+# positions are its shard's global ones and attention is one ring over
+# each sp group (``ops/ring_attention.py``), a collective step of the
+# remat layer.  Every device runs each layer on its own copy
 # of the residual stream, with its tp shard's q/KV heads and MLP columns
 # and its ep shard's experts: parameters cut over fsdp are all-gathered
 # inside the layer (a remat policy that does not keep them gathers them
 # again in the backward), and the partial outputs of ``wo`` and ``w_out``
 # are summed over tp (``all_reduce``) before the output biases are added,
 # once.  MoE
-# routes once per layer over the whole batch (``moe.route_rows``: the
-# global capacity and positions), each ep shard computes its experts'
-# buffer rows (a reduce-scatter over the row blocks gives each device a
-# slice of the global buffer and an all-gather returns the outputs), and
+# routes once per layer over the whole batch in token order (each row's
+# tokens over its sp shards; ``moe.route_rows``: the global capacity and
+# positions), each ep shard computes its experts' buffer rows (a
+# reduce-scatter over the tiles gives each device a slice of the global
+# buffer and an all-gather returns the outputs), and
 # the partial outputs are summed over ep x tp.  Each function in the graph
 # is the whole model's, so a replicated parameter's gradient is the sum of
 # its copies' gradients (``parallel/train_step.py`` sums them).
@@ -663,26 +668,44 @@ def _part(tree: Params, i: int) -> Params:
 
 
 class MeshLayout:
-    """Which device holds which rows and who does what on a mesh."""
+    """Which device holds which rows and who does what on a mesh.
 
-    def __init__(self, mesh):
+    A *tile* is one block of the batch: its rows cut over dp x fsdp and,
+    with ``sp > 1``, its sequence cut over sp.  The ep x tp devices that
+    share a tile's dp, fsdp and sp indices hold it (``rows``, one group
+    per tile in batch order: row block first, sp shard second); the
+    group's first device is the tile's *leader*.  ``route_axes`` are the
+    axes whose tiles MoE routes together (the mesh step routes the whole
+    batch at once; the pipeline routes each dp and sp shard on its own).
+    A mesh with ``pp > 1`` outside the pipeline holds a replica of
+    everything on each pp index, as the reference's step does (the batch
+    is not cut over pp): the work runs on pp index 0's devices (the mesh's
+    first devices), and the other replicas' gradients are zero."""
+
+    def __init__(self, mesh, route_axes: Tuple[str, ...] = ("dp", "fsdp",
+                                                            "sp")):
         from ..parallel import mesh as pm
-        sp, pp = pm.mesh_axis_size(mesh, "sp"), pm.mesh_axis_size(mesh, "pp")
-        if sp > 1 or pp > 1:
-            raise NotImplementedError(
-                "a mesh with sp > 1 or pp > 1 is not ported to ray_tpu_torch "
-                "yet (ROADMAP: queue A7, ring attention and the pipeline)")
         self.mesh = mesh
+        if pm.mesh_axis_size(mesh, "pp") > 1:
+            mesh = pm.Mesh(mesh.devices[:1], mesh.axis_names)
         self.devices = mesh.device_list
         self.shape = mesh.shape
-        #: the row blocks' devices, in batch order; each leader first
+        self.sp = self.shape["sp"]
+        #: the tiles' devices, in batch order; each leader first
         self.rows = pm.axis_groups(mesh, ("ep", "tp"))
         self.leaders = [g[0] for g in self.rows]
-        #: per (ep, tp) index: the devices of every row block
-        self.batch = pm.axis_groups(mesh, ("dp", "fsdp"))
+        #: per (ep, tp) index: the devices of the tiles that route together
+        self.batch = pm.axis_groups(mesh, route_axes)
+        lead = set(self.leaders)
+        #: the leaders of the tiles that route together, in batch order
+        self.route_groups = [g for g in self.batch if set(g) <= lead]
+        self.route_sp = self.sp if "sp" in route_axes else 1
         self.tp = pm.axis_groups(mesh, ("tp",))
         self.fsdp = pm.axis_groups(mesh, ("fsdp",))
-        self.ep_index = [mesh.coords(i)["ep"] for i in range(len(self.devices))]
+        self.sp_groups = pm.axis_groups(mesh, ("sp",))
+        at = [mesh.coords(i) for i in range(len(self.devices))]
+        self.ep_index = [c["ep"] for c in at]
+        self.sp_index = [c["sp"] for c in at]
 
     def on(self, idx: Sequence[int]) -> List[torch.device]:
         return [self.devices[i] for i in idx]
@@ -716,11 +739,11 @@ class MeshLayout:
             parts = new
         return {t: parts[t] for t in targets}
 
-    def embed(self, params: Params, tokens: Sequence[torch.Tensor],
-              cfg: TransformerConfig, compute_dtype):
-        """Each leader embeds its rows and copies them to its row block's
-        devices -> (x per device, positions per device, the layers' params
-        per device)."""
+    def embed_rows(self, params: Params, tokens: Sequence[torch.Tensor],
+                   cfg: TransformerConfig, compute_dtype
+                   ) -> List[torch.Tensor]:
+        """Each leader embeds its tile and copies it to the tile's devices
+        -> x per device.  Learned positions are the tile's global ones."""
         from ..parallel import mesh as pm
         emb = self.gather_to(params["embed"]["tokens"], self.leaders)
         pos = (self.gather_to(params["embed"]["pos"], self.leaders)
@@ -729,16 +752,33 @@ class MeshLayout:
         for g, lead, tok in zip(self.rows, self.leaders, tokens):
             x = emb[lead][tok.long()].to(compute_dtype)
             if pos is not None:
-                x = x + pos[lead][:tok.shape[1]][None].to(compute_dtype)
+                s = tok.shape[1]
+                p0 = self.sp_index[lead] * s
+                x = x + pos[lead][p0:p0 + s][None].to(compute_dtype)
             for i, xi in zip(g, pm.all_gather([x], 0, self.on(g))):
                 xs[i] = xi
-        s = tokens[0].shape[1]
-        positions = [torch.arange(s, device=d) for d in self.devices]
-        per_device = [unbind_layers(_part(params["blocks"], i),
-                                    cfg.num_layers)
+        return xs
+
+    def positions(self, s: int) -> List[torch.Tensor]:
+        """Each device's global sequence positions for tiles of length s:
+        its sp shard's, offset by ``sp_index * s``."""
+        return [torch.arange(s, device=d) + self.sp_index[i] * s
+                for i, d in enumerate(self.devices)]
+
+    def layers(self, blocks: Params, num_layers: int
+               ) -> List[List[Params]]:
+        """Per layer, each device's slice of the stacked block params."""
+        per_device = [unbind_layers(_part(blocks, i), num_layers)
                       for i in range(len(self.devices))]
-        layers = [list(lps) for lps in zip(*per_device)]
-        return xs, positions, layers
+        return [list(lps) for lps in zip(*per_device)]
+
+    def embed(self, params: Params, tokens: Sequence[torch.Tensor],
+              cfg: TransformerConfig, compute_dtype):
+        """-> (x per device, positions per device, the layers' params
+        per device)."""
+        xs = self.embed_rows(params, tokens, cfg, compute_dtype)
+        return (xs, self.positions(tokens[0].shape[1]),
+                self.layers(params["blocks"], cfg.num_layers))
 
 
 def _layout(mesh) -> Optional[MeshLayout]:
@@ -826,6 +866,13 @@ def _mesh_block(xs, lps, specs: Dict[str, Any], cfg: TransformerConfig,
                    for i, st in enumerate(per)]
         return head + sums
 
+    if layout.sp > 1:
+        # every device's own attention step gives way to one ring over its
+        # sp group
+        head, per = cut_after("attn_v")
+        assert all(st[0].name == "attention" for st in per)
+        per = [st[1:] for st in per]
+        steps += head + _ring_steps(cfg, layout, xs[0])
     steps += summed("attn_proj", layout.tp)
     if moe:
         head, per = cut_after("mlp_in")
@@ -842,6 +889,28 @@ def _mesh_block(xs, lps, specs: Dict[str, Any], cfg: TransformerConfig,
     ys = rm.run(steps, values, outs, policy)
     return list(ys), torch.zeros((), dtype=torch.float32,
                                  device=layout.devices[0])
+
+
+def _ring_steps(cfg: TransformerConfig, layout: MeshLayout,
+                x: torch.Tensor) -> List[rm.Step]:
+    """Attention over each sp group: "attn_q/k/v@j" -> "attn_out@j" for
+    the group's devices j, by ring attention (``ops/ring_attention.py``).
+    With the kernels its residuals are flash's (q, k, v, out, lse), named
+    as flash's, so the policies that keep those names keep its graph;
+    the recurrence's residuals are unnamed."""
+    from ..ops.ring_attention import _ring_attn_shard, ring_kernel_takes
+    cap = cfg.attn_logit_softcap
+    kernel = ring_kernel_takes(x.is_cuda, cfg.head_dim, cap, x.dtype)
+
+    def ring(*qkv):
+        return tuple(_ring_attn_shard(qkv[0::3], qkv[1::3], qkv[2::3],
+                                      causal=cfg.causal, logit_softcap=cap))
+    return [rm.Step("attention", ring,
+                    tuple(f"{v}@{j}" for j in g
+                          for v in ("attn_q", "attn_k", "attn_v")),
+                    tuple(f"attn_out@{j}" for j in g),
+                    residual_names=FLASH_RESIDUALS if kernel else None)
+            for g in layout.sp_groups]
 
 
 def _gathers_first_used(gathers: List[rm.Step], steps: List[rm.Step]
@@ -875,34 +944,60 @@ def _mesh_moe_steps(cfg: TransformerConfig, layout: MeshLayout,
     ep = layout.shape["ep"]
     e_loc = e // ep
     blocks = len(layout.batch[0])
-    rows_total = sum(leads[j][0] for j in layout.leaders)
-    cap = moe_ops.capacity(cfg.expert_capacity_factor, k, rows_total,
-                           leads[0][1], e)
-    c_pad = -(-cap // blocks) * blocks        # the buffer cut over row blocks
+    sp_r = layout.route_sp
+    group0 = layout.route_groups[0]
+    s_loc = leads[group0[0]][1]
+    cap = moe_ops.capacity(cfg.expert_capacity_factor, k,
+                           sum(leads[j][0] for j in group0) // sp_r,
+                           s_loc * sp_r, e)
+    c_pad = -(-cap // blocks) * blocks        # the buffer cut over tiles
     steps = [rm.Step("router", rm.dot, (f"mlp_in@{j}", f"moe.router@{j}"),
                      (f"router_logits@{j}",), rm.DOT)
              for j in layout.leaders]
+    tile = {lead: g for lead, g in zip(layout.leaders, layout.rows)}
 
-    def route(*logits):
-        r = moe_ops.route_rows(logits, k, cap)
-        got = [None] * n
+    def route(*logits, leaders):
+        # one batch in token order: each row's tokens over its sp shards
+        n_rows = len(leaders) // sp_r
+        dev = logits[0].device
+        per_row = [torch.cat([logits[r * sp_r + si].to(dev)
+                              for si in range(sp_r)], 1)
+                   for r in range(n_rows)]
+        r = moe_ops.route_rows(per_row, k, cap)
+        got = []
         t0 = 0
-        for g, lg in zip(layout.rows, logits):
-            t = lg.shape[0] * lg.shape[1]
-            rg = moe_ops.Routing(*(f[t0:t0 + t] for f in r[:4]), r.aux)
-            t0 += t
-            for i, w in zip(g, pm.all_gather([rg.weight], 0, layout.on(g))):
-                dest, src, here = moe_ops.local_slots(
-                    rg, cap, layout.ep_index[i] * e_loc, e_loc, c_pad)
-                d = layout.devices[i]
-                got[i] = (dest.to(d), src.to(d), w * here.to(d))
-        return (*(v for trio in got for v in trio), r.aux)
+        for ri, row in enumerate(per_row):
+            rb, srow = row.shape[:2]
+            fields = [f[t0:t0 + rb * srow].view(rb, srow, -1) for f in r[:4]]
+            t0 += rb * srow
+            for si in range(sp_r):
+                cols = slice(si * s_loc, (si + 1) * s_loc)
+                rg = moe_ops.Routing(*(f[:, cols].reshape(-1, f.shape[-1])
+                                       for f in fields), r.aux)
+                g = tile[leaders[ri * sp_r + si]]
+                for i, w in zip(g, pm.all_gather([rg.weight], 0,
+                                                 layout.on(g))):
+                    dest, src, here = moe_ops.local_slots(
+                        rg, cap, layout.ep_index[i] * e_loc, e_loc, c_pad)
+                    d = layout.devices[i]
+                    got += [dest.to(d), src.to(d), w * here.to(d)]
+        return (*got, r.aux)
 
-    steps.append(rm.Step(
-        "moe_route", route, tuple(f"router_logits@{j}" for j in
-                                  layout.leaders),
-        tuple(f"moe_{v}@{i}" for i in range(n) for v in ("dest", "src", "wt"))
-        + ("moe_aux",)))
+    groups = layout.route_groups
+    for gi, leaders in enumerate(groups):
+        aux = "moe_aux" if len(groups) == 1 else f"moe_aux#{gi}"
+        steps.append(rm.Step(
+            "moe_route", functools.partial(route, leaders=leaders),
+            tuple(f"router_logits@{j}" for j in leaders),
+            tuple(f"moe_{v}@{i}" for j in leaders for i in tile[j]
+                  for v in ("dest", "src", "wt")) + (aux,)))
+    if len(groups) > 1:
+        # the routes' aux losses averaged, in order on the first device
+        def mean(*a):
+            return pm.ordered_sum([x.to(a[0].device) for x in a]) / len(a)
+        steps.append(rm.Step("moe_aux_mean", mean,
+                             tuple(f"moe_aux#{gi}" for gi in
+                                   range(len(groups))), ("moe_aux",)))
     xs, xs_part, ys_part, ys = "moe_xs", "moe_xs_part", "moe_ys_part", "moe_ys"
     if blocks == 1:
         xs_part, ys_part = xs, ys
@@ -954,12 +1049,12 @@ def _mesh_loss(params: Params, batch: Sequence[Dict[str, torch.Tensor]],
                cfg: TransformerConfig, compute_dtype, moe_aux_weight: float,
                remat, loss_chunk: Optional[int], layout: MeshLayout):
     """``causal_lm_loss`` over a mesh: each leader's NLL summed over its
-    rows, the row blocks' sums added in batch order on the first device
-    and divided by the whole batch's token count (or ``loss_mask`` sum)."""
+    tile, the tiles' sums added in batch order on the first device and
+    divided by the whole batch's token count (or ``loss_mask`` sum)."""
     from ..parallel import mesh as pm
     if len(batch) != len(layout.rows):
-        raise ValueError(f"{len(batch)} row blocks for a mesh of "
-                         f"{len(layout.rows)} (dp x fsdp)")
+        raise ValueError(f"{len(batch)} tiles for a mesh of "
+                         f"{len(layout.rows)} (dp x fsdp x sp)")
     split = [_split_targets(b) for b in batch]
     s = split[0][0].shape[1]
     if loss_chunk == 0:

@@ -279,7 +279,21 @@ def _flash_bwd(q, k, v, out, lse, dout, causal: bool = True,
                                              block_q, block_kv)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
-    delta = _delta(out, dout)
+    return _flash_bwd_stats(q, k, v, dout, lse, _delta(out, dout), causal)
+
+
+def _flash_bwd_stats(q, k, v, dout, lse, delta, causal: bool = True,
+                     block_q: int = 512, block_kv: int = 512):
+    """B2 and B3 with the softmax statistics given: lse and Δ ([B, H, S]
+    f32) may be those of a larger attention that this call's K/V block is
+    one part of (ring attention passes the merged lse and the final
+    output's Δ), so dq, dk and dv are this block's share of its gradients.
+    -> (dq [B, S, H, D], dk, dv [B, S, KV, D])."""
+    if q.device.type == "cpu":
+        return flash_bwd_stats_reference(q, k, v, dout, lse, delta, causal,
+                                         block_q, block_kv)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
     g = _kernel_strides(dout.to(q.dtype))
     dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, causal)
     dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal)
@@ -410,7 +424,18 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout,
     the scores are capped as in the forward and dS gains 1 - tanh²(s/c),
     s the uncapped scaled score.  Ragged tiles are cut short, not padded.
     """
-    args = _bwd_reference_args(q, k, v, out, lse, dout, causal, block_q,
+    return flash_bwd_stats_reference(q, k, v, dout, lse, _delta(out, dout),
+                                     causal, block_q, block_kv, softcap,
+                                     scale)
+
+
+def flash_bwd_stats_reference(q, k, v, dout, lse, delta,
+                              causal: bool = True, block_q: int = 512,
+                              block_kv: int = 512, softcap: float = 0.0,
+                              scale: Optional[float] = None):
+    """``flash_attention_bwd_reference`` with lse and Δ given (see
+    ``_flash_bwd_stats``) -> (dq, dk, dv) in the layouts of q, k and v."""
+    args = _bwd_reference_args(q, k, v, dout, lse, delta, causal, block_q,
                                block_kv, softcap, scale)
     dq = _bwd_dq_reference(*args)
     dk, dv = _bwd_dkv_reference(*args)
@@ -418,7 +443,7 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout,
             dv.to(v.dtype).transpose(1, 2))
 
 
-def _bwd_reference_args(q, k, v, out, lse, dout, causal: bool = True,
+def _bwd_reference_args(q, k, v, dout, lse, delta, causal: bool = True,
                         block_q: int = 512, block_kv: int = 512,
                         softcap: float = 0.0, scale: Optional[float] = None):
     """The arguments of ``_bwd_dq_reference`` / ``_bwd_dkv_reference``:
@@ -431,7 +456,7 @@ def _bwd_reference_args(q, k, v, out, lse, dout, causal: bool = True,
                          f"{k.shape[1]}")
     qt, kt, vt, gt = (x.transpose(1, 2).float()
                       for x in (q, k, v, dout.to(q.dtype)))
-    return (qt, kt, vt, gt, lse.float(), _delta(out, dout), causal,
+    return (qt, kt, vt, gt, lse.float(), delta, causal,
             d ** -0.5 if scale is None else scale, min(block_q, s),
             min(block_kv, s), q.dtype, softcap)
 

@@ -19,7 +19,9 @@ one group of devices, in the group's order.  Every sum runs on the first
 part's device in part order (``parts[0] + parts[1] + ...``), so every
 replica of a sum holds the same bits.  Each is differentiable: the
 backward of an all-gather is a reduce-scatter of the gradients, of a
-reduce-scatter an all-gather, of an all-reduce an all-reduce.  One device
+reduce-scatter an all-gather, of an all-reduce an all-reduce.
+``ring_shift`` (the ring step of ring attention and the pipeline) and
+``all_to_all`` (Ulysses attention) move blocks without summing.  One device
 may appear more than once in a mesh (the port's counterpart of the
 reference's virtual CPU mesh): its shards then run one after the other on
 it, each with tensors of its own.
@@ -437,3 +439,38 @@ def replicate(t: torch.Tensor, devices: Sequence[torch.device]
     itself, every other shard a copy of its own on its device."""
     return _copies(t, devices)
 
+
+
+# ---------------------------------------------------------------------------
+# Moves without a sum: the ring step and the all-to-all
+# ---------------------------------------------------------------------------
+
+def ring_shift(parts: Sequence[Optional[torch.Tensor]],
+               devices: Optional[Sequence[torch.device]] = None
+               ) -> List[Optional[torch.Tensor]]:
+    """One step around a ring (the reference's ``ppermute`` with ``i ->
+    i + 1``): part i moves to position ``(i + 1) % n``, copied onto that
+    position's device (default: each part's own), a tensor of its own
+    even on the same device.  A None part stays None.  Differentiable:
+    autograd's backward of the copies moves each gradient one step back."""
+    n = len(parts)
+    if devices is None:
+        devices = [p.device for p in parts]
+    return [None if parts[(i - 1) % n] is None else
+            parts[(i - 1) % n].to(devices[i], copy=True) for i in range(n)]
+
+
+def all_to_all(parts: Sequence[torch.Tensor], split_dim: int,
+               concat_dim: int) -> List[torch.Tensor]:
+    """The reference's tiled ``all_to_all``: each part is cut along
+    ``split_dim`` into ``n`` blocks, and part i becomes the i-th blocks of
+    every part, in part order, put together along ``concat_dim`` on part
+    i's device.  Differentiable: the backward is the all-to-all with the
+    two dimensions swapped."""
+    n = len(parts)
+    if parts[0].shape[split_dim] % n:
+        raise ValueError(f"all_to_all: {n} parts do not divide dimension "
+                         f"{split_dim} of size {parts[0].shape[split_dim]}")
+    blocks = [torch.chunk(p, n, split_dim) for p in parts]
+    return [torch.cat([b[i].to(parts[i].device) for b in blocks], concat_dim)
+            for i in range(n)]

@@ -73,11 +73,6 @@ def _map(fn, tree: Params) -> Params:
             for k, v in tree.items()}
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to ray_tpu_torch yet (ROADMAP: {item})")
-
-
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     """The L2 norm of every leaf together (``optax.global_norm``)."""
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
@@ -180,19 +175,13 @@ def make_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.1,
                      b1=b1, b2=b2, grad_clip=grad_clip)
 
 
-def _refuse(sp_axis):
-    if sp_axis is not None:
-        raise _not_ported("sequence parallelism (sp_axis)",
-                          "queue A7, ring attention")
-
-
 def _check_mesh(cfg: TransformerConfig, mesh: Mesh,
                 device=None) -> transformer.MeshLayout:
     """The mesh's layout; a mesh the step cannot run raises."""
     if device is not None:
         raise ValueError("with a mesh the step runs on the mesh's devices; "
                          "device must be None")
-    layout = transformer.MeshLayout(mesh)     # sp > 1 or pp > 1 raise
+    layout = transformer.MeshLayout(mesh)
     tp = mesh.shape["tp"]
     if cfg.num_heads % tp or cfg.num_kv_heads % tp:
         raise ValueError(f"tp={tp} does not divide num_heads "
@@ -314,6 +303,18 @@ def make_train_step(cfg: TransformerConfig, mesh, optimizer: Optimizer,
     fsdp), each row block moves to its leader device, and the metrics lie
     on the mesh's first device.  ``mesh=None`` ignores ``state_sh``.
 
+    Sequence parallelism: on a mesh with ``sp > 1`` each row's sequence is
+    cut over sp as well (``tokens`` and ``targets`` pre-shifted, each
+    dividing by sp, as the reference takes them), every device's RoPE
+    positions are its shard's global ones, and attention is ring attention
+    over each sp group (``ops/ring_attention.py``), whether ``sp_axis``
+    names the axis or is None: where it is None the reference's compiler
+    gathers the sequence for plain attention instead, which computes the
+    same attention.  ``mesh=None`` takes ``sp_axis`` and ignores it, as the
+    reference's ``ParallelContext.use_ring`` does.  A mesh with ``pp > 1``
+    holds a replica on each pp index, as the reference's step does
+    (``parallel/pipeline.py`` is the step that runs stages).
+
     With ``grad_quant_enabled`` and/or ``zero_sharded_update`` the step is
     ``zero.make_dp_train_step``'s (a dp-only mesh: reduce-scatter, update,
     all-gather, the wire int8 block-scaled under ``grad_quant_enabled``;
@@ -328,7 +329,6 @@ def make_train_step(cfg: TransformerConfig, mesh, optimizer: Optimizer,
     > 1) and ``opt_state_bytes`` (the Adam moments and count a replica
     holds).
     """
-    _refuse(sp_axis)
     transformer.remat_policy(remat)  # an unknown policy raises now
     if grad_quant_enabled or zero_sharded_update:
         if mesh is None:
@@ -394,7 +394,6 @@ def make_eval_step(cfg: TransformerConfig, mesh, state_sh=None,
     a ``mesh``, ``params`` is a sharded state's params, held to
     ``state_sh`` as ``make_train_step`` holds the state, and the batch is
     cut as it cuts it."""
-    _refuse(sp_axis)
     if mesh is not None:
         layout = _check_mesh(cfg, mesh, device)
         check = _sharded_as(cfg, layout, state_sh)
@@ -429,7 +428,8 @@ def _sharded_as(cfg: TransformerConfig, layout: transformer.MeshLayout,
     def check(params: Params) -> None:
         got = _flat_paths(params)
         mesh = next(iter(got.values())).sharding.mesh
-        if mesh.device_list != layout.devices or mesh.shape != layout.shape:
+        if (mesh.device_list != layout.mesh.device_list
+                or mesh.shape != layout.mesh.shape):
             raise ValueError("the state lives on another mesh than the "
                              "step's")
         if {path: leaf.sharding.spec for path, leaf in got.items()} != want:
@@ -440,54 +440,72 @@ def _sharded_as(cfg: TransformerConfig, layout: transformer.MeshLayout,
 
 def _row_blocks(batch: Dict[str, Any], layout: transformer.MeshLayout
                 ) -> List[Dict[str, torch.Tensor]]:
-    """A numpy batch cut into its row blocks (``batch_spec``: the rows over
-    dp x fsdp), each on its leader's device."""
-    n = len(layout.rows)
-    rows = next(iter(batch.values())).shape[0]
-    if rows % n:
-        raise ValueError(f"dp x fsdp = {n} does not divide the batch's "
+    """A numpy batch cut into its tiles (``batch_spec``: the rows over dp
+    x fsdp, the sequence over sp), each on its leader's device.  Under sp
+    the batch holds pre-shifted ``tokens`` and ``targets`` (a ``tokens``
+    [B, S+1] alone is shifted here first, as the reference's loss shifts
+    the whole batch)."""
+    n_rows, sp = len(layout.rows) // layout.sp, layout.sp
+    if sp > 1 and "targets" not in batch:
+        batch = {**batch, "tokens": batch["tokens"][:, :-1],
+                 "targets": batch["tokens"][:, 1:]}
+    rows, seq = next(iter(batch.values())).shape[:2]
+    if rows % n_rows:
+        raise ValueError(f"dp x fsdp = {n_rows} does not divide the batch's "
                          f"{rows} rows")
-    w = rows // n
-    return [_to_device({k: v[r * w:(r + 1) * w] for k, v in batch.items()},
-                       layout.devices[lead])
+    if seq % sp:
+        raise ValueError(f"sp = {sp} does not divide the batch's sequence "
+                         f"of {seq}")
+    w, c = rows // n_rows, seq // sp
+    return [_to_device({k: v[r // sp * w:(r // sp + 1) * w,
+                             r % sp * c:(r % sp + 1) * c]
+                        for k, v in batch.items()}, layout.devices[lead])
             for r, lead in enumerate(layout.leaders)]
 
 
 def _mesh_train_step(cfg: TransformerConfig, optimizer: Optimizer,
                      compute_dtype, remat, layout: transformer.MeshLayout,
                      check: Callable[[Params], None]) -> Callable:
-    n = len(layout.devices)
-    first = layout.devices[0]
 
     def step(state: TrainState, batch: Dict[str, Any]):
         check(state.params)
-        leaves = _leaves(state.params)
         total, metrics = transformer.causal_lm_loss(
             state.params, _row_blocks(batch, layout), cfg,
             compute_dtype=compute_dtype, remat=remat, mesh=layout)
-        got = torch.autograd.grad(total, [p for leaf in leaves
-                                          for p in leaf.parts],
-                                  allow_unused=True)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        with torch.no_grad():
-            grads, norms = _sum_copies(leaves, got, first)
-            g_norm = torch.linalg.vector_norm(torch.stack(norms))
-            mu, nu = _leaves(state.opt_state["mu"]), _leaves(
-                state.opt_state["nu"])
-            count = state.opt_state["count"].parts
-            for i in range(n):
-                optimizer.apply_(
-                    [g[i] for g in grads], [m.parts[i] for m in mu],
-                    [v.parts[i] for v in nu], count[i],
-                    [p.parts[i] for p in leaves],
-                    g_norm.to(layout.devices[i], copy=i > 0))
-            for s in state.step.parts:
-                s.add_(1)
-        metrics["grad_norm"] = g_norm
-        metrics["total_loss"] = total.detach()
-        return state, metrics
+        return sharded_update(state, total, metrics, optimizer)
 
     return step
+
+
+def sharded_update(state: TrainState, total: torch.Tensor,
+                   metrics: Dict[str, torch.Tensor], optimizer: Optimizer):
+    """The update of a sharded state from the loss ``total`` over its
+    mesh: the gradients of every part, each replicated block's summed over
+    its copies, one global norm and clip, AdamW on each device's blocks,
+    all in place.  -> (state, metrics with ``grad_norm`` and
+    ``total_loss``)."""
+    leaves = _leaves(state.params)
+    devices = leaves[0].sharding.mesh.device_list
+    got = torch.autograd.grad(total, [p for leaf in leaves
+                                      for p in leaf.parts],
+                              allow_unused=True)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    with torch.no_grad():
+        grads, norms = _sum_copies(leaves, got, devices[0])
+        g_norm = torch.linalg.vector_norm(torch.stack(norms))
+        mu, nu = _leaves(state.opt_state["mu"]), _leaves(
+            state.opt_state["nu"])
+        count = state.opt_state["count"].parts
+        for i, dev in enumerate(devices):
+            optimizer.apply_(
+                [g[i] for g in grads], [m.parts[i] for m in mu],
+                [v.parts[i] for v in nu], count[i],
+                [p.parts[i] for p in leaves], g_norm.to(dev, copy=i > 0))
+        for s in state.step.parts:
+            s.add_(1)
+    metrics["grad_norm"] = g_norm
+    metrics["total_loss"] = total.detach()
+    return state, metrics
 
 
 def _sum_copies(leaves: List[Sharded], got, first: torch.device):

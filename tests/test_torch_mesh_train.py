@@ -404,18 +404,44 @@ def test_mesh_refusals():
     step = tts.make_train_step(tc, ok, opt, sh, compute_dtype=torch.float32)
     with pytest.raises(ValueError, match="batch"):
         step(state, {"tokens": np.zeros((6, 9), np.int32)})
+    # sp and pp meshes run (tests/test_torch_ring_attention.py,
+    # tests/test_torch_pipeline.py): the eval step on sp=2 and the train
+    # step on pp=2 (a replica on each pp index) give mesh=None's loss
+    one, _ = tts.init_sharded_state(tc, None, opt, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, tc.vocab_size, (4, 33)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    want = float(tts.make_eval_step(tc, None, None, torch.float32,
+                                    device="cpu")(one.params, batch)["loss"])
+    states = {}
     for spec in (dict(sp=2, fsdp=1), dict(pp=2, fsdp=1)):
-        with pytest.raises(NotImplementedError, match="A7"):
-            tts.make_train_step(tc, mesh(2, **spec), opt, None)
-        with pytest.raises(NotImplementedError, match="A7"):
-            tts.make_eval_step(tc, mesh(2, **spec), None)
+        st, shd = states[tuple(spec)] = tts.init_sharded_state(
+            tc, mesh(2, **spec), opt)
+        got = tts.make_eval_step(tc, mesh(2, **spec), shd, torch.float32,
+                                 sp_axis="sp")(st.params, batch)
+        assert float(got["loss"]) == pytest.approx(want, rel=SELF_TOL)
+        step = tts.make_train_step(tc, mesh(2, **spec), opt, shd,
+                                   compute_dtype=torch.float32,
+                                   sp_axis="sp")
+        st, m = step(st, batch)
+        assert float(m["loss"]) == pytest.approx(want, rel=SELF_TOL)
+        for leaf in tts._leaves(st.params):     # replicas stay equal
+            for g in leaf.sharding.replica_groups():
+                assert all(torch.equal(leaf.parts[g[0]], leaf.parts[j])
+                           for j in g)
+    with pytest.raises(ValueError, match="sp = 2 does not divide"):
+        tts.make_eval_step(tc, mesh(2, sp=2, fsdp=1), None)(
+            states[("sp", "fsdp")][0].params,
+            {"tokens": toks[:, :-2], "targets": toks[:, 1:-1]})
     # the dp-manual step is ported (tests/test_torch_zero.py): it shards
     # over dp only, and this mesh has fsdp=2
     for kw in (dict(zero_sharded_update=True), dict(grad_quant_enabled=True)):
         with pytest.raises(ValueError, match="dp axis only"):
             tts.make_train_step(tc, ok, opt, sh, **kw)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tts.make_train_step(tc, ok, opt, sh, sp_axis="sp")
+    # sp_axis names an axis of size 1 here: the step is the same
+    sp_step = tts.make_train_step(tc, ok, opt, sh, sp_axis="sp",
+                                  compute_dtype=torch.float32)
+    assert np.isfinite(float(sp_step(state, batch)[1]["loss"]))
     # the mesh names its devices; a device beside it is refused
     with pytest.raises(ValueError, match="device must be None"):
         tts.make_train_step(tc, ok, opt, sh, device="cpu")

@@ -313,8 +313,16 @@ def test_ten_train_steps_match_jax():
 def test_train_step_refuses_what_is_not_ported():
     _, tc = _cfgs({})
     opt = tts.make_optimizer()
-    with pytest.raises(NotImplementedError, match="ring attention"):
-        tts.make_train_step(tc, None, opt, None, device="cpu", sp_axis="sp")
+    # without a mesh sp_axis is taken and ignored, as the reference's
+    # ParallelContext.use_ring ignores it: the same bits as without it
+    runs = []
+    for kw in ({}, dict(sp_axis="sp")):
+        state, _ = tts.init_sharded_state(tc, None, opt, seed=0,
+                                          device="cpu")
+        step = tts.make_train_step(tc, None, opt, None, device="cpu",
+                                   compute_dtype=torch.float32, **kw)
+        runs.append(float(step(state, _batch(tc.vocab_size))[1]["loss"]))
+    assert runs[0] == runs[1]
     # the dp-manual step is ported (tests/test_torch_zero.py); it shards
     # over a mesh's dp axis, so without a mesh it raises
     for kw in (dict(grad_quant_enabled=True), dict(zero_sharded_update=True)):
@@ -325,12 +333,16 @@ def test_train_step_refuses_what_is_not_ported():
         tts.make_train_step(tc, None, opt, None, device="cpu", remat=remat)
     with pytest.raises(ValueError, match="unknown remat"):
         tts.make_train_step(tc, None, opt, None, device="cpu", remat="x")
-    # a mesh is ported now (tests/test_torch_mesh_train.py); its sp and pp
-    # axes are not
+    # a mesh is ported (tests/test_torch_mesh_train.py), its sp and pp
+    # axes too (tests/test_torch_ring_attention.py,
+    # tests/test_torch_pipeline.py): the init draws what mesh=None draws
+    one, _ = tts.init_sharded_state(tc, None, opt, seed=0, device="cpu")
+    want = tts._leaves(one.params)
     for spec in (dict(sp=2, fsdp=1), dict(pp=2, fsdp=1)):
-        with pytest.raises(NotImplementedError, match="mesh.*A7"):
-            tts.init_sharded_state(
-                tc, tmesh.MeshSpec(**spec).build(["cpu"] * 2), opt)
+        state, sh = tts.init_sharded_state(
+            tc, tmesh.MeshSpec(**spec).build(["cpu"] * 2), opt)
+        assert all(torch.equal(a.full(), b.detach()) for a, b in
+                   zip(tts._leaves(state.params), want))
 
 
 def test_init_and_eval_step_on_cpu():

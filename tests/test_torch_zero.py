@@ -418,12 +418,10 @@ def test_quant_plus_zero_composes():
 
 def test_bench_keywords_with_both_knobs_off_change_nothing():
     # bench.py's import line works against the port: every name of the
-    # reference's parallel package but the pipeline's (ROADMAP A7)
+    # reference's parallel package, the pipeline's included
     import ray_tpu.parallel as jpar
     import ray_tpu_torch.parallel as tpar
-    pipeline = {"init_pp_state", "make_pp_train_step", "partition_layers",
-                "merge_layers"}
-    assert set(jpar.__all__) - pipeline <= set(tpar.__all__)
+    assert set(jpar.__all__) <= set(tpar.__all__)
     _, tc = _cfgs()
     spec = OptimizerSpec(**OPT)
     batches = _batches(tc.vocab_size, tc.max_seq_len, n=2)
@@ -443,9 +441,10 @@ def test_bench_keywords_with_both_knobs_off_change_nothing():
                                   for p in tts._leaves(state.params)]))
         assert runs[0][0] == runs[1][0]
         assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
-    with pytest.raises(NotImplementedError, match="A7"):
-        make_train_step(tc, _tmesh(2), spec.build(), None, sp_axis="sp",
-                        opt_spec=spec, zero_sharded_update=True)
+    # the dp-manual step refuses sequence parallelism, as the reference's
+    with pytest.raises(ValueError, match="sequence parallelism"):
+        make_train_step(tc, _tmesh(2, sp=2), spec.build(), None,
+                        sp_axis="sp", opt_spec=spec, zero_sharded_update=True)
     # the knobs shard over a mesh's dp axis, and only over it
     with pytest.raises(ValueError, match="pass a mesh"):
         make_train_step(tc, None, spec.build(), None, device="cpu",
