@@ -194,7 +194,24 @@ script exits non-zero:
       to ``mesh=None``'s as in a.; B1/B2/B3 96/48/48 a step on sp=2 (3
       ring hops a layer, forward and replay) and 128/64/64 on pp=2 (each
       layer once per microbatch); one step of each profiled.
-10. A JSON line of kernels (each path's launches; the mesh paths'
+10. ``rllib_learners``: RLlib's learners (``ray_tpu_torch/rllib``), each
+    built with ``device=None`` and fed rollouts or replay samples made
+    from seed 0 at the reference's shapes (the card has no gymnasium, so
+    no env steps; f32, TF32 off): PPO on the CartPole gate's MLP (rollout
+    [128, 4], 8 epochs x 4 minibatches) and on the Nature CNN ((84, 84, 4)
+    uint8 frames, [128, 8], 4 x 4), DQN and Rainbow (51 atoms, dueling,
+    PER weights) at batch 128, SAC, TD3 (both ``do_actor``) and DDPG at
+    256.  One update on the card against the same update on the CPU from
+    the same state, batch and draws: every leaf's rel. L2 and the losses
+    within 1e-4; for PPO also GAE and the first minibatch's gradients
+    (the Nature CNN's within 1e-3, and its whole update a reading beside
+    the CPU's disagreement with itself at half its threads: Adam's sign
+    steps on gradients within rounding of zero).  ms per update (median),
+    samples/s, the device-busy share of one profiled update and the
+    device ms beside the untraced time; the conv policy's runner step on
+    8 frames; ``LearnerGroup(num_learners=2)`` with both shards on the
+    card within 2e-4 of one.  No kernel of the port runs here.
+11. A JSON line of kernels (each path's launches; the mesh paths'
     under ``train_mesh[...]``, the dp arms' under ``train_dp[...]``, the
     sp and pipeline runs' under ``train_sp_pp[...]``;
     B1-B3 at each mesh's shard shape, checked
@@ -396,6 +413,25 @@ HALF_INT_TOL = 1e-6
 ZERO_STATE_RTOL = 0.02
 DP_F32_LAYERS, DP_F32_STEPS, DP_F32_RTOL = 2, 4, 1e-4
 QUANT_RANGES = ("quantize_int8_block", "dequantize_int8_block")
+# RLlib's learners (phase rllib_learners): every learner from seed 0, one
+# update on the card against the same update on the CPU from the same
+# state, batch and draws (f32; TF32 off, as set in main)
+RL_SEED = 0
+RL_LEAF_RTOL = 1e-4        # every leaf's rel. L2, and each loss relative
+RL_CONV_RTOL = 1e-3        # the Nature-CNN learner (cuDNN convolutions)
+RL_DP_RTOL = 2e-4          # LearnerGroup(num_learners=2) against 1
+RL_TIMED = {"ppo": 5, "off_policy": 20}   # update calls timed (median)
+RL_POLICY_BATCH = 8        # frames a runner's policy step takes
+# (name, model spec, train config, rollout [T, B]): the reference's
+# CartPole gate (2 runners x 2 envs) and an Atari-class Nature CNN
+RL_PPO = (
+    ("ppo_mlp", dict(obs_dim=4, action_dim=2, hidden=(64, 64)),
+     dict(lr=1e-3, num_epochs=8, num_minibatches=4, entropy_coeff=0.01),
+     (128, 4)),
+    ("ppo_nature_cnn", dict(obs_shape=(84, 84, 4), action_dim=6),
+     dict(lr=2.5e-4, num_epochs=4, num_minibatches=4, entropy_coeff=0.01),
+     (128, 8)),
+)
 
 
 def log(msg: str) -> None:
@@ -2135,16 +2171,27 @@ def train_mixtral(dev):
 
 
 def profile_step(step, state, batch, name: str):
-    """One step traced: device-busy share, device time by category and the
-    kernels that take the most."""
+    """One step traced (``profile_call``)."""
+    def run():
+        _, metrics = step(state, batch)
+        metrics["loss"].item()
+    profile_call(run, name)
+
+
+def profile_call(fn, name: str):
+    """One call of ``fn`` traced: device-busy share, device time by
+    category and the kernels that take the most, as a ``time`` line;
+    returns (share, device ms).  The profiler slows the host, so the share
+    is a floor: an untraced call's time beside the device ms gives the
+    share outside it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        state, metrics = step(state, batch)
-        metrics["loss"].item()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     # the quantized collectives' passes are record_function ranges
@@ -2173,7 +2220,9 @@ def profile_step(step, state, batch, name: str):
                                       key=lambda kv: -kv[1])),
         "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3
                            for e in top},
+        "device_calls": sum(e.count for e in kernels),
         **({"quant_ranges_device_span_ms": ranges} if ranges else {})}))
+    return busy / wall_ms, busy
 
 
 def kernel_category(name: str) -> str:
@@ -3202,6 +3251,385 @@ def train_llama_dp(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase rllib_learners: RLlib's learners (ray_tpu_torch/rllib) on the card
+# ---------------------------------------------------------------------------
+
+def timed_calls(fn, n: int) -> float:
+    """Median ms of ``n`` calls, each ended by a synchronize (host clock)."""
+    import torch
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return median(times)
+
+
+def rl_rollout(spec, T: int, B: int, seed: int = RL_SEED):
+    """A PPO rollout at a runner's layout from a seed: pixel specs get uint8
+    frames; logp near the initial policy's (its logits start near 0), so
+    the ratios start near 1 and some clip."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    A = spec["action_dim"]
+    if "obs_shape" in spec:
+        obs = rng.integers(0, 256, (T, B) + tuple(spec["obs_shape"]),
+                           dtype=np.uint8)
+    else:
+        obs = rng.standard_normal((T, B, spec["obs_dim"])).astype(np.float32)
+    return {"obs": obs,
+            "actions": rng.integers(0, A, (T, B)).astype(np.float32),
+            "logp": (-np.log(A) + 0.1 * rng.standard_normal((T, B))
+                     ).astype(np.float32),
+            "values": (0.5 * rng.standard_normal((T, B))).astype(np.float32),
+            "rewards": rng.standard_normal((T, B)).astype(np.float32),
+            "dones": (rng.random((T, B)) < 0.02).astype(np.float32),
+            "last_values": (0.5 * rng.standard_normal(B)).astype(np.float32)}
+
+
+def rl_compare(name, got, want, base, losses, rtol, failures):
+    """The card's state against the CPU's after the same update: every
+    leaf's relative L2 and each loss's relative difference within ``rtol``
+    (``failures`` collects what is not); the relative L2 of the leaves'
+    changes from ``base`` is a reading."""
+    leaf, change = {}, {}
+    for path, w in host_tree(want).items():
+        g = got[path].double()
+        w = w.double()
+        leaf[path] = ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+        if base is not None:
+            d = w - base[path].double()
+            change[path] = ((g - w).norm() / d.norm().clamp_min(1e-30)).item()
+    loss_rel = {k: abs(a - b) / max(abs(b), 1e-30)
+                for k, (a, b) in losses.items()}
+    if rtol is not None:
+        bad = {k: v for k, v in {**leaf, **loss_rel}.items()
+               if not v <= rtol}
+        if bad:
+            failures.append(f"{name}: card against CPU over {rtol}: {bad}")
+    worst = max(leaf, key=leaf.get)
+    return {"limit": rtol, "max_leaf_rel_l2": leaf[worst],
+            "worst_leaf": worst,
+            "max_loss_rel": max(loss_rel.values(), default=0.0),
+            "losses_card_cpu": losses,
+            **({"max_change_rel_l2_reading": max(change.values())}
+               if change else {})}
+
+
+def rl_line(row):
+    log("rllib " + json.dumps(row))
+
+
+def rl_first_step(name, card, cpu, roll, mb, rtol, failures):
+    """GAE, then one minibatch's loss, metrics and gradients at the initial
+    state (before Adam moves anything), on the card and on the CPU: the
+    advantages and every leaf's gradient by relative L2, the losses
+    relative, within ``rtol``."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.rllib.learner import leaves
+    rows = np.random.default_rng(RL_SEED).permutation(
+        roll["rewards"].size)[:mb]
+    got = []
+    for lrn in (card.learner, cpu.learner):
+        r = {k: torch.from_numpy(v).to(lrn.device) for k, v in roll.items()}
+        adv = lrn._gae(r["rewards"], r["values"], r["dones"],
+                       r["last_values"])
+        flat = {"obs": r["obs"].reshape(-1, *r["obs"].shape[2:]),
+                "actions": r["actions"].reshape(-1),
+                "logp": r["logp"].reshape(-1),
+                "returns": (adv + r["values"]).reshape(-1)}
+        a = adv.reshape(-1)
+        flat["advantages"] = (a - a.mean()) / (a.std(unbiased=False) + 1e-8)
+        idx = torch.from_numpy(rows).to(lrn.device)
+        keys = sorted(lrn.params)
+        p = {k: lrn.params[k].detach().requires_grad_() for k in keys}
+        loss, aux = lrn._loss(p, {k: v[idx] for k, v in flat.items()})
+        grads = torch.autograd.grad(loss, [p[k] for k in keys])
+        got.append(({"advantages": adv.detach(),
+                     **{f"grad.{k}": g for k, g in zip(keys, grads)}},
+                    {"loss": loss.item(),
+                     **{k: v.item() for k, v in aux.items()}}))
+    (tc, lc), (tp, lp) = got
+    return rl_compare(f"{name} first step", host_tree(tc), tp, None,
+                      {k: (lc[k], lp[k]) for k in lc if k != "kl"}, rtol,
+                      failures)
+
+
+def rl_ppo(name, spec, cfg, shape, dev, rtol, failures, held=True):
+    """One PPO learner: GAE and the first minibatch's gradients on the card
+    against the CPU (``rl_first_step``); then a whole update on the card
+    against the same update on the CPU (same seed: the same params and
+    permutations), held to ``rtol`` when ``held``, else a reading beside
+    the CPU's disagreement with itself at half its threads; then the
+    update timed and profiled.  Returns the card's learner group."""
+    import torch
+    from ray_tpu_torch.rllib import LearnerGroup, build_model
+    T, B = shape
+    roll = rl_rollout(spec, T, B)
+    mb = T * B // cfg["num_minibatches"]
+
+    def group(device):
+        return LearnerGroup(build_model(spec), cfg, seed=RL_SEED,
+                            device=device)
+
+    card, cpu = group(None), group("cpu")
+    first = rl_first_step(name, card, cpu, roll, mb, rtol, failures)
+    base = host_tree(card.learner.params)
+    t = time.perf_counter()
+    m_card = card.update(roll)
+    first_ms = (time.perf_counter() - t) * 1e3
+    m_cpu = cpu.update(roll)
+    check = rl_compare(name, host_tree(card.learner.params),
+                       cpu.learner.params, base,
+                       {k: (m_card[k], m_cpu[k])
+                        for k in ("policy_loss", "vf_loss", "entropy")},
+                       rtol if held else None, failures)
+    if not held:
+        threads = torch.get_num_threads()
+        torch.set_num_threads(max(1, threads // 2))
+        try:
+            other = group("cpu")
+            other.update(roll)
+        finally:
+            torch.set_num_threads(threads)
+        check["cpu_against_cpu_at_half_threads"] = rl_compare(
+            f"{name} cpu", host_tree(other.learner.params),
+            cpu.learner.params, base, {}, None, failures)
+        del other
+    ms = timed_calls(lambda: card.update(roll), RL_TIMED["ppo"])
+    busy, dev_ms = profile_call(lambda: card.update(roll), f"rllib[{name}]")
+    samples = mb * cfg["num_minibatches"] * cfg["num_epochs"]
+    rl_line({"learner": name, "model": spec, "rollout": [T, B],
+             "update": {k: cfg[k] for k in ("num_epochs", "num_minibatches")},
+             "minibatch": mb, "first_update_ms": first_ms,
+             "ms_per_update": ms, "samples_per_update": samples,
+             "samples_per_s": samples / (ms / 1e3),
+             "device_busy_share_traced": busy, "device_ms": dev_ms,
+             "device_share_untraced": dev_ms / ms,
+             "kl_card_cpu": [m_card["kl"], m_cpu["kl"]],
+             "first_step": first, "update_held": held, **check})
+    del cpu
+    return card
+
+
+def rl_policy_path(card, spec, dev):
+    """A runner's policy step on the card: the conv model's apply,
+    sample_action and log_prob on RL_POLICY_BATCH frames (f32, as a runner
+    passes them), the results brought to the host."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.rllib import build_model
+    model = build_model(spec)
+    params = card.learner.params
+    frames = np.random.default_rng(RL_SEED).integers(
+        0, 256, (RL_POLICY_BATCH,) + tuple(spec["obs_shape"])
+    ).astype(np.float32)
+    gen = torch.Generator().manual_seed(RL_SEED)
+
+    @torch.no_grad()
+    def step():
+        obs = torch.from_numpy(frames).to(dev)
+        pi, value = model.apply(params, obs)
+        action = model.sample_action(pi, gen)
+        logp = model.log_prob(pi, action)
+        return action.cpu(), logp.cpu(), value.cpu()
+
+    step()
+    ms = timed_calls(step, RL_TIMED["off_policy"])
+    rl_line({"learner": "ppo_nature_cnn policy step", "batch":
+             RL_POLICY_BATCH, "ms_per_step": ms,
+             "frames_per_s": RL_POLICY_BATCH / (ms / 1e3)})
+
+
+def rl_dp(spec, cfg, shape, dev, failures):
+    """LearnerGroup(num_learners=2), both shards on the card, against
+    num_learners=1 from the same seed: within RL_DP_RTOL."""
+    from ray_tpu_torch.rllib import LearnerGroup, build_model
+    T, B = shape
+    roll = rl_rollout(spec, T, B, seed=RL_SEED + 1)
+    one = LearnerGroup(build_model(spec), cfg, seed=RL_SEED, device=dev)
+    two = LearnerGroup(build_model(spec), cfg, num_learners=2,
+                       seed=RL_SEED, device=dev)
+    base = host_tree(one.learner.params)
+    m1, m2 = one.update(roll), two.update(roll)
+    check = rl_compare("ppo_mlp dp=2", host_tree(two.learner.params),
+                       one.learner.params, base,
+                       {k: (m2[k], m1[k])
+                        for k in ("policy_loss", "vf_loss", "entropy")},
+                       RL_DP_RTOL, failures)
+    ms = timed_calls(lambda: two.update(roll), RL_TIMED["ppo"])
+    busy, dev_ms = profile_call(lambda: two.update(roll),
+                                "rllib[ppo_mlp dp=2]")
+    samples = T * B * cfg["num_epochs"]
+    rl_line({"learner": "ppo_mlp LearnerGroup(num_learners=2)",
+             "devices": [str(d) for d in two.learner.devices],
+             "rollout": [T, B], "ms_per_update": ms,
+             "samples_per_update": samples,
+             "samples_per_s": samples / (ms / 1e3),
+             "device_busy_share_traced": busy, "device_ms": dev_ms,
+             "device_share_untraced": dev_ms / ms,
+             "against": "num_learners=1",
+             **check})
+
+
+def rl_q_batch(n, obs_dim, action_dim, weights, seed=RL_SEED):
+    """A replay sample from a seed: n-step discounts (gamma^k, k in 1..3,
+    a fifth of them terminal zeros) and, for PER, importance weights."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    disc = (0.99 ** rng.integers(1, 4, n)).astype(np.float32)
+    disc[rng.random(n) < 0.2] = 0.0
+    b = {"obs": rng.standard_normal((n, obs_dim)).astype(np.float32),
+         "actions": rng.integers(0, action_dim, n).astype(np.int32),
+         "rewards": rng.uniform(-1, 2, n).astype(np.float32),
+         "next_obs": rng.standard_normal((n, obs_dim)).astype(np.float32),
+         "discounts": disc}
+    if weights:
+        w = rng.uniform(0.2, 1.0, n).astype(np.float32)
+        b["weights"] = w / w.max()
+    return b
+
+
+def rl_sa_batch(n, obs_dim, action_dim, seed=RL_SEED):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return {"obs": rng.standard_normal((n, obs_dim)).astype(np.float32),
+            "actions": rng.uniform(-1, 1, (n, action_dim)).astype(np.float32),
+            "rewards": rng.standard_normal(n).astype(np.float32),
+            "next_obs": rng.standard_normal((n, obs_dim)).astype(np.float32),
+            "dones": (rng.random(n) < 0.05).astype(np.float32)}
+
+
+def rl_on(batch, device):
+    import torch
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def rl_off_policy_row(name, step, card, cpu, state_of, batch, shape, dev,
+                      rtol, failures):
+    """One off-policy learner: ``step(algo, batch)`` (one update, in place,
+    returning name -> loss tensor) on the card and on the CPU from the same
+    state, batch and draws; then the update timed and profiled."""
+    base = host_tree(state_of(card))
+    on_card, on_cpu = rl_on(batch, dev), rl_on(batch, "cpu")
+    lc, lp = step(card, on_card), step(cpu, on_cpu)
+    check = rl_compare(name, host_tree(state_of(card)), state_of(cpu), base,
+                       {k: (float(lc[k].double().norm()),
+                            float(lp[k].double().norm())) for k in lc},
+                       rtol, failures)
+    ms = timed_calls(lambda: step(card, on_card), RL_TIMED["off_policy"])
+    busy, dev_ms = profile_call(lambda: step(card, on_card),
+                                f"rllib[{name}]")
+    n = len(batch["rewards"])
+    rl_line({"learner": name, "shape": shape, "batch": n,
+             "ms_per_update": ms, "samples_per_update": n,
+             "samples_per_s": n / (ms / 1e3),
+             "device_busy_share_traced": busy, "device_ms": dev_ms,
+             "device_share_untraced": dev_ms / ms, **check})
+
+
+def rl_off_policy(dev, failures):
+    """DQN, Rainbow, SAC, TD3 (both do_actor variants) and DDPG, each built
+    with ``learner_only`` on the card and on the CPU from seed 0."""
+    import torch
+    from ray_tpu_torch import rllib
+
+    def q_step(algo, b):
+        (algo.params, algo.target_params, algo.opt_state, loss,
+         per_sample) = algo._update(algo.params, algo.target_params,
+                                    algo.opt_state, b)
+        return {"loss": loss, "per_sample_loss": per_sample}
+
+    def q_state(algo):
+        return {"params": algo.params, "target": algo.target_params}
+
+    for name, cls, cfg, per in (
+            ("dqn", rllib.DQN, rllib.DQNConfig(), False),
+            ("rainbow", rllib.Rainbow, rllib.RainbowConfig(), True)):
+        cfg.training(batch_size=128)
+        card = cls.learner_only(cfg, 4, 2, device=None)
+        cpu = cls.learner_only(cfg, 4, 2, device="cpu")
+        rl_off_policy_row(
+            name, q_step, card, cpu, q_state, rl_q_batch(128, 4, 2, per),
+            {**card.model_spec, "per_weights": per,
+             "double_q": cfg.train["double_q"]}, dev, RL_LEAF_RTOL,
+            failures)
+
+    def sac_step(algo, b):
+        (algo.state, algo.opt_state, closs, aloss, alpha) = algo._update(
+            algo.state, algo.opt_state, b,
+            torch.Generator().manual_seed(RL_SEED))
+        return {"critic_loss": closs, "actor_loss": aloss, "alpha": alpha}
+
+    cfg = rllib.SACConfig().training(batch_size=256)
+    rl_off_policy_row(
+        "sac", sac_step, rllib.SAC.learner_only(cfg, 3, 1, device=None),
+        rllib.SAC.learner_only(cfg, 3, 1, device="cpu"),
+        lambda a: a.state, rl_sa_batch(256, 3, 1), {"obs": 3, "actions": 1,
+                                                    "hidden": [256, 256]},
+        dev, RL_LEAF_RTOL, failures)
+
+    for name, cls, cfg_cls, variants in (
+            ("td3", rllib.TD3, rllib.TD3Config, (False, True)),
+            ("ddpg", rllib.DDPG, rllib.DDPGConfig, (True,))):
+        cfg = cfg_cls().training(batch_size=256)
+        for do_actor in variants:
+            # each variant from seed 0's state on both devices
+            card = cls.learner_only(cfg, 3, 1, device=None)
+            cpu = cls.learner_only(cfg, 3, 1, device="cpu")
+            def td3_step(algo, b, do_actor=do_actor):
+                algo.state, algo.opt_state, closs, aloss = algo._update(
+                    algo.state, algo.opt_state, b,
+                    torch.Generator().manual_seed(RL_SEED), do_actor)
+                out = {"critic_loss": closs}
+                if do_actor:
+                    out["actor_loss"] = aloss
+                return out
+
+            rl_off_policy_row(
+                f"{name} do_actor={do_actor}", td3_step, card, cpu,
+                lambda a: a.state, rl_sa_batch(256, 3, 1),
+                {"obs": 3, "actions": 1, "hidden": [256, 256],
+                 "twin_q": cfg.train["twin_q"]}, dev, RL_LEAF_RTOL,
+                failures)
+
+
+def rllib_learners(dev):
+    """Phase rllib_learners: each learner of ray_tpu_torch/rllib built with
+    ``device=None`` (the card) and fed seeded rollouts or replay samples at
+    the reference's shapes (the card has no gymnasium, so no env steps):
+    updates on the card against the same updates on the CPU, ms per
+    update, samples/s and the device-busy share of one profiled update;
+    the conv policy's runner step; LearnerGroup's dp=2 against dp=1.  Every
+    learner runs before the phase fails on what disagreed.
+
+    The Nature CNN's whole update is a reading, not a check: Adam's first
+    step moves every weight by the learning rate in the sign of its
+    gradient, and weights whose gradients are within rounding of zero take
+    either sign, so 16 steps from one state land a few percent apart even
+    on one CPU at two thread counts (printed beside it).  Its GAE and first
+    minibatch's gradients, before Adam, are held to RL_CONV_RTOL."""
+    import torch
+    failures = []
+    for name, spec, cfg, shape in RL_PPO:
+        conv = "obs_shape" in spec
+        card = rl_ppo(name, spec, cfg, shape, None,
+                      RL_CONV_RTOL if conv else RL_LEAF_RTOL, failures,
+                      held=not conv)
+        if conv:
+            rl_policy_path(card, spec, dev)
+        del card
+    rl_off_policy(dev, failures)
+    name, spec, cfg, shape = RL_PPO[0]
+    rl_dp(spec, cfg, shape, dev, failures)
+    torch.cuda.synchronize()
+    if failures:
+        raise AssertionError("rllib_learners: " + "; ".join(failures))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3335,6 +3763,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("train_llama_1b_sp_pp"):
         sp_pp = train_llama_sp_pp(dev)
+    free_cards()
+    with phase("rllib_learners"):
+        rllib_learners(dev)
     mesh_launches = {f"train_mesh[{label}]": launches
                      for label, (_, launches) in llama_mesh.items()}
     mesh_launches[f"train_mixtral_mesh[{mesh_label(MIXTRAL_MESH)}]"] = (

@@ -1,0 +1,274 @@
+"""Learner + LearnerGroup: the PPO update.
+
+Counterpart of ``ray_tpu/rllib/learner.py`` (reference:
+``rllib/core/learner/learner.py:229`` and ``learner_group.py:61``).  The
+reference compiles the whole update (GAE, advantage normalisation,
+minibatch epochs, the clipped loss, Adam) into one jitted program,
+data-parallel over a device mesh.  Here the same steps run eagerly on the
+learner's device: GAE is a loop over T where JAX scans, and the minibatch
+epochs are Python loops of autograd steps, each ending in optax's
+``chain(clip_by_global_norm(grad_clip), adam(lr))`` (``optim.Adam``).
+
+Data parallelism (``LearnerGroup(num_learners=N > 1)``) is one process
+over a device list, the port's counterpart of the reference's ``dp``
+mesh: the batch axis (axis 1 of ``[T, B, ...]``, axis 0 of
+``last_values``) is split into N contiguous blocks, one per device; each
+device computes GAE on its columns; the advantage normalisation and each
+epoch's permutation stay global, as XLA computes them on the sharded
+arrays.  Each device takes the minibatch rows it holds, and its loss is
+its rows' share of the minibatch mean (a sum over its rows divided by the
+minibatch size), so the shards' losses and gradients add up, in device
+order on the first device, to the single-device ones.  The params and
+Adam's state live on the first device, and every step copies the params
+to the others.
+
+The one random draw of an update, each epoch's permutation, goes through
+``_permutation``, which a test can replace with JAX's.  The learner draws
+it on the host from a ``torch.Generator`` seeded with ``seed + 1`` (the
+reference's key), so a run on the card draws what a CPU run draws.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from .. import device as device_mod
+from ..parallel import mesh as mesh_mod
+from .optim import Adam
+
+
+def _permutation(gen: torch.Generator, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``'s role: a permutation of
+    ``range(n)`` on the host (int64)."""
+    return torch.randperm(n, generator=gen)
+
+
+def leaves(tree: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+    """A flat param dict's leaves in sorted key order (JAX's leaf order)."""
+    return [tree[k] for k in sorted(tree)]
+
+
+def to_device(params_blob: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    """A dict of numpy arrays (``get_weights()``) as tensors on ``device``."""
+    return {k: torch.tensor(np.asarray(v), device=device)
+            for k, v in params_blob.items()}
+
+
+def to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def dp_mesh(num_learners: int, device=None) -> mesh_mod.Mesh:
+    """A dp mesh of ``num_learners`` devices: ``None`` puts learner i on
+    ``cuda:i`` (as the reference takes ``jax.devices()[:num_learners]``),
+    one device puts every learner on it (``"cuda:0"``, or ``"cpu"`` in
+    tests)."""
+    if device is None:
+        device_mod.resolve(None)
+        devices = mesh_mod.cuda_devices()[:num_learners]
+    else:
+        devices = [device] * num_learners
+    return mesh_mod.MeshSpec(dp=num_learners, fsdp=1).build(devices)
+
+
+class Learner:
+    """Owns params + optimizer state; ``update()`` runs the PPO update on
+    the learner's device (or over ``mesh``'s ``dp`` devices)."""
+
+    def __init__(self, model, config: Dict[str, Any],
+                 mesh: Optional[mesh_mod.Mesh] = None, seed: int = 0,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.model = model
+        self.cfg = dict(config)
+        self.mesh = mesh
+        self.devices: List[torch.device] = (
+            [device_mod.resolve(device)] if mesh is None
+            else list(mesh.devices.flat))
+        self.device = self.devices[0]
+        # params drawn on the host: the same seed gives the same params on
+        # every device
+        params = model.init(torch.Generator().manual_seed(seed))
+        self.params = {k: v.to(self.device) for k, v in params.items()}
+        self.opt = Adam(self.cfg.get("lr", 3e-4),
+                        grad_clip=self.cfg.get("grad_clip", 0.5))
+        self.opt_state = self.opt.init(leaves(self.params))
+        self._gen = torch.Generator().manual_seed(seed + 1)
+
+    # ------------------------------------------------------------- the math
+
+    def _gae(self, rewards, values, dones, last_values):
+        """Generalized advantage estimation, the reference's reverse scan as
+        a loop over T.  rewards/values/dones: [T, B]; last_values: [B]."""
+        gamma = self.cfg.get("gamma", 0.99)
+        lam = self.cfg.get("lambda", 0.95)
+        nonterm = 1.0 - dones
+        v_next = torch.cat([values[1:], last_values[None]], 0)
+        delta = rewards + gamma * v_next * nonterm - values
+        coef = gamma * lam * nonterm
+        advs = torch.empty_like(rewards)
+        adv = torch.zeros_like(last_values)
+        for t in reversed(range(rewards.shape[0])):
+            adv = torch.addcmul(delta[t], coef[t], adv, out=advs[t])
+        return advs
+
+    def _loss(self, params, batch, key=None, count: Optional[int] = None):
+        """The clipped PPO loss and its metrics.  ``count`` (default: the
+        batch's rows) is what every mean divides by: a dp shard passes the
+        whole minibatch's size, so the shards' terms add up to the means."""
+        cfg = self.cfg
+        n = batch["logp"].shape[0] if count is None else count
+
+        def mean(x):
+            return x.sum() / n
+
+        pi_out, value = self.model.apply(params, batch["obs"])
+        logp = self.model.log_prob(pi_out, batch["actions"])
+        ratio = torch.exp(logp - batch["logp"])
+        clip = cfg.get("clip_param", 0.2)
+        adv = batch["advantages"]
+        surr = torch.minimum(ratio * adv,
+                             torch.clamp(ratio, 1 - clip, 1 + clip) * adv)
+        pi_loss = -mean(surr)
+        vf_clip = cfg.get("vf_clip_param", 10.0)
+        vf_err = torch.clamp(value - batch["returns"], -vf_clip, vf_clip)
+        vf_loss = mean(vf_err ** 2)
+        ent = mean(self.model.entropy(pi_out))
+        total = (pi_loss + cfg.get("vf_loss_coeff", 0.5) * vf_loss
+                 - cfg.get("entropy_coeff", 0.0) * ent)
+        return total, {"policy_loss": pi_loss, "vf_loss": vf_loss,
+                       "entropy": ent, "kl": mean(batch["logp"] - logp)}
+
+    # ------------------------------------------------------------ the shards
+
+    def _place_batch(self, rollout) -> List[Dict[str, torch.Tensor]]:
+        """Each device's block of the batch axis (axis 1 of [T, B, ...],
+        axis 0 of 1-D ``last_values``), as tensors on that device."""
+        nd = len(self.devices)
+        B = np.asarray(rollout["rewards"]).shape[1]
+        if B % nd:
+            raise ValueError(f"batch axis {B} does not split over {nd} "
+                             f"learners")
+        bl = B // nd
+        out = []
+        for d, dev in enumerate(self.devices):
+            part = {}
+            for k, v in rollout.items():
+                v = np.asarray(v)
+                blk = (v[d * bl:(d + 1) * bl] if v.ndim <= 1
+                       else v[:, d * bl:(d + 1) * bl])
+                part[k] = torch.from_numpy(np.ascontiguousarray(blk)).to(dev)
+            out.append(part)
+        return out
+
+    def _route(self, idx: torch.Tensor, B: int) -> List[torch.Tensor]:
+        """Global flat rows ``idx`` (row t * B + b of [T, B]) -> each
+        device's local flat rows (t * B/N + b - d * B/N) on that device."""
+        if len(self.devices) == 1:
+            return [idx.to(self.device)]
+        bl = B // len(self.devices)
+        col, row = idx % B, idx // B
+        shard = col // bl
+        local = row * bl + col - shard * bl
+        return [local[shard == d].to(dev)
+                for d, dev in enumerate(self.devices)]
+
+    # -------------------------------------------------------------- public
+
+    def update(self, rollout: Dict[str, np.ndarray]) -> Dict[str, float]:
+        cfg = self.cfg
+        epochs = cfg.get("num_epochs", 4)
+        minibatches = cfg.get("num_minibatches", 4)
+        shards = self._place_batch(rollout)
+        T, B = np.asarray(rollout["rewards"]).shape[:2]
+        flats = []
+        for r in shards:
+            advs = self._gae(r["rewards"], r["values"], r["dones"],
+                             r["last_values"])
+            returns = advs + r["values"]
+            flats.append({
+                "obs": r["obs"].reshape(-1, *r["obs"].shape[2:]),
+                "actions": r["actions"].reshape(-1,
+                                                *r["actions"].shape[2:]),
+                "logp": r["logp"].reshape(-1),
+                "advantages": advs.reshape(-1),
+                "returns": returns.reshape(-1),
+            })
+        n = T * B
+        # the normalisation is global: sums over every shard, in order
+        adv_mean = mesh_mod.ordered_sum(
+            [f["advantages"].sum() for f in flats]) / n
+        var = mesh_mod.ordered_sum(
+            [((f["advantages"] - adv_mean.to(f["advantages"].device)) ** 2)
+             .sum() for f in flats]) / n
+        std = torch.sqrt(var)
+        for f in flats:
+            a = f["advantages"]
+            f["advantages"] = ((a - adv_mean.to(a.device))
+                               / (std.to(a.device) + 1e-8))
+
+        keys = sorted(self.params)
+        mb_size = n // minibatches
+        aux = None
+        for _ in range(epochs):
+            perm = _permutation(self._gen, n)
+            idxs = perm[:mb_size * minibatches].reshape(minibatches, mb_size)
+            for m in range(minibatches):
+                grads, aux = self._shard_grads(flats, self._route(idxs[m], B),
+                                               keys, mb_size)
+                self.opt.step_(leaves(self.params), grads, self.opt_state)
+        values = torch.stack(list(aux.values())).tolist()
+        return dict(zip(aux, values))
+
+    def _shard_grads(self, flats, routes, keys, mb_size):
+        """The minibatch's loss gradients and metrics: each device's share
+        of the rows, summed over the devices in order on the first."""
+        per_grads, per_aux = [], []
+        for d, (dev, flat, idx) in enumerate(zip(self.devices, flats,
+                                                 routes)):
+            src = {k: (self.params[k] if d == 0
+                       else self.params[k].to(dev, copy=True))
+                   for k in keys}
+            p = {k: v.detach().requires_grad_() for k, v in src.items()}
+            mb = {k: v[idx] for k, v in flat.items()}
+            loss, aux = self._loss(p, mb, None, count=mb_size)
+            per_grads.append(torch.autograd.grad(loss,
+                                                 [p[k] for k in keys]))
+            per_aux.append({k: v.detach() for k, v in aux.items()})
+        if len(per_grads) == 1:
+            return list(per_grads[0]), per_aux[0]
+        grads = [mesh_mod.ordered_sum([g[i] for g in per_grads])
+                 for i in range(len(keys))]
+        aux = {k: mesh_mod.ordered_sum([a[k] for a in per_aux])
+               for k in per_aux[0]}
+        return grads, aux
+
+    def get_weights(self) -> Dict[str, np.ndarray]:
+        return to_numpy(self.params)
+
+
+class LearnerGroup:
+    """Data-parallel learner over a device list.
+
+    The reference drives its local devices through a ``dp`` mesh in one
+    process, the allreduce compiled; the port drives the same split from
+    one process and sums the gradients in device order (``Learner``).
+    ``device``: see ``dp_mesh`` (one learner: the device, ``None`` for the
+    card)."""
+
+    def __init__(self, model, config: Dict[str, Any],
+                 num_learners: int = 1, seed: int = 0,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.mesh = None
+        if num_learners > 1:
+            self.mesh = dp_mesh(num_learners, device)
+        self.learner = Learner(model, config, mesh=self.mesh, seed=seed,
+                               device=device)
+
+    def update(self, rollout: Dict[str, np.ndarray]) -> Dict[str, float]:
+        return self.learner.update(rollout)
+
+    def get_weights(self) -> Dict[str, np.ndarray]:
+        return self.learner.get_weights()

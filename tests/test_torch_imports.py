@@ -48,14 +48,55 @@ def test_every_module_imports_with_jax_and_ray_tpu_blocked():
     # models.{config,convert,decode,paged_decode,remat,sharding,
     # speculative,transformer}, ops.{_build,attention,flash_attention,moe,
     # splash_attention}, parallel.{mesh,quant_collectives,train_step,zero},
-    # serve.llm, train.torch_utils, device and the five subpackages
-    assert int(res.stdout.split()[-1]) >= 25, res.stdout
+    # serve.llm, train.torch_utils, device, the rllib modules and the six
+    # subpackages
+    assert int(res.stdout.split()[-1]) >= 25 + len(RLLIB_MODULES), res.stdout
     for name in ("ray_tpu_torch.ops.moe", "ray_tpu_torch.parallel.mesh",
                  "ray_tpu_torch.models.sharding",
                  "ray_tpu_torch.train.torch_utils",
                  "ray_tpu_torch.parallel.zero",
-                 "ray_tpu_torch.parallel.quant_collectives"):
+                 "ray_tpu_torch.parallel.quant_collectives") + RLLIB_MODULES:
         assert name in res.stdout.split(), res.stdout
+
+
+RLLIB_MODULES = tuple(f"ray_tpu_torch.rllib.{m}" for m in (
+    "replay_buffer", "examples_env", "models", "conv", "optim", "learner",
+    "env_runner", "ppo", "a2c", "dqn", "rainbow", "sac", "td3", "ddpg"))
+
+_NO_GYM_IMPORT = r'''
+import sys
+
+class _Blocker:
+    def find_spec(self, name, path=None, target=None):
+        root = name.split(".")[0]
+        if root in ("jax", "jaxlib", "ray_tpu", "gymnasium"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, _Blocker())
+import ray_tpu_torch.rllib as rl
+from ray_tpu_torch.rllib import examples_env
+assert examples_env.gym is None
+# the learners build and step without gymnasium
+algo = rl.DQN.learner_only(rl.DQNConfig(), 4, 2, device="cpu")
+try:
+    rl.DQNRunner("CartPole-v1", algo.model_spec, device="cpu")
+except ImportError as e:
+    assert "gymnasium" in str(e), e
+else:
+    raise AssertionError("a runner built without gymnasium")
+print("ok", len(rl.__all__))
+'''
+
+
+def test_rllib_imports_without_gymnasium():
+    """The card has no gymnasium: ``import ray_tpu_torch.rllib`` and the
+    learners work without it; only the runners and drivers import it."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", _NO_GYM_IMPORT], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[0] == "ok", res.stdout
 
 
 def _import_roots(path: Path):
@@ -84,6 +125,26 @@ def test_engine_without_device_raises_when_cuda_is_missing(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LLMEngine(tiny())
+
+
+def test_rllib_entry_points_without_device_raise_when_cuda_is_missing(
+        monkeypatch):
+    import ray_tpu_torch.rllib as rl
+    from ray_tpu_torch.rllib.models import ActorCriticMLP
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn in (lambda: rl.LearnerGroup(ActorCriticMLP(4, 2), {}),
+               lambda: rl.LearnerGroup(ActorCriticMLP(4, 2), {},
+                                       num_learners=2),
+               lambda: rl.DQN.learner_only(rl.DQNConfig(), 4, 2),
+               lambda: rl.Rainbow.learner_only(rl.RainbowConfig(), 4, 2),
+               lambda: rl.SAC.learner_only(rl.SACConfig(), 3, 1),
+               lambda: rl.TD3.learner_only(rl.TD3Config(), 3, 1),
+               lambda: rl.PPOConfig().environment("CartPole-v1").build(),
+               lambda: rl.EnvRunner("CartPole-v1",
+                                    dict(obs_dim=4, action_dim=2))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn()
 
 
 def test_train_entry_points_without_device_raise_when_cuda_is_missing(
