@@ -211,7 +211,28 @@ script exits non-zero:
     device ms beside the untraced time; the conv policy's runner step on
     8 frames; ``LearnerGroup(num_learners=2)`` with both shards on the
     card within 2e-4 of one.  No kernel of the port runs here.
-11. A JSON line of kernels (each path's launches; the mesh paths'
+11. ``rllib_algorithms``: the rest of RLlib (``ray_tpu_torch/rllib``),
+    built with ``device=None``, f32 with TF32 off, inputs from seed 0 at
+    the reference's shapes: ``ImpalaLearner`` on the CartPole gate's MLP
+    ([64, 2] fragments), APPO on the same and the Nature CNN ((84, 84, 4)
+    uint8, [64, 8]): one update on the card against the CPU from the same
+    state and fragment (V-trace's ``vs`` and ``pg_adv`` within 1e-5 of
+    their largest magnitude; the MLP leaves and losses 1e-4; the conv's
+    gradients before Adam 1e-3, its update a reading, as in 10.), and
+    ``num_devices_per_learner=2`` (both shards on the card) against one
+    within 2e-4; BC, MARWIL (beta 1) and CQL from ``learner_only`` on a
+    seeded CartPole-shaped corpus of ~6,000 transitions through
+    ``write_episodes`` / ``from_jsonl``, one ``train()`` of 10 updates
+    (1e-4); Ape-X's ``_td_abs`` (1e-5) and one update on a shard's
+    sample of 64 (1e-4); one ES and one ARS driver update (theta 1e-5
+    rel. L2) and ``ESPolicy`` on a batch; ``MultiAgentPPO`` on
+    RockPaperScissors end to end (three iterations, the third's updates
+    against the CPU within 1e-4); PPO in external mode end to end (a
+    numpy simulator with CartPole's shapes in a thread, ``PolicyClient``
+    over localhost, three iterations of 256 steps).  ms per update or
+    iteration, samples/s, the busy share of one profiled IMPALA update,
+    the server's ms per ``get_action``.  No kernel of the port runs here.
+12. A JSON line of kernels (each path's launches; the mesh paths'
     under ``train_mesh[...]``, the dp arms' under ``train_dp[...]``, the
     sp and pipeline runs' under ``train_sp_pp[...]``;
     B1-B3 at each mesh's shard shape, checked
@@ -432,6 +453,30 @@ RL_PPO = (
      dict(lr=2.5e-4, num_epochs=4, num_minibatches=4, entropy_coeff=0.01),
      (128, 8)),
 )
+# The rest of RLlib's algorithms (phase rllib_algorithms), the same way:
+# card against CPU from the same state, inputs and draws
+RL_VTRACE_TOL = 1e-5       # vs and pg_adv, of the largest magnitude
+RL_TD_TOL = 1e-5           # Ape-X's |TD| priorities, likewise
+RL_ES_RTOL = 1e-5          # ES / ARS theta, rel. L2
+RL_ALGO_TIMED = 5          # calls timed per row (median)
+# IMPALA's defaults on the CartPole gate's MLP (tests/test_rllib_impala.py:
+# 2 runners x 2 envs x 64 steps, one [64, 2] fragment an update), APPO on
+# the same, and the Nature CNN on an Atari-class fragment
+RL_IMPALA_CFG = dict(lr=5e-3, gamma=0.99, grad_clip=40.0, vf_loss_coeff=0.5,
+                     entropy_coeff=0.01, vtrace_rho_clip=1.0,
+                     vtrace_c_clip=1.0, clip_param=0.3)
+RL_IMPALA = (
+    ("impala_mlp", dict(obs_dim=4, action_dim=2, hidden=(64, 64)), False,
+     (64, 2)),
+    ("appo_mlp", dict(obs_dim=4, action_dim=2, hidden=(64, 64)), True,
+     (64, 2)),
+    ("impala_nature_cnn", dict(obs_shape=(84, 84, 4), action_dim=6), False,
+     (64, 8)),
+)
+RL_CORPUS_STEPS = 6000     # CartPole-shaped offline corpus, transitions
+RL_OFFLINE_UPDATES = 10    # one train() of the offline learners
+RL_APEX_BATCH = 64         # the Ape-X gate's batch (tests/test_rllib_apex.py)
+RL_EXTERNAL_T = 256        # PPO's external-mode fragment, 3 iterations
 
 
 def log(msg: str) -> None:
@@ -3630,6 +3675,425 @@ def rllib_learners(dev):
         raise AssertionError("rllib_learners: " + "; ".join(failures))
 
 
+# ---------------------------------------------------------------------------
+# Phase rllib_algorithms: the rest of RLlib's algorithms on the card
+# ---------------------------------------------------------------------------
+
+def rl_rel_max(got, want) -> float:
+    """max |got - want| over the largest |want| (host tensors)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return ((got - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def rl_held(name, value, limit, failures):
+    if not value <= limit:
+        failures.append(f"{name}: {value} over {limit}")
+    return value
+
+
+def rl_impala_vtrace(lrn, roll):
+    """The learner's V-trace on the fragment under its params, and the
+    loss's gradients before any update: (vs, pg_adv, grads, loss, aux)."""
+    import torch
+    r = {k: torch.from_numpy(v).to(lrn.device) for k, v in roll.items()}
+    T, B = r["rewards"].shape
+    keys = sorted(lrn.params)
+    p = {k: lrn.params[k].detach().requires_grad_() for k in keys}
+    with torch.no_grad():
+        pi, values = lrn.model.apply(p, r["obs"].reshape(
+            (T * B,) + r["obs"].shape[2:]))
+        tgt = lrn.model.log_prob(pi, r["actions"].reshape(-1)).reshape(T, B)
+        vs, pg_adv, _ = lrn.vtrace(tgt, r["logp"], values.reshape(T, B),
+                                   r["rewards"], r["dones"],
+                                   r["last_values"])
+    loss, aux = lrn._loss(p, r)
+    grads = torch.autograd.grad(loss, [p[k] for k in keys])
+    return (vs, pg_adv, dict(zip(keys, grads)), loss.item(),
+            {k: v.item() for k, v in aux.items()})
+
+
+def rl_impala(name, spec, appo, shape, dev, failures):
+    """One ImpalaLearner on the card against the CPU from seed 0's state
+    and one fragment: V-trace, the gradients before Adam, the update
+    (held for the MLP; for the Nature CNN a reading, as rllib_learners
+    explains); timed and one update profiled."""
+    from ray_tpu_torch.rllib import build_model
+    from ray_tpu_torch.rllib.impala import ImpalaLearner
+    T, B = shape
+    cfg = dict(RL_IMPALA_CFG, use_appo_clip=appo)
+    conv = "obs_shape" in spec
+    roll = rl_rollout(spec, T, B)
+    card = ImpalaLearner(build_model(spec), cfg, seed=RL_SEED, device=None)
+    cpu = ImpalaLearner(build_model(spec), cfg, seed=RL_SEED, device="cpu")
+    (vc, ac, gc_, lc, xc), (vp, ap, gp, lp, xp) = (
+        rl_impala_vtrace(card, roll), rl_impala_vtrace(cpu, roll))
+    vtrace = {"vs": rl_held(f"{name} vs", rl_rel_max(vc, vp),
+                            RL_VTRACE_TOL, failures),
+              "pg_adv": rl_held(f"{name} pg_adv", rl_rel_max(ac, ap),
+                                RL_VTRACE_TOL, failures)}
+    grads = rl_compare(f"{name} gradients", host_tree(gc_), gp, None,
+                       {"loss": (lc, lp), **{k: (xc[k], xp[k]) for k in xc}},
+                       RL_CONV_RTOL if conv else RL_LEAF_RTOL, failures)
+    base = host_tree(card.params)
+    m_card, m_cpu = card.update(roll), cpu.update(roll)
+    check = rl_compare(name, host_tree(card.params), cpu.params, base,
+                       {k: (m_card[k], m_cpu[k]) for k in m_card},
+                       None if conv else RL_LEAF_RTOL, failures)
+    ms = timed_calls(lambda: card.update(roll), RL_ALGO_TIMED)
+    busy, dev_ms = profile_call(lambda: card.update(roll), f"rllib[{name}]")
+    rl_line({"learner": name, "model": spec, "fragment": [T, B],
+             "appo_clip": appo, "ms_per_update": ms,
+             "samples_per_s": T * B / (ms / 1e3),
+             "device_busy_share_traced": busy, "device_ms": dev_ms,
+             "device_share_untraced": dev_ms / ms,
+             "vtrace_rel_max": vtrace, "first_gradients": grads,
+             "update_held": not conv, **check})
+
+
+def rl_impala_dp(dev, failures):
+    """ImpalaLearner on a dp mesh of two, both shards on the card (the
+    fragment's columns split), against one device."""
+    from ray_tpu_torch.rllib import build_model
+    from ray_tpu_torch.rllib.impala import ImpalaLearner
+    from ray_tpu_torch.rllib.learner import dp_mesh
+    name, spec, appo, (T, B) = RL_IMPALA[0]
+    cfg = dict(RL_IMPALA_CFG, use_appo_clip=appo)
+    roll = rl_rollout(spec, T, B, seed=RL_SEED + 1)
+    one = ImpalaLearner(build_model(spec), cfg, seed=RL_SEED, device=dev)
+    two = ImpalaLearner(build_model(spec), cfg, seed=RL_SEED,
+                        mesh=dp_mesh(2, dev))
+    base = host_tree(one.params)
+    m1, m2 = one.update(roll), two.update(roll)
+    check = rl_compare(f"{name} dp=2", host_tree(two.params), one.params,
+                       base, {k: (m2[k], m1[k]) for k in m1}, RL_DP_RTOL,
+                       failures)
+    ms = timed_calls(lambda: two.update(roll), RL_ALGO_TIMED)
+    rl_line({"learner": f"{name} num_devices_per_learner=2",
+             "devices": [str(d) for d in two.devices], "fragment": [T, B],
+             "ms_per_update": ms, "samples_per_s": T * B / (ms / 1e3),
+             "against": "one device", **check})
+
+
+def rl_corpus(path):
+    """A CartPole-shaped corpus from seed 0 (obs 4, actions 0/1 from a
+    scripted rule with a fifth flipped, reward 1 a step, episodes of 20 to
+    400 steps) through ``write_episodes``, about RL_CORPUS_STEPS
+    transitions."""
+    import numpy as np
+    from ray_tpu_torch.rllib import write_episodes
+    rng = np.random.default_rng(RL_SEED)
+    episodes, n = [], 0
+    while n < RL_CORPUS_STEPS:
+        t = int(rng.integers(20, 400))
+        obs = (0.5 * rng.standard_normal((t, 4))).astype(np.float32)
+        acts = (obs[:, 2] + 0.5 * obs[:, 3] > 0).astype(np.int64)
+        flip = rng.random(t) < 0.2
+        acts[flip] = 1 - acts[flip]
+        episodes.append({"obs": obs, "actions": acts,
+                         "rewards": np.ones(t, np.float32)})
+        n += t
+    write_episodes(path, episodes)
+    return n
+
+
+def rl_offline(dev, failures):
+    """BC, MARWIL (beta=1) and CQL from ``learner_only`` on the corpus read
+    back by ``from_jsonl``: one train() of RL_OFFLINE_UPDATES updates on
+    the card against the CPU (the same numpy draws), then timed."""
+    import os
+    import tempfile
+    from ray_tpu_torch import rllib
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "corpus.jsonl")
+        n = rl_corpus(path)
+        datasets = {"offline": rllib.OfflineDataset.from_jsonl(path),
+                    "transitions": rllib.TransitionDataset.from_jsonl(path)}
+    for name, cls, cfg_cls, beta, kind in (
+            ("bc", rllib.MARWIL, rllib.BCConfig, 0.0, "offline"),
+            ("marwil", rllib.MARWIL, rllib.MARWILConfig, 1.0, "offline"),
+            ("cql", rllib.CQL, rllib.CQLConfig, None, "transitions")):
+        cfg = cfg_cls().training(updates_per_iter=RL_OFFLINE_UPDATES)
+        data = datasets[kind]
+
+        def make(device):
+            return cls.learner_only(cfg, 4, 2, device=device, data=data)
+
+        card, cpu = make(None), make("cpu")
+        base = host_tree(card.params)
+        m_card, m_cpu = card.train(), cpu.train()
+        metrics = [k for k in m_card if k not in ("training_iteration",
+                                                  "num_transitions")]
+        check = rl_compare(name, host_tree(card.params), cpu.params, base,
+                           {k: (m_card[k], m_cpu[k]) for k in metrics
+                            if m_cpu[k] != 0.0},
+                           RL_LEAF_RTOL, failures)
+        ms = timed_calls(card.train, RL_ALGO_TIMED)
+        bs = min(cfg.cfg["train_batch_size"], len(data))
+        rl_line({"learner": name, "corpus_transitions": n,
+                 "batch": bs, "beta": beta,
+                 "updates_per_train": RL_OFFLINE_UPDATES,
+                 "ms_per_train": ms,
+                 "ms_per_update": ms / RL_OFFLINE_UPDATES,
+                 "samples_per_s": bs * RL_OFFLINE_UPDATES / (ms / 1e3),
+                 **check})
+
+
+def rl_apex(dev, failures):
+    """Ape-X's |TD| priorities on the card against the CPU, then one
+    update on a shard's sample of the gate's batch (PER weights), the
+    priorities pushed back; timed."""
+    import numpy as np
+    from ray_tpu_torch import rllib
+    cfg = rllib.APEXConfig().training(batch_size=RL_APEX_BATCH)
+    card = rllib.APEX.learner_only(cfg, 4, 2, device=None)
+    cpu = rllib.APEX.learner_only(cfg, 4, 2, device="cpu")
+    batch = rl_q_batch(1024, 4, 2, False)
+    on_card, on_cpu = card._device_batch(batch), cpu._device_batch(batch)
+    tc = card._td_abs(card.params, card.target_params, on_card)
+    tp = cpu._td_abs(cpu.params, cpu.target_params, on_cpu)
+    td = rl_held("apex td_abs", rl_rel_max(tc, tp), RL_TD_TOL, failures)
+    shards = {}
+    for algo in (card, cpu):
+        # both shards take the host's priorities: the check is the update
+        shard = rllib.ReplayShard(4096, cfg.replay["alpha"],
+                                  cfg.replay["beta"], seed=RL_SEED)
+        shard.add(batch, tp.numpy() + 1e-6)
+        shards[id(algo)] = shard
+
+    def step(algo):
+        shard = shards[id(algo)]
+        picked = shard.sample(cfg.train["batch_size"])
+        (algo.params, algo.target_params, algo.opt_state, loss,
+         tde) = algo._update(algo.params, algo.target_params,
+                             algo.opt_state, algo._device_batch(picked))
+        shard.update_priorities(picked["_indices"],
+                                tde.abs().cpu().numpy() + 1e-6)
+        return loss
+
+    base = host_tree({"params": card.params, "target": card.target_params})
+    lc, lp = step(card), step(cpu)
+    check = rl_compare("apex", host_tree({"params": card.params,
+                                          "target": card.target_params}),
+                       {"params": cpu.params, "target": cpu.target_params},
+                       base, {"loss": (lc.item(), lp.item())},
+                       RL_LEAF_RTOL, failures)
+    ms = timed_calls(lambda: step(card), RL_ALGO_TIMED)
+    td_ms = timed_calls(lambda: card._td_abs(card.params, card.target_params,
+                                             on_card).cpu(), RL_ALGO_TIMED)
+    rl_line({"learner": "apex", "batch": cfg.train["batch_size"],
+             "double_q": cfg.train["double_q"], "td_abs_rel_max": td,
+             "ms_per_update": ms,
+             "samples_per_s": cfg.train["batch_size"] / (ms / 1e3),
+             "td_abs_ms_1024": td_ms, **check})
+
+
+def rl_es(dev, failures):
+    """One ES and one ARS driver update at the defaults on the card against
+    the CPU (theta rel. L2), ESPolicy's forward on a batch and its act on
+    single observations; timed."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch import rllib
+    for name, cls, cfg in (("es", rllib.ES, rllib.ESConfig()),
+                           ("ars", rllib.ARS, rllib.ARSConfig())):
+        card = cls.learner_only(cfg, 4, 2, device=None)
+        cpu = cls.learner_only(cfg, 4, 2, device="cpu")
+        n = cfg.cfg["num_perturbations"]
+        seeds = [int(s.generate_state(1)[0])
+                 for s in np.random.SeedSequence(RL_SEED).spawn(n)]
+        rets = np.random.default_rng(RL_SEED).normal(
+            20, 8, (n, 2)).astype(np.float32)
+        theta0 = card.theta.copy()
+        card.update_from_returns(seeds, rets)
+        cpu.update_from_returns(seeds, rets)
+        rel = float(np.linalg.norm(card.theta - cpu.theta)
+                    / np.linalg.norm(cpu.theta - theta0))
+        rl_held(f"{name} theta", rel, RL_ES_RTOL, failures)
+        ms = timed_calls(lambda: card.update_from_returns(seeds, rets),
+                         RL_ALGO_TIMED)
+        obs = np.random.default_rng(RL_SEED).standard_normal(
+            (64, 4)).astype(np.float32)
+        pc, pp = card._policy, cpu._policy
+        fwd = rl_held(f"{name} policy forward", rl_rel_max(
+            pc.forward(pc.as_theta(theta0), torch.from_numpy(obs).to(
+                pc.device)), pp.forward(pp.as_theta(theta0),
+                                        torch.from_numpy(obs))),
+            RL_ES_RTOL, failures)
+        acts = [(pc.act(theta0, o), pp.act(theta0, o)) for o in obs[:16]]
+        if any(a != b for a, b in acts):
+            failures.append(f"{name} act: card {acts}")
+        theta_card = pc.as_theta(theta0)
+        act_ms = timed_calls(lambda: pc.act(theta_card, obs[0]),
+                             RL_ALGO_TIMED * 4)
+        rl_line({"learner": name, "perturbations": n, "dim": card.dim,
+                 "theta_change_rel_l2": rel, "forward_rel_max": fwd,
+                 "ms_per_driver_update": ms, "act_ms_one_observation": act_ms,
+                 "acts_equal": len(acts)})
+
+
+def rl_multi_agent(dev, failures):
+    """MultiAgentPPO on RockPaperScissors end to end on the card (runners
+    in-process, the policies and the updates on the card): three
+    iterations with finite losses; the third iteration's updates against a
+    CPU learner from the same state, generator and rollout."""
+    import math
+    import torch
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib.learner import to_device
+    algo = rllib.MultiAgentPPO(
+        env_ctor=lambda: rllib.RockPaperScissors(episode_len=8),
+        policy_mapping_fn=lambda aid: aid, num_runners=2, rollout_len=48,
+        train_config={"lr": 3e-3}, seed=RL_SEED, device=None)
+    seen, times, results = {}, [], []
+    for pid, lrn in algo.learners.items():
+        upd = lrn.update
+
+        def recording(rollout, upd=upd, pid=pid):
+            seen[pid] = rollout
+            return upd(rollout)
+        lrn.update = recording
+    cpus = {}
+    for it in range(3):
+        if it == 2:
+            for i, (pid, lrn) in enumerate(algo.learners.items()):
+                c = rllib.Learner(rllib.build_model(algo.model_specs[pid]),
+                                  lrn.cfg, seed=RL_SEED + i, device="cpu")
+                c.params = to_device(lrn.get_weights(), "cpu")
+                c.opt_state = {
+                    k: [t.to("cpu", copy=True) for t in lrn.opt_state[k]]
+                    for k in ("mu", "nu")}
+                c.opt_state["count"] = lrn.opt_state["count"]
+                c._gen.set_state(lrn._gen.get_state())
+                cpus[pid] = c
+            base = {pid: host_tree(lrn.params)
+                    for pid, lrn in algo.learners.items()}
+        t = time.perf_counter()
+        results.append(algo.train())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    losses = {k: v for k, v in results[-1].items() if k.endswith("_loss")}
+    if not (len(losses) == 4
+            and all(math.isfinite(r[k]) for r in results for k in losses)):
+        failures.append(f"multi_agent losses: {[r for r in results]}")
+    checks = {}
+    for pid, c in cpus.items():
+        m = c.update(seen[pid])
+        checks[pid] = rl_compare(
+            f"multi_agent {pid}", host_tree(algo.learners[pid].params),
+            c.params, base[pid],
+            {k: (results[-1][f"{pid}/{k}"], m[k])
+             for k in ("policy_loss", "vf_loss", "entropy")},
+            RL_LEAF_RTOL, failures)
+    steps = 2 * 48 * 2
+    rl_line({"algorithm": "multi_agent_ppo", "env": "RockPaperScissors(8)",
+             "runners": 2, "rollout_len": 48, "ms_per_iteration": times,
+             "agent_steps_per_s": steps / (median(times[1:]) / 1e3),
+             "losses": losses, "third_update": checks})
+
+
+class RlSpace:
+    """A gymnasium-free space: ``shape``, and ``n`` when discrete."""
+
+    def __init__(self, shape, n=None):
+        self.shape = shape
+        if n is not None:
+            self.n = n
+
+
+def rl_external(dev, failures):
+    """PPO in external mode end to end: a numpy simulator with CartPole's
+    shapes drives the policy server over localhost through PolicyClient in
+    a thread; three iterations of RL_EXTERNAL_T steps."""
+    import math
+    import threading
+    import numpy as np
+    from ray_tpu_torch import rllib
+    config = (rllib.PPOConfig()
+              .environment(observation_space=RlSpace((4,)),
+                           action_space=RlSpace((), n=2))
+              .external(port=0)
+              .env_runners(rollout_fragment_length=RL_EXTERNAL_T)
+              .training(num_epochs=2, num_minibatches=2,
+                        model={"hidden": (32, 32)}))
+    algo = config.build(device=None)
+    stop = threading.Event()
+    action_ms, errors = [], []
+
+    def simulator():
+        rng = np.random.default_rng(RL_SEED)
+        client = rllib.PolicyClient(algo.policy_server.address)
+        try:
+            while not stop.is_set():
+                eid = client.start_episode()
+                obs = 0.05 * rng.standard_normal(4)
+                for t in range(int(rng.integers(10, 200))):
+                    if stop.is_set():
+                        break
+                    t0 = time.perf_counter()
+                    a = client.get_action(eid, obs)
+                    action_ms.append((time.perf_counter() - t0) * 1e3)
+                    obs = obs + 0.1 * (a - 0.5) + 0.02 * rng.standard_normal(4)
+                    client.log_returns(eid, 1.0)
+                client.end_episode(eid, obs)
+        except Exception as e:  # only teardown races are expected
+            if not stop.is_set():
+                errors.append(repr(e))
+
+    sim = threading.Thread(target=simulator, daemon=True)
+    sim.start()
+    times, results = [], []
+    try:
+        for _ in range(3):
+            t = time.perf_counter()
+            results.append(algo.train())
+            times.append((time.perf_counter() - t) * 1e3)
+    finally:
+        stop.set()
+        algo.stop()
+        sim.join(timeout=30)
+    last = results[-1]
+    ok = (last["training_iteration"] == 3
+          and last["num_env_steps_sampled"] == 3 * RL_EXTERNAL_T
+          and math.isfinite(last["policy_loss"]) and not errors
+          and not sim.is_alive())
+    if not ok:
+        failures.append(f"external ppo: {last}, errors {errors}, "
+                        f"simulator alive {sim.is_alive()}")
+    rl_line({"algorithm": "ppo external", "fragment": RL_EXTERNAL_T,
+             "ms_per_iteration": times,
+             "get_action_ms_median": median(action_ms),
+             "get_action_calls": len(action_ms),
+             "env_steps_per_s": RL_EXTERNAL_T / (median(times) / 1e3),
+             "policy_loss": last["policy_loss"],
+             "num_env_steps_sampled": last["num_env_steps_sampled"]})
+
+
+def rllib_algorithms(dev):
+    """Phase rllib_algorithms: the rest of ray_tpu_torch/rllib built with
+    ``device=None`` (the card), f32 with TF32 off, inputs from seed 0 at
+    the reference's shapes (the card has no gymnasium): IMPALA and APPO
+    (one update card against CPU, V-trace, dp=2), BC / MARWIL / CQL (one
+    train() from a corpus through write_episodes and from_jsonl), Ape-X
+    (|TD| and one update), ES and ARS (one driver update, the policy),
+    multi-agent PPO and PPO's external mode end to end.  Every part runs
+    before the phase fails on what disagreed."""
+    import torch
+    failures = []
+    log(f"rllib_algorithms card: {card_line()}")
+    for name, spec, appo, shape in RL_IMPALA:
+        rl_impala(name, spec, appo, shape, dev, failures)
+    rl_impala_dp(dev, failures)
+    rl_offline(dev, failures)
+    rl_apex(dev, failures)
+    rl_es(dev, failures)
+    rl_multi_agent(dev, failures)
+    rl_external(dev, failures)
+    torch.cuda.synchronize()
+    if failures:
+        raise AssertionError("rllib_algorithms: " + "; ".join(failures))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3766,6 +4230,8 @@ def main() -> int:
     free_cards()
     with phase("rllib_learners"):
         rllib_learners(dev)
+    with phase("rllib_algorithms"):
+        rllib_algorithms(dev)
     mesh_launches = {f"train_mesh[{label}]": launches
                      for label, (_, launches) in llama_mesh.items()}
     mesh_launches[f"train_mixtral_mesh[{mesh_label(MIXTRAL_MESH)}]"] = (

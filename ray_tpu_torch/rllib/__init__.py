@@ -5,24 +5,36 @@ Counterpart of ``ray_tpu/rllib`` (reference surface: ``Algorithm``,
 one jitted program, data-parallel over a device mesh; the port runs the
 same update eagerly on the card (``device=None``) or the CPU
 (``device="cpu"``), and ``LearnerGroup(num_learners=N)`` splits PPO's batch
-over a device list from one process.  Runners (gymnasium stepping, the
-policy on the runner's device) are held in-process until the port reaches
-the runtime (ROADMAP A4); gymnasium is imported only by the runners and
-drivers, so this package imports without it.
+over a device list from one process.  Runners, workers and replay shards
+(gymnasium stepping, the policy on the runner's device) are held
+in-process until the port reaches the runtime (ROADMAP A4); gymnasium is
+imported only by the runners and drivers, so this package imports
+without it.
 
-Ported: PPO and A2C (MLP and the Nature CNN), DQN, Rainbow, SAC, TD3 and
-DDPG.  Not yet (ROADMAP A8's second part): BC / MARWIL / CQL, IMPALA /
-APPO, multi-agent, the external-env protocol, ES / ARS, APEX and the
-learner actors.
+Ported: PPO and A2C (MLP and the Nature CNN), DQN, Rainbow, SAC, TD3,
+DDPG, IMPALA / APPO (V-trace), BC / MARWIL / CQL (offline), ES / ARS,
+Ape-X, multi-agent PPO and the external-env protocol
+(``PolicyServerInput`` / ``PolicyClient`` over HTTP).  Not yet: the
+learner actors (``DistributedLearnerGroup``, ``LearnerWorker``), which
+wait for ROADMAP A4 or A10.
 """
 
 from .a2c import A2C, A2CConfig
+from .apex import APEX, APEXConfig, ReplayShard
 from .conv import NATURE_FILTERS, ActorCriticConv
 from .ddpg import DDPG, DDPGConfig
 from .dqn import DQN, DQNConfig, DQNRunner, QNetwork, build_q_model
 from .env_runner import EnvRunner
+from .es import ARS, ARSConfig, ES, ESConfig
+from .external import PolicyClient, PolicyServerInput
+from .impala import APPO, APPOConfig, IMPALA, IMPALAConfig
 from .learner import Learner, LearnerGroup
 from .models import ActorCriticMLP, build_model
+from .multi_agent import (MultiAgentEnv, MultiAgentEnvRunner, MultiAgentPPO,
+                          RockPaperScissors)
+from .offline import (BCConfig, CQL, CQLConfig, MARWIL, MARWILConfig,
+                      OfflineDataset, TransitionDataset,
+                      collect_episodes, write_episodes)
 from .ppo import PPO, PPOConfig
 from .rainbow import DistQNetwork, Rainbow, RainbowConfig
 from .replay_buffer import PrioritizedReplayBuffer, ReplayBuffer
@@ -31,7 +43,16 @@ from .td3 import TD3, TD3Config, TD3Runner, DeterministicPolicy
 
 __all__ = ["PPO", "PPOConfig", "A2C", "A2CConfig", "DQN", "DQNConfig",
            "SAC", "SACConfig", "DDPG", "DDPGConfig", "TD3", "TD3Config",
+           "IMPALA", "IMPALAConfig", "APPO", "APPOConfig",
+           "APEX", "APEXConfig", "ReplayShard",
            "Rainbow", "RainbowConfig", "DistQNetwork",
+           "ES", "ESConfig", "ARS", "ARSConfig",
+           "PolicyClient", "PolicyServerInput",
+           "BCConfig", "CQL", "CQLConfig", "MARWIL", "MARWILConfig",
+           "OfflineDataset", "TransitionDataset",
+           "collect_episodes", "write_episodes",
+           "MultiAgentEnv", "MultiAgentEnvRunner", "MultiAgentPPO",
+           "RockPaperScissors",
            "QNetwork", "EnvRunner", "Learner", "LearnerGroup",
            "ActorCriticMLP", "ActorCriticConv", "build_model",
            "ReplayBuffer", "PrioritizedReplayBuffer",

@@ -58,7 +58,13 @@ def to_device(params_blob: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 
 def to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    return {k: v.detach().cpu().numpy() for k, v in params.items()}
+    """A snapshot of ``params`` as numpy arrays that own their memory.
+    ``.cpu()`` of a CPU tensor is the tensor itself, and ``.numpy()``
+    shares its storage, so without the copy the optimizer's in-place
+    steps would change a blob already handed out (the reference's
+    ``get_weights`` reads immutable arrays)."""
+    return {k: v.detach().to("cpu", copy=True).numpy()
+            for k, v in params.items()}
 
 
 def dp_mesh(num_learners: int, device=None) -> mesh_mod.Mesh:
@@ -216,24 +222,26 @@ class Learner:
             perm = _permutation(self._gen, n)
             idxs = perm[:mb_size * minibatches].reshape(minibatches, mb_size)
             for m in range(minibatches):
-                grads, aux = self._shard_grads(flats, self._route(idxs[m], B),
-                                               keys, mb_size)
+                mbs = [{k: v[idx] for k, v in flat.items()}
+                       for flat, idx in zip(flats,
+                                            self._route(idxs[m], B))]
+                grads, aux = self._shard_grads(mbs, keys, mb_size)
                 self.opt.step_(leaves(self.params), grads, self.opt_state)
         values = torch.stack(list(aux.values())).tolist()
         return dict(zip(aux, values))
 
-    def _shard_grads(self, flats, routes, keys, mb_size):
-        """The minibatch's loss gradients and metrics: each device's share
-        of the rows, summed over the devices in order on the first."""
+    def _shard_grads(self, batches, keys, count):
+        """The loss gradients and metrics of one global batch given as
+        each device's part (``batches[d]`` on device d, every mean divided
+        by the global ``count``), summed over the devices in order on the
+        first."""
         per_grads, per_aux = [], []
-        for d, (dev, flat, idx) in enumerate(zip(self.devices, flats,
-                                                 routes)):
+        for d, (dev, mb) in enumerate(zip(self.devices, batches)):
             src = {k: (self.params[k] if d == 0
                        else self.params[k].to(dev, copy=True))
                    for k in keys}
             p = {k: v.detach().requires_grad_() for k, v in src.items()}
-            mb = {k: v[idx] for k, v in flat.items()}
-            loss, aux = self._loss(p, mb, None, count=mb_size)
+            loss, aux = self._loss(p, mb, None, count=count)
             per_grads.append(torch.autograd.grad(loss,
                                                  [p[k] for k in keys]))
             per_aux.append({k: v.detach() for k, v in aux.items()})

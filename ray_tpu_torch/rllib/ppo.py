@@ -7,10 +7,12 @@ broadcast, with the update on the card (``learner.py``).
 
 The reference places its runners as actors and gathers their samples in
 runner order.  The port builds the same ``EnvRunner`` objects in-process
-(seeds ``seed + 1000 * i``) and calls ``sample`` on each in turn; what
-sits on the runtime raises ``NotImplementedError``: learner actors
-(``num_learners >= 1``, ROADMAP A8's second part, which waits for A4 or
-A10), the external-env policy server (A8's second part) and the Tune
+(seeds ``seed + 1000 * i``) and calls ``sample`` on each in turn.  In
+external-env mode (``.external(port)``, spaces from ``.environment``)
+there are no runners: samples arrive over the policy server
+(``external.py``), whose forward runs on the learner's device.  What sits
+on the runtime raises ``NotImplementedError``: learner actors
+(``num_learners >= 1``, which wait for ROADMAP A4 or A10) and the Tune
 trainable (A4).  ``build(device=None)`` runs the learner and the runners'
 policies on the card, and raises without one; tests pass ``"cpu"``.
 """
@@ -42,24 +44,34 @@ class PPOConfig:
         self.seed = 0
         self.observation_space = None
         self.action_space = None
+        self.external_port: Optional[int] = None
+        self.external_address = "127.0.0.1"
+        self.external_fragment_len = 64
 
     def environment(self, env: Optional[str] = None, *,
                     env_config: Optional[dict] = None,
                     observation_space=None, action_space=None):
-        """``env=None`` with explicit spaces is the reference's external-env
-        mode, which ``build`` refuses until it is ported."""
+        """``env=None`` with explicit spaces is the external-env mode:
+        there is no simulator here to probe (reference:
+        AlgorithmConfig.environment(env=None, observation_space=...,
+        action_space=...) for policy-server setups).  A space needs only
+        ``.shape``, and a discrete one ``.n``."""
         self.env_name = env
         self.env_config = env_config or {}
         self.observation_space = observation_space
         self.action_space = action_space
         return self
 
-    def external(self, *args, **kwargs):
-        """The reference serves the policy to external simulators over
-        HTTP (``PolicyServerInput``); not ported yet."""
-        raise NotImplementedError(
-            "external envs (PolicyServerInput, rllib/external.py) are "
-            "ROADMAP A8's second part")
+    def external(self, port: int = 9900, address: str = "127.0.0.1",
+                 fragment_len: int = 64):
+        """Serve the policy to external simulators instead of running
+        runners here (reference: policy_server_input.py wired via
+        ``config.offline_data(input_=...)``).  ``port=0`` takes a free
+        port; the server's ``address`` says which."""
+        self.external_port = port
+        self.external_address = address
+        self.external_fragment_len = fragment_len
+        return self
 
     def env_runners(self, num_env_runners: int = 2,
                     num_envs_per_env_runner: int = 1,
@@ -99,21 +111,20 @@ class PPOConfig:
     _algo_cls: Optional[type] = None
 
     def build(self, device=None) -> "PPO":
-        if not self.env_name and self.observation_space is None:
-            raise ValueError("call .environment(env_name) first")
+        if not self.env_name and self.external_port is None:
+            raise ValueError("call .environment(env_name) first "
+                             "(or .external(port) with explicit spaces)")
         return (self._algo_cls or PPO)(self, device=device)
 
 
 class PPO:
-    """The algorithm driver: rollouts from in-process runners -> the update
-    -> weights back to the runners.
+    """The algorithm driver: rollouts from in-process runners (or the
+    policy server) -> the update -> weights back to them.
 
     ``train()`` returns the reference's result dict (episode_return_mean,
     num_env_steps_sampled and the learner's metrics)."""
 
     def __init__(self, config: PPOConfig, device=None):
-        import gymnasium as gym
-
         from .. import device as device_mod
         from .env_runner import EnvRunner
         from .learner import LearnerGroup
@@ -125,14 +136,22 @@ class PPO:
                 "in rllib/learner_group.py) are ROADMAP A8's second part and "
                 "wait for A4 or A10; use learners(num_learners=0, "
                 "num_devices_per_learner=N) for an in-process dp split")
-        if config.env_name is None:
-            raise NotImplementedError(
-                "external-env mode (no env) is ROADMAP A8's second part")
         self.config = config
         self.device = device_mod.resolve(device)
-        probe = gym.make(config.env_name, **config.env_config)
-        obs_space, act_space = probe.observation_space, probe.action_space
-        probe.close()
+        if config.env_name is not None:
+            import gymnasium as gym
+
+            probe = gym.make(config.env_name, **config.env_config)
+            obs_space, act_space = (probe.observation_space,
+                                    probe.action_space)
+            probe.close()
+        else:  # external-env mode: the spaces come from the config
+            obs_space, act_space = (config.observation_space,
+                                    config.action_space)
+            if obs_space is None or act_space is None:
+                raise ValueError(
+                    "external mode needs .environment(observation_space=..., "
+                    "action_space=...): there is no env to probe")
         obs_shape = obs_space.shape
         continuous = not hasattr(act_space, "n")
         action_dim = (act_space.shape[0] if continuous
@@ -157,30 +176,51 @@ class PPO:
         self.learner_group = LearnerGroup(
             build_model(self.model_spec), config.train, num_learners=n_dp,
             seed=config.seed, device=device if n_dp > 1 else self.device)
-        self.runners = [
-            EnvRunner(config.env_name, self.model_spec,
-                      num_envs=config.num_envs_per_runner,
-                      seed=config.seed + 1000 * i,
-                      env_config=config.env_config, device=self.device)
-            for i in range(config.num_env_runners)]
+        self.policy_server = None
+        self.runners = []
+        if config.external_port is not None:
+            from .external import PolicyServerInput
+
+            self.policy_server = PolicyServerInput(
+                build_model(self.model_spec),
+                self.learner_group.get_weights(),
+                address=config.external_address, port=config.external_port,
+                gamma=config.train.get("gamma", 0.99),
+                fragment_len=config.external_fragment_len,
+                device=self.device)
+        else:
+            self.runners = [
+                EnvRunner(config.env_name, self.model_spec,
+                          num_envs=config.num_envs_per_runner,
+                          seed=config.seed + 1000 * i,
+                          env_config=config.env_config, device=self.device)
+                for i in range(config.num_env_runners)]
         self._iteration = 0
         self._recent_returns: List[float] = []
 
     def train(self) -> Dict[str, Any]:
-        """One iteration: sample on every runner in turn, one update."""
+        """One iteration: sample on every runner in turn (or take
+        ``rollout_len`` steps from the policy server), one update."""
         t0 = time.time()
-        weights = self.learner_group.get_weights()
-        batches = [r.sample(weights, self.config.rollout_len)
-                   for r in self.runners]
-        # concat along the env axis: [T, sum(B_i), ...]
-        rollout = {
-            k: np.concatenate([b[k] for b in batches],
-                              axis=0 if k == "last_values" else 1)
-            for k in batches[0]}
-        metrics = self.learner_group.update(rollout)
-        rets = [x for r in self.runners for x in r.episode_returns()]
-        steps = (self.config.rollout_len * self.config.num_env_runners
-                 * self.config.num_envs_per_runner)
+        if self.policy_server is not None:
+            rollout = self.policy_server.next(self.config.rollout_len)
+            metrics = self.learner_group.update(rollout)
+            self.policy_server.set_weights(self.learner_group.get_weights())
+            rets = self.policy_server.episode_returns()
+            steps = self.config.rollout_len
+        else:
+            weights = self.learner_group.get_weights()
+            batches = [r.sample(weights, self.config.rollout_len)
+                       for r in self.runners]
+            # concat along the env axis: [T, sum(B_i), ...]
+            rollout = {
+                k: np.concatenate([b[k] for b in batches],
+                                  axis=0 if k == "last_values" else 1)
+                for k in batches[0]}
+            metrics = self.learner_group.update(rollout)
+            rets = [x for r in self.runners for x in r.episode_returns()]
+            steps = (self.config.rollout_len * self.config.num_env_runners
+                     * self.config.num_envs_per_runner)
         self._recent_returns.extend(rets)
         self._recent_returns = self._recent_returns[-100:]
         self._iteration += 1
@@ -195,6 +235,9 @@ class PPO:
         }
 
     def stop(self):
+        if self.policy_server is not None:
+            self.policy_server.stop()
+            self.policy_server = None
         for r in self.runners:
             for env in r.envs:
                 env.close()

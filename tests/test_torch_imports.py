@@ -61,7 +61,8 @@ def test_every_module_imports_with_jax_and_ray_tpu_blocked():
 
 RLLIB_MODULES = tuple(f"ray_tpu_torch.rllib.{m}" for m in (
     "replay_buffer", "examples_env", "models", "conv", "optim", "learner",
-    "env_runner", "ppo", "a2c", "dqn", "rainbow", "sac", "td3", "ddpg"))
+    "env_runner", "ppo", "a2c", "dqn", "rainbow", "sac", "td3", "ddpg",
+    "offline", "impala", "multi_agent", "external", "es", "apex"))
 
 _NO_GYM_IMPORT = r'''
 import sys
@@ -79,6 +80,21 @@ from ray_tpu_torch.rllib import examples_env
 assert examples_env.gym is None
 # the learners build and step without gymnasium
 algo = rl.DQN.learner_only(rl.DQNConfig(), 4, 2, device="cpu")
+rl.APEX.learner_only(rl.APEXConfig(), 4, 2, device="cpu")
+rl.ES.learner_only(rl.ESConfig(), 4, 2, device="cpu")
+import numpy as np
+data = rl.TransitionDataset(*(np.zeros((8, 4), np.float32),
+                              np.zeros(8, np.int64), np.zeros(8, np.float32),
+                              np.zeros((8, 4), np.float32),
+                              np.ones(8, np.float32)))
+rl.CQL.learner_only(rl.CQLConfig().training(train_batch_size=4,
+                                            updates_per_iter=2),
+                    4, 2, device="cpu", data=data).train()
+# RockPaperScissors needs no gymnasium: multi-agent PPO runs end to end
+ma = rl.MultiAgentPPO(lambda: rl.RockPaperScissors(episode_len=4),
+                      lambda aid: aid, num_runners=1, rollout_len=8,
+                      hidden=(4,), device="cpu")
+ma.train()
 try:
     rl.DQNRunner("CartPole-v1", algo.model_spec, device="cpu")
 except ImportError as e:
@@ -140,6 +156,17 @@ def test_rllib_entry_points_without_device_raise_when_cuda_is_missing(
                lambda: rl.Rainbow.learner_only(rl.RainbowConfig(), 4, 2),
                lambda: rl.SAC.learner_only(rl.SACConfig(), 3, 1),
                lambda: rl.TD3.learner_only(rl.TD3Config(), 3, 1),
+               lambda: rl.APEX.learner_only(rl.APEXConfig(), 4, 2),
+               lambda: rl.ES.learner_only(rl.ESConfig(), 4, 2),
+               lambda: rl.CQL.learner_only(rl.CQLConfig(), 4, 2,
+                                           data=object()),
+               lambda: rl.MARWIL.learner_only(rl.MARWILConfig(), 4, 2,
+                                              data=object()),
+               lambda: rl.IMPALAConfig().environment("CartPole-v1").build(),
+               lambda: rl.MultiAgentPPO(rl.RockPaperScissors,
+                                        lambda aid: aid),
+               lambda: rl.PolicyServerInput(ActorCriticMLP(4, 2), {},
+                                            port=0),
                lambda: rl.PPOConfig().environment("CartPole-v1").build(),
                lambda: rl.EnvRunner("CartPole-v1",
                                     dict(obs_dim=4, action_dim=2))):

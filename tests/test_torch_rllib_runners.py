@@ -112,7 +112,8 @@ def test_runtime_parts_raise_not_implemented():
     cfg = PPOConfig().environment("CartPole-v1").learners(num_learners=1)
     with pytest.raises(NotImplementedError, match="A8's second part"):
         cfg.build(device="cpu")
-    with pytest.raises(NotImplementedError, match="A8's second part"):
-        PPOConfig().external(port=9900)
+    # the external-env mode is ported (tests/test_torch_rllib_external.py)
+    cfg = PPOConfig().external(port=9900)
+    assert cfg.external_port == 9900 and cfg.external_fragment_len == 64
     with pytest.raises(NotImplementedError, match="A4"):
         PPO.as_tune_trainable(lambda c: c)

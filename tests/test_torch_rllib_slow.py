@@ -1,8 +1,10 @@
 """The port's counterparts of the reference's ``slow`` learning gates
-(tests/test_rllib.py, tests/test_rllib_conv_sac.py): PPO and A2C on
-CartPole, conv PPO on Catch, SAC, TD3 and DDPG on Pendulum, with the
-reference's configs and thresholds, runners in-process, updates on the
-CPU.  Marked ``slow`` as the reference's are."""
+(tests/test_rllib.py, tests/test_rllib_conv_sac.py,
+tests/test_rllib_impala.py, tests/test_rllib_offline.py): PPO and A2C on
+CartPole, conv PPO on Catch, SAC, TD3 and DDPG on Pendulum, IMPALA on
+CartPole, MARWIL against BC on a mixed corpus, with the reference's
+configs and thresholds, runners in-process, updates on the CPU.  Marked
+``slow`` as the reference's are."""
 
 import numpy as np
 import pytest
@@ -126,3 +128,72 @@ def test_ddpg_learns_pendulum():
     assert config.train["policy_delay"] == 1
     res = _pendulum(config, "DDPG")
     assert res["actor_loss"] != 0.0
+
+
+@pytest.mark.slow
+@pytest.mark.timeout(600)
+def test_impala_learns_cartpole_decoupled():
+    """The reference's gate: IMPALA crosses 100 on CartPole, and the
+    fragments it consumed were sampled under stale policy versions."""
+    from ray_tpu_torch.rllib import IMPALAConfig
+
+    algo = (IMPALAConfig()
+            .environment("CartPole-v1")
+            .env_runners(num_env_runners=2, num_envs_per_env_runner=2,
+                         rollout_fragment_length=64)
+            .training(lr=5e-3, entropy_coeff=0.01, updates_per_iter=6)
+            .debugging(seed=0)
+            .build(device="cpu"))
+    try:
+        result = algo.train()
+        for _ in range(39):
+            result = algo.train()
+            if result["episode_return_mean"] >= 100.0:
+                break
+        assert result["episode_return_mean"] >= 100.0, result
+        assert max(algo.version_lags) >= 1, algo.version_lags
+        assert result["mean_version_lag"] >= 0.5, result["mean_version_lag"]
+    finally:
+        algo.stop()
+
+
+def _expert(obs):
+    return int(obs[2] + 0.5 * obs[3] > 0)
+
+
+def _random(obs):
+    return int(np.random.default_rng(abs(int(obs[0] * 1e6)) % 2**31)
+               .integers(0, 2))
+
+
+@pytest.mark.slow
+@pytest.mark.timeout(600)
+def test_marwil_beats_bc_on_mixed_data(tmp_path):
+    """The reference's gate: on a transition-balanced expert + random
+    corpus the advantage weighting (beta > 0) must not do worse than BC."""
+    from ray_tpu_torch.rllib import MARWILConfig, collect_episodes
+
+    path = str(tmp_path / "mixed.jsonl")
+    expert_eps = collect_episodes("CartPole-v1", _expert, 4, path=path)
+    n_expert = sum(len(e["rewards"]) for e in expert_eps)
+    n_rand, seed = 0, 500
+    while n_rand < n_expert:
+        (ep,) = collect_episodes("CartPole-v1", _random, 1, path=path,
+                                 seed=seed)
+        n_rand += len(ep["rewards"])
+        seed += 1
+
+    def run(beta):
+        algo = (MARWILConfig()
+                .environment("CartPole-v1")
+                .offline_data(path)
+                .training(lr=3e-3, updates_per_iter=100, seed=1, beta=beta)
+                .build(device="cpu"))
+        for _ in range(5):
+            algo.train()
+        return algo.evaluate(num_episodes=5)
+
+    marwil = run(1.0)
+    bc = run(0.0)
+    assert marwil > 60, marwil
+    assert marwil >= bc * 0.8, (marwil, bc)
