@@ -41,7 +41,16 @@ script exits non-zero:
    before and read just after.  Then the prefill logits of one batch
    through the kernel against the same prefill through the kernel's plain
    version, and where the time of one prefill batch and one decode
-   dispatch goes (torch.profiler).  The same requests then go through:
+   dispatch goes (torch.profiler).  Then ``runtime_serve_llama3_8b``:
+   the port's runtime (``ray_tpu_torch.init``) counts the card as a
+   ``GPU`` resource, a ``num_gpus=1`` actor (``ServingActor``) draws the
+   same weights on its card, builds the same engine and serves the same
+   requests: its streams equal the in-process ones token for token, B1
+   launches in its prefill, one request streams through an actor
+   generator method, a 256 MB CPU bf16 tensor goes through ``put`` into
+   the actor and onto the card with equal checksums, and after ``kill``
+   and ``shutdown()`` the card's free memory is back within 1 GB (the
+   ``runtime`` line).  The same requests then go through:
    a. the paged engine (``paged=True, page_size=64``), whose prefill
       attends with f32 einsums over the gathered pages as the JAX
       package's does: no kernel may launch; its prefill logits against the
@@ -58,12 +67,13 @@ script exits non-zero:
       it (streams' agreement read, no limit), the dense and paged verify
       windows' logits against 4 sequential decode steps;
    d. ``serve_llama3_8b_tp2``: ``LLMEngine(tp=2)`` splits the same
-      weights over two shards (on cuda:0 and cuda:1 with two cards, else
+      weights, cut to 16 of the 32 layers (``TP_SERVE_LAYERS``), over two
+      shards (on cuda:0 and cuda:1 with two cards, else
       both on cuda:0; the placement line says which: the same run is the
       multi-card check on a machine with two cards), the dense phase's
-      requests: B1 2 x 32 launches per bucket-2048 batch, the share of
-      greedy tokens equal to tp=1's (a reading), one 8 x 2048 prefill's
-      logits against tp=1's (rms limit); then the paged engine and the
+      requests: B1 2 x 16 launches per bucket-2048 batch, one 8 x 2048
+      prefill's logits against tp=1's on the same cut (rms limit); then
+      the paged engine and the
       prefix waves on the same shards, as a. and b. check them;
    e. a 2-layer f32 cut at full width: the spec streams must equal the
       vanilla ones, and the spec engine's pages a fresh prefill's of each
@@ -232,8 +242,8 @@ script exits non-zero:
     over localhost, three iterations of 256 steps).  ms per update or
     iteration, samples/s, the busy share of one profiled IMPALA update,
     the server's ms per ``get_action``.  No kernel of the port runs here.
-12. A JSON line of kernels (each path's launches; the mesh paths'
-    under ``train_mesh[...]``, the dp arms' under ``train_dp[...]``, the
+12. A JSON line of kernels (each path's launches, the actor's under
+    ``runtime_serve``; the mesh paths' under ``train_mesh[...]``, the dp arms' under ``train_dp[...]``, the
     sp and pipeline runs' under ``train_sp_pp[...]``;
     B1-B3 at each mesh's shard shape, checked
     and timed in phases 3 and 4, under ``mesh_shard_shapes``), then the contract line
@@ -251,6 +261,7 @@ import gc
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -320,6 +331,17 @@ LONG_PROMPTS = (1100, 1300, 1500, 1700, 1900)
 SHORT_PROMPTS = (40, 50, 60)
 MAX_TOKENS = 16
 SERVE_MAX_LEN, PAGE_SIZE = 2048, 64
+# serve_llama3_8b_tp2 runs Llama-3-8B at full width cut to 16 of its 32
+# layers, which keeps this script under half its time limit with the
+# runtime phase
+TP_SERVE_LAYERS = 16
+# the runtime phase: every wait's limit (s), so an actor that never
+# schedules fails the run instead of hanging it; the card's free memory
+# after shutdown() within this many bytes of where it stood before; the
+# CPU bf16 tensor put into the actor (256 MB)
+RUNTIME_WAIT_S = 300
+RUNTIME_FREE_SLACK = 1 << 30
+RUNTIME_PUT_ELEMS = 128 * 1024 * 1024
 # bench_llm.py's prefix arm: one shared prefix and a short tail of its own
 PREFIX_LEN, TAIL_LEN = 1024, 32
 # the f32 exactness run: 4 prompts (buckets 512 and 1024), 24 tokens each;
@@ -1039,6 +1061,212 @@ def serve_llama(dev, cfg, params):
     return stats, launches, outs
 
 
+class ServingActor:
+    """Llama-3-8B's engine in a ``num_gpus=1`` actor of the port's runtime
+    (phase ``runtime_serve_llama3_8b``).  Defined in this script, so the
+    runtime ships it by value.  The constructor draws the weights on the
+    actor's card from seed 0 as ``serving_params`` does, builds the engine
+    as ``serve_llama`` does and warms the same buckets."""
+
+    def __init__(self, cfg):
+        import torch
+        from ray_tpu_torch.serve.llm import LLMEngine
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.cfg = cfg
+        dev = torch.device("cuda", torch.cuda.current_device())
+        params = serving_params("llama3_8b (in the actor)", cfg, dev)
+        self.eng = LLMEngine(cfg, params, device="cuda", num_slots=8,
+                             max_len=SERVE_MAX_LEN)
+        warm(self.eng, cfg, (LONG_PROMPTS[0], SHORT_PROMPTS[0]))
+
+    def ready(self):
+        """-> GB allocated on the card once the constructor has run."""
+        import torch
+        return torch.cuda.memory_allocated() / 1e9
+
+    def run(self, prompts):
+        """``run_requests`` on the prompts, B1's launches counted from 0."""
+        import torch
+        import ray_tpu_torch
+        from ray_tpu_torch.ops.flash_attention import flash_attention
+        before = dict(self.eng.admit_batches_by_bucket)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        outs, _, stats = run_requests(self.eng, self.cfg, prompts)
+        launches = flash_attention.launches
+        return {"outs": outs, "stats": stats, "flash_launches": launches,
+                "long_prefill_batches": long_batches_since(self.eng, before),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "device": torch.cuda.get_device_name(),
+                "gpu_ids": ray_tpu_torch.get_gpu_ids()}
+
+    def stream(self, prompt):
+        yield from self.eng.stream(list(prompt), max_tokens=MAX_TOKENS)
+
+    def checksums(self, t):
+        """The tensor onto the card, and ``tensor_checksums`` there."""
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = t.to("cuda")
+        torch.cuda.synchronize()
+        copy_s = time.perf_counter() - t0
+        return {"device": str(x.device), "dtype": str(x.dtype),
+                "numel": x.numel(), "sums": tensor_checksums(x),
+                "host_to_card_s": copy_s}
+
+
+def tensor_checksums(x):
+    """Two exact integer checksums of a bf16 tensor's bits, on its device:
+    their sum, and their sum weighted by position mod 251 (a permutation
+    moves it)."""
+    import torch
+    bits = x.reshape(-1).view(torch.int16).to(torch.int64)
+    weights = torch.arange(bits.numel(), device=x.device) % 251
+    return [int(bits.sum().item()), int((bits * weights).sum().item())]
+
+
+def wait_free_memory(want, timeout):
+    """Poll the card's free memory until it is at least ``want`` bytes,
+    up to ``timeout`` s; -> the last reading."""
+    import torch
+    deadline = time.monotonic() + timeout
+    while True:
+        free, _ = torch.cuda.mem_get_info()
+        if free >= want or time.monotonic() > deadline:
+            return free
+        time.sleep(0.5)
+
+
+def runtime_serve_llama(dev, cfg, prompts, in_stats, in_outs):
+    """Phase runtime_serve_llama3_8b: the port's runtime on the card.
+    ``init`` counts the card as a ``GPU`` resource and puts its session
+    under the temporary directory (``TMPDIR``); a ``num_gpus=1`` actor
+    holds its own Llama-3-8B engine (a second 16 GB copy of the weights)
+    and serves the dense phase's 8 requests: the same streams as the
+    in-process engine (``in_outs``), B1 at least ``num_layers`` times per
+    long prefill batch inside the actor; one request streamed through an
+    actor generator method; a 256 MB CPU bf16 tensor through ``put`` into
+    the actor and onto the card, checksums equal to the host's.  Then
+    ``kill`` and ``shutdown``: the card's free memory back within 1 GB of
+    where it stood.  Every wait has a timeout."""
+    import cloudpickle
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import native
+    from ray_tpu_torch.core import api
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    free_before, _ = torch.cuda.mem_get_info()
+    t0 = time.perf_counter()
+    session_dir = ray_tpu_torch.init(num_cpus=4)["session_dir"]
+    init_s = time.perf_counter() - t0
+    try:
+        gpus = ray_tpu_torch.cluster_resources().get("GPU")
+        if gpus != torch.cuda.device_count():
+            raise AssertionError(f"the runtime counts {gpus} GPUs, torch "
+                                 f"{torch.cuda.device_count()}")
+        store_native = api._state.node_agent.store.pool is not None
+        t0 = time.perf_counter()
+        actor = ray_tpu_torch.remote(ServingActor).options(
+            num_gpus=1).remote(cfg)
+        ready = ray_tpu_torch.get(actor.ready.remote(),
+                                  timeout=RUNTIME_WAIT_S)
+        ready_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = ray_tpu_torch.get(actor.run.remote(prompts),
+                                timeout=RUNTIME_WAIT_S)
+        run_call_s = time.perf_counter() - t0
+        gen = actor.stream.options(num_returns="streaming").remote(
+            prompts[0])
+        streamed = []
+        while True:
+            try:
+                r = gen.next(timeout=RUNTIME_WAIT_S)
+            except StopIteration:
+                break
+            streamed.append(ray_tpu_torch.get(r, timeout=RUNTIME_WAIT_S))
+        g = torch.Generator().manual_seed(0)
+        host = torch.randn(RUNTIME_PUT_ELEMS, generator=g).to(torch.bfloat16)
+        want_sums = tensor_checksums(host)
+        t0 = time.perf_counter()
+        ref = ray_tpu_torch.put(host)
+        put_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sums = ray_tpu_torch.get(actor.checksums.remote(ref),
+                                 timeout=RUNTIME_WAIT_S)
+        call_s = time.perf_counter() - t0
+        del ref
+        ray_tpu_torch.kill(actor)
+        # the packed submit plane serves batched task submissions; this
+        # phase's calls go one at a time, so it may not have loaded: say
+        # whether it did, and whether it builds and loads here
+        submit_native = {"loaded_in_phase": native.submit_plane_loaded(),
+                         "builds": native.load_submit_plane() is not None}
+    finally:
+        ray_tpu_torch.shutdown()
+    free_after = wait_free_memory(free_before - RUNTIME_FREE_SLACK,
+                                  RUNTIME_WAIT_S)
+
+    stats = got["stats"]
+    outs = got["outs"]
+    row = {
+        "init_s": init_s, "actor_ready_s": ready_s, "run_call_s": run_call_s,
+        "gpu_resource": gpus, "session_dir": session_dir,
+        "device": got["device"],
+        "gpu_ids": got["gpu_ids"], "actor_allocated_gb": ready,
+        "ttft_ms_p50": stats["ttft_ms_p50"],
+        "decode_tok_s": stats["decode_tok_s"],
+        "in_process": {"ttft_ms_p50": in_stats["ttft_ms_p50"],
+                       "decode_tok_s": in_stats["decode_tok_s"]},
+        "flash_launches": got["flash_launches"],
+        "long_prefill_batches": got["long_prefill_batches"],
+        "peak_mem_gb": got["peak_mem_gb"],
+        "streams_equal_in_process": outs == in_outs,
+        "tokens_equal_in_process": sum(
+            a == b for x, y in zip(outs, in_outs) for a, b in zip(x, y)),
+        "generator_stream_equal": streamed == outs[0],
+        "put_bytes": host.numel() * host.element_size(), "put_s": put_s,
+        "put_call_s": call_s, "host_to_card_s": sums["host_to_card_s"],
+        "checksums_equal": sums["sums"] == want_sums,
+        "native_store": store_native, "native_submit_plane": submit_native,
+        "cloudpickle": f"{cloudpickle.__version__} "
+                       f"({Path(cloudpickle.__file__).parent})",
+        "free_gb_before": free_before / 1e9, "free_gb_after": free_after / 1e9}
+    log("runtime " + json.dumps(row))
+    if Path(session_dir).parent != Path(tempfile.gettempdir(), "raytpu"):
+        raise AssertionError(f"the session {session_dir} is not under the "
+                             f"temporary directory {tempfile.gettempdir()}")
+    if row["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"the actor ran on {row['device']}")
+    if got["long_prefill_batches"] < 1 or got["flash_launches"] < (
+            cfg.num_layers * got["long_prefill_batches"]):
+        raise AssertionError(
+            f"flash kernel launched {got['flash_launches']} times in the "
+            f"actor for {got['long_prefill_batches']} prefill batches at "
+            f"bucket >= 1024 ({cfg.num_layers} layers)")
+    if not row["streams_equal_in_process"]:
+        raise AssertionError(f"the actor's streams {outs} differ from the "
+                             f"in-process engine's {in_outs}")
+    if not row["generator_stream_equal"]:
+        raise AssertionError(f"the generator method streamed {streamed}, "
+                             f"the request's stream is {outs[0]}")
+    if not (row["checksums_equal"] and sums["dtype"] == "torch.bfloat16"
+            and sums["numel"] == host.numel()):
+        raise AssertionError(f"the tensor reached the card as {sums}, "
+                             f"host checksums {want_sums}")
+    if free_after < free_before - RUNTIME_FREE_SLACK:
+        raise AssertionError(
+            f"the card has {free_after / 1e9:.2f} GB free after shutdown(), "
+            f"{free_before / 1e9:.2f} GB before the phase")
+    return row
+
+
 def _prefill_batch(cfg, prompts, batch, dev, cycle=len(LONG_PROMPTS)):
     """A bucket-2048 batch of the first ``cycle`` prompts, repeated."""
     import numpy as np
@@ -1499,16 +1727,29 @@ def rollback_kv_diff(eng, reqs, params, cfg, dev):
     return lens_ok, worst
 
 
-def serve_llama_tp(dev, cfg, params, devices, tp1_outs):
+def layer_cut(cfg, params, n):
+    """``cfg`` and ``params`` cut to their first ``n`` layers (the block
+    weights' views)."""
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        return tree[:n]
+
+    return (dataclasses.replace(cfg, num_layers=n),
+            {**params, "blocks": cut(params["blocks"])})
+
+
+def serve_llama_tp(dev, cfg, params, devices):
     """Phase serve_llama3_8b_tp2: ``LLMEngine(tp=2)`` splits the serving
-    weights over two shards on ``devices`` (another 16 GB), and the dense
-    phase's 8 requests go through it: B1 launches 2 x 32 per bucket-2048
+    weights (``params``: ``main`` passes them cut to TP_SERVE_LAYERS) over
+    two shards on ``devices``, and the dense phase's 8 requests go through
+    it: B1 launches 2 x ``cfg.num_layers`` per bucket-2048
     prefill batch (each shard's prefill at 16 q and 4 KV heads); TTFT,
-    decode tok/s, peak memory and the share of greedy tokens equal to the
-    tp=1 engine's (``tp1_outs``; a reading: the shards' halves of each
-    projection add in bf16 in another order), a prefill batch and a decode
-    dispatch traced.  Then one 8 x 2048 prefill batch at tp=2 against tp=1
-    (rms limit, the largest difference a reading), and the paged engine and
+    decode tok/s and peak memory, a prefill batch and a decode dispatch
+    traced.  Then one 8 x 2048 prefill batch at tp=2 against tp=1 on the
+    same weights (rms limit, the largest difference a reading: the shards'
+    halves of each projection add in bf16 in another order), and the paged
+    engine and
     the prefix waves on the same shards (``serve_llama_paged``,
     ``serve_llama_paged_prefix``: no launch, 4 hits reusing 4096 tokens)."""
     import torch
@@ -1525,21 +1766,17 @@ def serve_llama_tp(dev, cfg, params, devices, tp1_outs):
         before = dict(eng.admit_batches_by_bucket)
         reset_peaks(devices)
         flash_attention.launches = 0
-        outs, _, stats = run_requests(eng, cfg, prompts)
+        _, _, stats = run_requests(eng, cfg, prompts)
         launches = flash_attention.launches
         peaks = peaks_by_card(devices)
         long_batches = long_batches_since(eng, before)
     finally:
         eng.shutdown()
-    same = [a == b for x, y in zip(outs, tp1_outs) for a, b in zip(x, y)]
     stats.update(
         tp=tp, devices=[str(d) for d in devices],
+        num_layers=cfg.num_layers,
         long_prefill_batches=long_batches, flash_launches=launches,
-        peak_mem_gb=max(peaks.values()), peak_mem_gb_by_card=peaks,
-        greedy_tokens_equal_to_tp1=sum(same) / len(same),
-        tokens_agreeing_before_divergence=[
-            next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
-                 len(x)) for x, y in zip(outs, tp1_outs)])
+        peak_mem_gb=max(peaks.values()), peak_mem_gb_by_card=peaks)
     log("serve_tp2 " + json.dumps(stats))
     if long_batches < 1 or launches < tp * cfg.num_layers * long_batches:
         raise AssertionError(
@@ -4142,8 +4379,12 @@ def main() -> int:
     serve_cfg = mcfg.llama3_8b()
     serve_params = serving_params("llama3_8b", serve_cfg, dev)
     with phase("serve_llama3_8b"):
-        _, serve_launches, serve_outs = serve_llama(dev, serve_cfg,
-                                                    serve_params)
+        serve_stats, serve_launches, serve_outs = serve_llama(
+            dev, serve_cfg, serve_params)
+    with phase("runtime_serve_llama3_8b"):
+        runtime_row = runtime_serve_llama(dev, serve_cfg,
+                                          serving_prompts(serve_cfg),
+                                          serve_stats, serve_outs)
     with phase("serve_llama3_8b_paged"):
         serve_llama_paged(dev, serve_cfg, serve_params)
     with phase("serve_llama3_8b_paged_prefix"):
@@ -4152,10 +4393,10 @@ def main() -> int:
         _, spec_launches = serve_llama_paged_spec(dev, serve_cfg,
                                                   serve_params)
     tp_devices = tp_placement()
+    tp_cfg, tp_params = layer_cut(serve_cfg, serve_params, TP_SERVE_LAYERS)
     with phase("serve_llama3_8b_tp2"):
-        _, tp_launches = serve_llama_tp(dev, serve_cfg, serve_params,
-                                        tp_devices, serve_outs)
-    del serve_params
+        _, tp_launches = serve_llama_tp(dev, tp_cfg, tp_params, tp_devices)
+    del serve_params, tp_params
     gc.collect()
     torch.cuda.empty_cache()
     with phase("serve_f32_spec_exactness"):
@@ -4264,7 +4505,8 @@ def main() -> int:
         "source": "ray_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:42",
         "design": HOPPER_DESIGN,
-        "launches": (serve_launches + spec_launches + tp_launches
+        "launches": (serve_launches + runtime_row["flash_launches"]
+                     + spec_launches + tp_launches
                      + train_launches["flash_attention_fwd"]
                      + mixtral_serve["flash_launches"]
                      + mixtral_tp["flash_launches"]
@@ -4272,7 +4514,9 @@ def main() -> int:
                      + sum(m["flash_attention_fwd"]
                            for m in mesh_launches.values())),
         "launches_by_path": {
-            "serve": serve_launches, "serve_paged_spec": spec_launches,
+            "serve": serve_launches,
+            "runtime_serve": runtime_row["flash_launches"],
+            "serve_paged_spec": spec_launches,
             "serve_tp2": tp_launches,
             "train": train_launches["flash_attention_fwd"],
             "serve_mixtral": mixtral_serve["flash_launches"],

@@ -1,6 +1,9 @@
 """The port stands alone: every module of ray_tpu_torch imports with jax and
-ray_tpu blocked, no module (nor chip_smoke.py or decode_dispatch_ab.py)
-imports either, the entry points never drop to the CPU on their own, and no CUDA source uses Ampere's instructions."""
+ray_tpu blocked (the runtime's without starting a thread or a process or
+building anything), ``import ray_tpu_torch`` loads no torch, no module (nor
+chip_smoke.py or decode_dispatch_ab.py) imports jax or ray_tpu, the entry
+points never drop to the CPU on their own, and no CUDA source uses Ampere's
+instructions."""
 
 import ast
 import os
@@ -36,6 +39,12 @@ for n in names:
     importlib.import_module(n)
 bad = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "ray_tpu")]
 assert not bad, bad
+# importing the runtime starts nothing and builds nothing
+import multiprocessing, threading
+from ray_tpu_torch import native
+assert threading.active_count() == 1, threading.enumerate()
+assert not multiprocessing.active_children()
+assert (native._LIB, native._SP_LIB, native._CRC_LIB) == (None, None, None)
 print("imported", " ".join(names), len(names))
 '''
 
@@ -51,7 +60,8 @@ def test_every_module_imports_with_jax_and_ray_tpu_blocked():
     # serve.llm, train.torch_utils, device, the rllib modules and the six
     # subpackages
     assert int(res.stdout.split()[-1]) >= 25 + len(RLLIB_MODULES), res.stdout
-    for name in ("ray_tpu_torch.ops.moe", "ray_tpu_torch.parallel.mesh",
+    for name in RUNTIME_MODULES + (
+                 "ray_tpu_torch.ops.moe", "ray_tpu_torch.parallel.mesh",
                  "ray_tpu_torch.models.sharding",
                  "ray_tpu_torch.train.torch_utils",
                  "ray_tpu_torch.parallel.zero",
@@ -59,10 +69,38 @@ def test_every_module_imports_with_jax_and_ray_tpu_blocked():
         assert name in res.stdout.split(), res.stdout
 
 
+#: the runtime's subpackages and the modules a worker starts from
+RUNTIME_MODULES = tuple(f"ray_tpu_torch.{m}" for m in (
+    "core", "core.api", "core.worker_main", "core.node_agent", "core.gcs",
+    "core.cluster", "core.head_main", "core.node_main", "native", "util",
+    "util.metrics", "util.profiler", "util.usage_stats", "dag",
+    "experimental", "experimental.internal_kv"))
+
 RLLIB_MODULES = tuple(f"ray_tpu_torch.rllib.{m}" for m in (
     "replay_buffer", "examples_env", "models", "conv", "optim", "learner",
     "env_runner", "ppo", "a2c", "dqn", "rainbow", "sac", "td3", "ddpg",
     "offline", "impala", "multi_agent", "external", "es", "apex"))
+
+_LIGHT_IMPORT = r'''
+import sys
+import ray_tpu_torch
+ray_tpu_torch.init, ray_tpu_torch.remote, ray_tpu_torch.get_gpu_ids
+heavy = sorted(m for m in sys.modules
+               if m.split(".")[0] in ("torch", "jax", "jaxlib", "ray_tpu"))
+print("heavy", heavy)
+'''
+
+
+def test_package_import_loads_no_torch():
+    """``import ray_tpu_torch`` is the runtime's verbs only, as ``import
+    ray_tpu`` loads no jax: workers start from it, and a plain task's
+    worker never pays for torch."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", _LIGHT_IMPORT], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["heavy", "[]"], res.stdout
+
 
 _NO_GYM_IMPORT = r'''
 import sys
