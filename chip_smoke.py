@@ -73,8 +73,8 @@ script exits non-zero:
       multi-card check on a machine with two cards), the dense phase's
       requests: B1 2 x 16 launches per bucket-2048 batch, one 8 x 2048
       prefill's logits against tp=1's on the same cut (rms limit); then
-      the paged engine and the
-      prefix waves on the same shards, as a. and b. check them;
+      the paged engine and the prefix waves on the same shards, as a. and
+      b. check them (the paged run not traced);
    e. a 2-layer f32 cut at full width: the spec streams must equal the
       vanilla ones, and the spec engine's pages a fresh prefill's of each
       verified sequence (the rollback invariant); then
@@ -122,10 +122,17 @@ script exits non-zero:
    seed 0.  Launch counts are zeroed just before and read just after: B1
    twice per layer and step (forward and remat replay), B2 and B3 once.
    Loss finite and falling; one step's loss and gradients through the
-   kernels against the same step through the kernels' plain versions; that
-   loss gap read again on four batches, against the plain version on 512-,
-   128- and 64-column tiles (a reading, no limit); the chunked LM-head loss
-   timed alone; one step profiled (torch.profiler).
+   kernels against the same step through the kernels' plain versions; the
+   chunked LM-head loss timed alone; one step profiled (torch.profiler).  Then
+   ``train_llama_1b_trainer``: the same training through the train
+   library.  The port's runtime runs a ``TorchTrainer`` with one
+   ``num_gpus=1`` worker on NCCL, fed by a ``ray_tpu_torch.data`` dataset
+   holding the same batch (``iter_torch_batches(device="cuda")``); the
+   worker trains llama_1b uncut for 4 steps: the group NCCL of world size
+   1, each loss within 1e-3 of the in-process step's, B1/B2/B3 128/64/64
+   in the worker, the card's memory back within 1 GB 5 s after
+   ``shutdown()`` (the ``trainer`` line: the worker's ready time, its
+   median step beside the in-process one, the phase's wall time).
 7. Kernel B4 (splash: B1-B3's code with the logit softcap, on a q scaled
    by D^-0.5 beforehand) forward, dq and dk/dv against their plain
    versions at the training shape with softcap 0 and 50 (Gemma-2's cap;
@@ -243,7 +250,8 @@ script exits non-zero:
     iteration, samples/s, the busy share of one profiled IMPALA update,
     the server's ms per ``get_action``.  No kernel of the port runs here.
 12. A JSON line of kernels (each path's launches, the actor's under
-    ``runtime_serve``; the mesh paths' under ``train_mesh[...]``, the dp arms' under ``train_dp[...]``, the
+    ``runtime_serve``, the trainer's worker's under ``train_trainer``;
+    the mesh paths' under ``train_mesh[...]``, the dp arms' under ``train_dp[...]``, the
     sp and pipeline runs' under ``train_sp_pp[...]``;
     B1-B3 at each mesh's shard shape, checked
     and timed in phases 3 and 4, under ``mesh_shard_shapes``), then the contract line
@@ -293,8 +301,8 @@ GRAD_RTOL = 2e-2
 # reaches every layer's gradient through the residual stream).  The loss, a
 # mean over 16k tokens after 8 steps through the kernels, is a forward
 # quantity on a shared state: on an H100 it differed by 1.888e-4 with the
-# wgmma forward, by 1.29e-4 to 2.34e-4 on four batches (loss_gaps), and the
-# plain version against itself, rounding P at other tile widths, by up to
+# wgmma forward, by 1.29e-4 to 2.34e-4 on four batches, and the plain
+# version against itself, rounding P at other tile widths, by up to
 # 2.22e-4, so the loss limit is the splash path's, above that noise; a
 # wrong kernel moves the loss by orders of magnitude more.  The gradients'
 # limit and the kernels' own GRAD_RTOL hold the backward.
@@ -317,12 +325,6 @@ LOGITS_MAX = 0.25
 # flash_attention_bwd.cu, flash_attention_bwd_dkv.cu: wgmma products on
 # TMA-loaded tiles, a producer warpgroup and mbarriers)
 HOPPER_DESIGN = "wgmma+tma"
-# the flash step comparison's loss gap read again on more batches (numpy
-# seeds; 0 is the training batch) with the loss alone, against the plain
-# version at its default tile width (512) and at these: 128, the kernel's
-# K/V tile, and 64, the first-slice kernel's
-GAP_SEEDS = (0, 1, 2, 3)
-GAP_BLOCKS = (512, 128, 64)
 
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048
 TRAIN_STEPS, TRAIN_UNTIMED = 8, 2
@@ -342,6 +344,12 @@ TP_SERVE_LAYERS = 16
 RUNTIME_WAIT_S = 300
 RUNTIME_FREE_SLACK = 1 << 30
 RUNTIME_PUT_ELEMS = 128 * 1024 * 1024
+# train_llama_1b_trainer: the steps the TorchTrainer's worker takes; the
+# runtime's shared-memory arena (the dataset's batch is 66 kB); how long
+# after shutdown() the card's memory may take to come back (s)
+TRAINER_STEPS = 4
+TRAINER_STORE_BYTES = 256 << 20
+TRAINER_FREE_WAIT_S = 5
 # bench_llm.py's prefix arm: one shared prefix and a short tail of its own
 PREFIX_LEN, TAIL_LEN = 1024, 32
 # the f32 exactness run: 4 prompts (buckets 512 and 1024), 24 tokens each;
@@ -1431,7 +1439,8 @@ def serve_llama_paged(dev, cfg, params, devices=None):
     does, so no kernel launches; its logits are held against the dense
     prefill's (through B1), and one paged prefill batch and one paged
     decode dispatch are timed and traced.  With ``devices`` the same at
-    tp = len(devices), ``params`` the shards ("tp2_" lines)."""
+    tp = len(devices), ``params`` the shards ("tp2_" lines), but for the
+    trace: the dense tp=2 phase traces its prefill and decode."""
     import torch
     from ray_tpu_torch.models import decode as dec
     from ray_tpu_torch.models import paged_decode as pdec
@@ -1470,14 +1479,15 @@ def serve_llama_paged(dev, cfg, params, devices=None):
     logits_check(f"{tag}paged_prefill_vs_dense_prefill_b1", paged, dense)
     del dense, paged
 
+    if devices:
+        return stats
     toks, lengths, slots = _prefill_batch(cfg, prompts, 8, dev)
-    pc = on_shards(paged_cache_for(cfg, 8, SERVE_MAX_LEN // PAGE_SIZE, dev),
-                   devices)
+    pc = paged_cache_for(cfg, 8, SERVE_MAX_LEN // PAGE_SIZE, dev)
     steps = eng.steps_per_dispatch
     trace_calls((
-        (f"{tag}paged_prefill_8x2048", lambda: pdec.paged_prefill(
+        ("paged_prefill_8x2048", lambda: pdec.paged_prefill(
             params, pc, toks, lengths, slots, _zeros(8, dev), cfg), 1),
-        (f"{tag}paged_decode_dispatch", lambda: pdec.paged_decode_state_loop(
+        ("paged_decode_dispatch", lambda: pdec.paged_decode_state_loop(
             params, eng.cache, eng._state, steps, cfg), steps)))
     return stats
 
@@ -1749,9 +1759,9 @@ def serve_llama_tp(dev, cfg, params, devices):
     traced.  Then one 8 x 2048 prefill batch at tp=2 against tp=1 on the
     same weights (rms limit, the largest difference a reading: the shards'
     halves of each projection add in bf16 in another order), and the paged
-    engine and
-    the prefix waves on the same shards (``serve_llama_paged``,
-    ``serve_llama_paged_prefix``: no launch, 4 hits reusing 4096 tokens)."""
+    engine and the prefix waves on the same shards (``serve_llama_paged``,
+    untraced, ``serve_llama_paged_prefix``: no launch, 4 hits reusing 4096
+    tokens)."""
     import torch
     from ray_tpu_torch.models import decode as dec
     from ray_tpu_torch.ops.flash_attention import flash_attention
@@ -2245,10 +2255,10 @@ def serve_mixtral_tp(dev, cfg, params, devices):
     return stats
 
 
-def plain_attention(block: int = 512):
+def plain_attention():
     """Attention through the kernels' plain versions, forward (B1's, on
-    ``block`` x ``block`` tiles) and backward (B2's and B3's), as a
-    differentiable function with ``mha``'s signature."""
+    512 x 512 tiles) and backward (B2's and B3's), as a differentiable
+    function with ``mha``'s signature."""
     import torch
     from ray_tpu_torch.ops import flash_attention as fa
 
@@ -2256,7 +2266,7 @@ def plain_attention(block: int = 512):
         @staticmethod
         def forward(ctx, q, k, v, causal):
             out, lse = fa.flash_attention_reference(q, k, v, causal,
-                                                    block, block)
+                                                    512, 512)
             ctx.save_for_backward(q, k, v, out, lse)
             ctx.causal = causal
             return out
@@ -2420,11 +2430,197 @@ def train_llama(dev, splash: bool = False):
     compare_train_step(state, batch, cfg, dev, remat, plain,
                        SPLASH_STEP_LOSS_ATOL if splash else STEP_LOSS_ATOL)
     if not splash:
-        loss_gaps(state, cfg, dev)
         time_lm_head_loss(state, cfg, dev)
     profile_step(step, state, batch,
                  "train_step_splash" if splash else "train_step")
     return stats, launches
+
+
+def trainer_loop(config):
+    """``train_llama_1b_trainer``'s loop, run by the ``num_gpus=1`` worker
+    (pickled by value: it takes everything from ``config`` and closes over
+    nothing of this script).  llama_1b from seed 0 as ``run_training``
+    builds it, ``config["steps"]`` steps on the one batch of its dataset
+    shard, on the card; each step reports its loss, its ms and the process
+    group, the first the batch and the state's build, the last the
+    attention kernels' launches, zeroed just before the first step."""
+    import hashlib
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import config as mcfg
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import splash_attention as sa
+    from ray_tpu_torch.parallel import (init_sharded_state, make_optimizer,
+                                        make_train_step)
+
+    entered = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cfg = mcfg.llama_1b()
+    opt = make_optimizer(warmup_steps=2, total_steps=100)
+    t0 = time.perf_counter()
+    state, sh = init_sharded_state(cfg, None, opt, seed=0)
+    step = make_train_step(cfg, None, opt, sh, remat=True)
+    torch.cuda.synchronize()
+    state_s = time.perf_counter() - t0
+    batches = list(train.get_dataset_shard("train").iter_torch_batches(
+        batch_size=config["rows"], device="cuda"))
+    tokens = batches[0]["tokens"]
+    counters = {"flash_attention_fwd": fa.flash_attention,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+                "splash_attention_fwd": sa.splash_attention,
+                "splash_attention_bwd_dq": sa.splash_attention_bwd_dq,
+                "splash_attention_bwd_dkv": sa.splash_attention_bwd_dkv}
+    first = {"entered": entered, "state_s": state_s,
+             "batches": len(batches), "shape": list(tokens.shape),
+             "batch_device": str(tokens.device),
+             "tokens_sha256": hashlib.sha256(
+                 tokens.cpu().numpy().tobytes()).hexdigest(),
+             "card": torch.cuda.get_device_name(dev),
+             "mesh": [str(d) for d in
+                      train.get_context().mesh().devices.flat]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    for i in range(config["steps"]):
+        t = time.perf_counter()
+        state, metrics = step(state, batches[0])
+        torch.cuda.synchronize()
+        row = {"step": i, "step_ms": (time.perf_counter() - t) * 1e3,
+               "loss": metrics["loss"].item(),
+               "backend": dist.get_backend(),
+               "world_size": dist.get_world_size()}
+        if i == 0:
+            row.update(first)
+        if i == config["steps"] - 1:
+            row["launches"] = {n: c.launches for n, c in counters.items()}
+            row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        train.report(row)
+
+
+def train_llama_trainer(in_process):
+    """Phase train_llama_1b_trainer: the training path through the train
+    library.  The port's runtime (``init``, the card auto-detected) runs a
+    ``TorchTrainer`` with one ``num_gpus=1`` worker on NCCL, fed by a
+    ``ray_tpu_torch.data`` dataset holding ``train_llama_1b``'s batch
+    (8 x 2049 tokens from numpy seed 0); the worker trains llama_1b uncut
+    for TRAINER_STEPS steps (``trainer_loop``).  Fails unless the group is
+    NCCL of world size 1, the worker got the batch on the card, each loss
+    is within STEP_LOSS_ATOL of ``in_process``'s (``train_llama_1b``'s
+    stats: the same seed, batch, kernels and card) at the same step, B1/B2/
+    B3 launched FLASH_PER_LAYER times per layer and step in the worker,
+    ``fit()`` returned, and the card's free memory is back within 1 GB
+    TRAINER_FREE_WAIT_S s after ``shutdown()``.  Readings: the worker's
+    ready time (``fit()`` to the loop's entry), its median step ms beside
+    the in-process one, the phase's wall time.  -> the launches."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    import ray_tpu_torch.data as tdata
+    from ray_tpu_torch.models import config as mcfg
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    cfg = mcfg.llama_1b()
+    tokens = training_batch(cfg)["tokens"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    free_before, _ = torch.cuda.mem_get_info()
+    t_phase = time.perf_counter()
+    storage = tempfile.mkdtemp(prefix="train_llama_1b_trainer-")
+    try:
+        t0 = time.perf_counter()
+        ray_tpu_torch.init(num_cpus=4, object_store_memory=TRAINER_STORE_BYTES)
+        init_s = time.perf_counter() - t0
+        try:
+            ds = tdata.from_items([{"tokens": row} for row in tokens],
+                                  parallelism=1)
+            trainer = TorchTrainer(
+                train_loop_per_worker=trainer_loop,
+                train_loop_config={"rows": TRAIN_BATCH,
+                                   "steps": TRAINER_STEPS},
+                datasets={"train": ds},
+                scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+                run_config=RunConfig(name="train_llama_1b_trainer",
+                                     storage_path=storage))
+            t_fit = time.time()
+            result = trainer.fit()
+            fit_s = time.time() - t_fit
+        finally:
+            ray_tpu_torch.shutdown()
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    free_after = wait_free_memory(free_before - RUNTIME_FREE_SLACK,
+                                  TRAINER_FREE_WAIT_S)
+    wall_s = time.perf_counter() - t_phase
+
+    rows = result.metrics_history
+    first, last = rows[0], rows[-1]
+    step_ms = [r["step_ms"] for r in rows]
+    timed = sorted(step_ms[TRAIN_UNTIMED:])
+    med = timed[len(timed) // 2] if len(timed) % 2 else (
+        timed[len(timed) // 2 - 1] + timed[len(timed) // 2]) / 2
+    want_losses = in_process["losses"][:TRAINER_STEPS]
+    losses = [r["loss"] for r in rows]
+    row = {"init_s": init_s, "fit_s": fit_s,
+           "worker_ready_s": first["entered"] - t_fit,
+           "state_s": first["state_s"], "phase_wall_s": wall_s,
+           "backend": sorted({r["backend"] for r in rows}),
+           "world_size": sorted({r["world_size"] for r in rows}),
+           "card": first["card"], "mesh": first["mesh"],
+           "batch": {k: first[k] for k in ("batches", "shape",
+                                           "batch_device")},
+           "losses": losses, "in_process_losses": want_losses,
+           "loss_gaps": [a - b for a, b in zip(losses, want_losses)],
+           "step_ms": step_ms, "step_ms_median": med,
+           "in_process_step_ms_median": in_process["step_ms_median"],
+           "peak_mem_gb": last.get("peak_mem_gb"),
+           "launches": last.get("launches"),
+           "free_gb_before": free_before / 1e9,
+           "free_gb_after": free_after / 1e9}
+    log("trainer " + json.dumps(row))
+    if result.error is not None or len(rows) != TRAINER_STEPS:
+        raise AssertionError(f"fit() gave {len(rows)} reports of "
+                             f"{TRAINER_STEPS}, error {result.error!r}")
+    if row["backend"] != ["nccl"] or row["world_size"] != [1]:
+        raise AssertionError(f"the worker's process group is "
+                             f"{row['backend']} of {row['world_size']}")
+    want_sha = hashlib.sha256(np.ascontiguousarray(tokens).tobytes())
+    if (row["batch"] != {"batches": 1, "shape": [TRAIN_BATCH, TRAIN_SEQ + 1],
+                         "batch_device": "cuda:0"}
+            or first["tokens_sha256"] != want_sha.hexdigest()):
+        raise AssertionError(f"the worker's dataset shard gave "
+                             f"{row['batch']}, not train_llama_1b's batch")
+    if first["card"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"the worker trained on {first['card']}")
+    if not all(abs(g) <= STEP_LOSS_ATOL for g in row["loss_gaps"]):
+        raise AssertionError(f"the worker's losses {losses} are not within "
+                             f"{STEP_LOSS_ATOL} of train_llama_1b's "
+                             f"{want_losses}")
+    want = {n: FLASH_PER_LAYER.get(n, 0) * cfg.num_layers * TRAINER_STEPS
+            for n in row["launches"]}
+    if row["launches"] != want:
+        raise AssertionError(f"kernel launches in the worker over "
+                             f"{TRAINER_STEPS} steps: {row['launches']}, "
+                             f"want {want}")
+    if free_after < free_before - RUNTIME_FREE_SLACK:
+        raise AssertionError(
+            f"the card has {free_after / 1e9:.2f} GB free "
+            f"{TRAINER_FREE_WAIT_S} s after shutdown(), "
+            f"{free_before / 1e9:.2f} GB before the phase")
+    return row["launches"]
 
 
 def train_mixtral(dev):
@@ -2588,43 +2784,6 @@ def compare_train_step(state, batch, cfg, dev, remat, plain_entry,
             f"{loss_atol}), leaf rel L2 {row['max_leaf_rel_l2']} "
             f"(limit {STEP_GRAD_REL_L2})")
     del kern, plain, kern_calls
-
-
-def loss_gaps(state, cfg, dev):
-    """Where the flash step comparison's loss gap comes from: the loss alone
-    (no backward) on the batches of ``GAP_SEEDS``, through B1 and through its
-    plain version on tiles of each width in ``GAP_BLOCKS``.  The plain
-    version rounds P to bf16 per tile, relative to the running max, as the
-    kernel does per 128-column K/V tile.  A reading, not a check: the limit
-    stays ``compare_train_step``'s on the training batch."""
-    import numpy as np
-    import torch
-    from ray_tpu_torch.models import transformer
-
-    def loss(tokens):
-        with torch.no_grad():
-            _, metrics = transformer.causal_lm_loss(
-                state.params, {"tokens": tokens}, cfg, remat=False)
-        return metrics["loss"].item()
-
-    rows = []
-    for seed in GAP_SEEDS:
-        tokens = torch.from_numpy(
-            np.random.default_rng(seed).integers(
-                0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))
-            .astype(np.int32)).to(dev)
-        row = {"seed": seed, "kernel": loss(tokens)}
-        for block in GAP_BLOCKS:
-            with patched(transformer, "mha", plain_attention(block)):
-                row[f"plain_{block}"] = loss(tokens)
-        for block in GAP_BLOCKS:
-            row[f"kernel_minus_plain_{block}"] = (row["kernel"]
-                                                  - row[f"plain_{block}"])
-        for block in GAP_BLOCKS[1:]:
-            row[f"plain_{block}_minus_plain_512"] = (row[f"plain_{block}"]
-                                                     - row["plain_512"])
-        rows.append(row)
-    log("step_loss_gaps " + json.dumps(rows))
 
 
 def time_lm_head_loss(state, cfg, dev):
@@ -4437,7 +4596,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     with phase("train_llama_1b"):
-        _, train_launches = train_llama(dev)
+        train_stats, train_launches = train_llama(dev)
+    with phase("train_llama_1b_trainer"):
+        trainer_launches = train_llama_trainer(train_stats)
     with phase("splash_kernels"):
         splash_rows = check_splash(dev, clock_hz)
     gc.collect()
@@ -4508,6 +4669,7 @@ def main() -> int:
         "launches": (serve_launches + runtime_row["flash_launches"]
                      + spec_launches + tp_launches
                      + train_launches["flash_attention_fwd"]
+                     + trainer_launches["flash_attention_fwd"]
                      + mixtral_serve["flash_launches"]
                      + mixtral_tp["flash_launches"]
                      + mixtral_train["flash_attention_fwd"]
@@ -4519,6 +4681,7 @@ def main() -> int:
             "serve_paged_spec": spec_launches,
             "serve_tp2": tp_launches,
             "train": train_launches["flash_attention_fwd"],
+            "train_trainer": trainer_launches["flash_attention_fwd"],
             "serve_mixtral": mixtral_serve["flash_launches"],
             "serve_mixtral_tp2": mixtral_tp["flash_launches"],
             "train_mixtral": mixtral_train["flash_attention_fwd"],
@@ -4543,10 +4706,12 @@ def main() -> int:
         "replaces": "ray_tpu/ops/flash_attention.py:201",
         "design": HOPPER_DESIGN,
         "launches": (train_launches["flash_attention_bwd_dq"]
+                     + trainer_launches["flash_attention_bwd_dq"]
                      + mixtral_train["flash_attention_bwd_dq"]
                      + sum(m["flash_attention_bwd_dq"] for m in mesh_launches.values())),
         "launches_by_path": {
             "train": train_launches["flash_attention_bwd_dq"],
+            "train_trainer": trainer_launches["flash_attention_bwd_dq"],
             "train_mixtral": mixtral_train["flash_attention_bwd_dq"],
             **{k: m["flash_attention_bwd_dq"] for k, m in mesh_launches.items()}},
         "max_abs_err": max(r["dq_max_abs_err"] for r in bwd_rows),
@@ -4564,10 +4729,12 @@ def main() -> int:
         "replaces": "ray_tpu/ops/flash_attention.py:248",
         "design": HOPPER_DESIGN,
         "launches": (train_launches["flash_attention_bwd_dkv"]
+                     + trainer_launches["flash_attention_bwd_dkv"]
                      + mixtral_train["flash_attention_bwd_dkv"]
                      + sum(m["flash_attention_bwd_dkv"] for m in mesh_launches.values())),
         "launches_by_path": {
             "train": train_launches["flash_attention_bwd_dkv"],
+            "train_trainer": trainer_launches["flash_attention_bwd_dkv"],
             "train_mixtral": mixtral_train["flash_attention_bwd_dkv"],
             **{k: m["flash_attention_bwd_dkv"] for k, m in mesh_launches.items()}},
         "max_abs_err": max(r["dkv_max_abs_err"] for r in bwd_rows),

@@ -39,7 +39,8 @@ def get_gpu_ids():
 #: Library submodules resolve lazily (PEP 562) so ``import ray_tpu_torch``
 #: stays light but ``ray_tpu_torch.serve`` etc. work as attributes, matching
 #: the reference's top-level module surface (limited to what the port has).
-_LAZY_SUBMODULES = ("train", "serve", "rllib", "util", "dag", "experimental")
+_LAZY_SUBMODULES = ("data", "train", "serve", "rllib", "util", "dag",
+                    "experimental")
 
 
 def __getattr__(name):

@@ -3,14 +3,36 @@ families.
 
 Counterpart of ``ray_tpu/models/config.py``, kept as its own copy so the port
 imports nothing of the JAX package.  Fields, properties and presets are the
-same; the JAX package's per-chip peak table holds TPU numbers and is not
-carried over.
+same; the per-device peak table has the JAX package's shape, keyed on the
+card's name in place of the TPU's device kind.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+#: Per-card peak bf16 matmul FLOP/s by device name — the denominator of the
+#: train observability plane's running MFU.  The H100 SXM's dense bf16
+#: tensor-core rate (NVIDIA's data sheet).
+PEAK_BF16_FLOPS = {
+    "h100": 989e12,
+    "cpu": 1e12,         # nominal, for CI runs only
+}
+
+
+def detect_peak_flops(device) -> float:
+    """Peak bf16 FLOP/s of one device, keyed on
+    ``torch.cuda.get_device_name`` (falls back to the nominal CPU figure
+    for CI runs)."""
+    import torch
+    device = torch.device(device)
+    kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu").lower()
+    for key, val in PEAK_BF16_FLOPS.items():
+        if key in kind:
+            return val
+    return PEAK_BF16_FLOPS["cpu"]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -265,9 +265,13 @@ def init_sharded_state(cfg: TransformerConfig, mesh, optimizer: Optimizer,
 def _to_device(batch: Dict[str, Any], dev: torch.device
                ) -> Dict[str, torch.Tensor]:
     """numpy batch -> tensors on ``dev``; for the card through pinned
-    memory, so the copy does not wait for the work queued before it."""
+    memory, so the copy does not wait for the work queued before it.  A
+    tensor (``iter_torch_batches``'s) moves as it is."""
     out = {}
     for k, v in batch.items():
+        if isinstance(v, torch.Tensor):
+            out[k] = v.to(dev)
+            continue
         t = torch.from_numpy(np.ascontiguousarray(v))
         if dev.type == "cuda":
             t = t.pin_memory()
@@ -288,12 +292,12 @@ def make_train_step(cfg: TransformerConfig, mesh, optimizer: Optimizer,
                     ) -> Callable:
     """Returns ``step(state, batch) -> (state, metrics)``.
 
-    ``batch`` holds numpy arrays (``tokens`` [B, S+1], or ``tokens`` and
-    ``targets``, and optionally ``loss_mask``); they move to ``device``
-    (default: the card), which must be where the state lives.  The state is
-    updated in place and returned.  Metrics: ``loss``, ``moe_aux_loss``,
-    ``tokens``, ``grad_norm`` (of the unclipped grads) and ``total_loss``,
-    as 0-d device tensors.  ``remat``: False/None, True/"full",
+    ``batch`` holds numpy arrays or tensors (``tokens`` [B, S+1], or
+    ``tokens`` and ``targets``, and optionally ``loss_mask``); they move to
+    ``device`` (default: the card), which must be where the state lives.
+    The state is updated in place and returned.  Metrics: ``loss``,
+    ``moe_aux_loss``, ``tokens``, ``grad_norm`` (of the unclipped grads) and
+    ``total_loss``, as 0-d device tensors.  ``remat``: False/None, True/"full",
     "save_acts", "save_mlp" or "dots" (``transformer.remat_policy``).
     With a ``mesh``, ``state`` is ``init_sharded_state``'s (or
     ``models.convert.sharded_state_from_numpy``'s, or ``load_pytree``'s

@@ -65,7 +65,8 @@ def test_every_module_imports_with_jax_and_ray_tpu_blocked():
                  "ray_tpu_torch.models.sharding",
                  "ray_tpu_torch.train.torch_utils",
                  "ray_tpu_torch.parallel.zero",
-                 "ray_tpu_torch.parallel.quant_collectives") + RLLIB_MODULES:
+                 "ray_tpu_torch.parallel.quant_collectives") + (
+                 RLLIB_MODULES + TRAIN_DATA_MODULES):
         assert name in res.stdout.split(), res.stdout
 
 
@@ -80,6 +81,14 @@ RLLIB_MODULES = tuple(f"ray_tpu_torch.rllib.{m}" for m in (
     "replay_buffer", "examples_env", "models", "conv", "optim", "learner",
     "env_runner", "ppo", "a2c", "dqn", "rainbow", "sac", "td3", "ddpg",
     "offline", "impala", "multi_agent", "external", "es", "apex"))
+
+#: the train and data libraries, every module
+TRAIN_DATA_MODULES = tuple(f"ray_tpu_torch.train.{m}" for m in (
+    "backend", "backend_executor", "checkpoint", "config", "context",
+    "elastic", "observability", "result", "storage", "trainer",
+    "worker_group")) + tuple(f"ray_tpu_torch.data.{m}" for m in (
+        "aggregate", "block", "context", "dataset", "datasource", "exchange",
+        "executor", "iterator", "logical", "operators", "planner"))
 
 _LIGHT_IMPORT = r'''
 import sys

@@ -425,21 +425,32 @@ def test_profiler_samples_stacks_without_cuda(tmp_path):
 
 
 ROOT = Path(__file__).resolve().parent.parent
-RUNTIME_DIRS = ("core", "native", "util", "dag", "experimental")
+RUNTIME_DIRS = ("core", "native", "util", "dag", "experimental", "train",
+                "data")
 #: the files where the port's runtime differs from the renamed copy: the
 #: GPU seam, the profiler on torch, the build directory, the session
-#: root under ``TMPDIR``, no ``darray``
+#: root under ``TMPDIR``, no ``darray``; the train library on
+#: ``torch.distributed`` and the GPU (``use_gpu``, ``TorchTrainer``, the
+#: mesh over the worker's cards, the card's peak and memory), and no
+#: ``iter_jax_batches``
 SEAM_FILES = {
     "core/__init__.py", "core/actor.py", "core/api.py", "core/cluster.py",
     "core/common.py", "core/core_worker.py", "core/head_main.py",
     "core/node_agent.py", "core/node_main.py", "core/remote_function.py",
     "core/worker_main.py",
     "core/runtime_context.py", "native/__init__.py", "util/profiler.py",
-    "util/usage_stats.py", "experimental/__init__.py"}
+    "util/usage_stats.py", "experimental/__init__.py",
+    "train/config.py", "train/context.py", "train/observability.py",
+    "train/worker_group.py", "train/backend.py", "train/trainer.py",
+    "train/__init__.py", "data/dataset.py", "data/iterator.py"}
+#: the port's files with no counterpart of the same name: the checkpoint
+#: IO, ``jax_utils.py`` in the JAX package
+PORT_ONLY_FILES = {"train/torch_utils.py"}
 RUNTIME_FILES = sorted(
     str(f.relative_to(ROOT / "ray_tpu_torch"))
     for d in RUNTIME_DIRS for f in (ROOT / "ray_tpu_torch" / d).iterdir()
-    if f.suffix in (".py", ".cpp"))
+    if f.suffix in (".py", ".cpp")
+    and str(f.relative_to(ROOT / "ray_tpu_torch")) not in PORT_ONLY_FILES)
 
 
 def _renamed_reference(rel):
@@ -459,9 +470,13 @@ def test_runtime_file_is_the_renamed_reference(rel):
 
 
 def test_runtime_has_the_reference_core():
-    """Every module of ``ray_tpu/core`` and ``ray_tpu/native``'s sources
-    have their counterpart."""
-    for d, pattern in (("core", "*.py"), ("native", "*.cpp")):
-        want = {f.name for f in (ROOT / "ray_tpu" / d).glob(pattern)}
+    """Every module of ``ray_tpu/core``, ``train`` and ``data`` and
+    ``ray_tpu/native``'s sources have their counterpart (``train`` keeps
+    ``torch_utils.py`` in place of ``jax_utils.py``)."""
+    renamed = {"jax_utils.py": "torch_utils.py"}
+    for d, pattern in (("core", "*.py"), ("native", "*.cpp"),
+                       ("train", "*.py"), ("data", "*.py")):
+        want = {renamed.get(f.name, f.name)
+                for f in (ROOT / "ray_tpu" / d).glob(pattern)}
         got = {f.name for f in (ROOT / "ray_tpu_torch" / d).glob(pattern)}
         assert want == got, want ^ got
