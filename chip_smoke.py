@@ -40,8 +40,8 @@ script exits non-zero:
    ones (plain attention), 16 tokens each.  Launch counts are zeroed just
    before and read just after.  Then the prefill logits of one batch
    through the kernel against the same prefill through the kernel's plain
-   version, and where the time of one prefill batch and one decode
-   dispatch goes (torch.profiler).  Then ``runtime_serve_llama3_8b``:
+   version (not traced, to pay for ``rllib_learner_actors``: the tp=2
+   and Mixtral phases trace theirs).  Then ``runtime_serve_llama3_8b``:
    the port's runtime (``ray_tpu_torch.init``) counts the card as a
    ``GPU`` resource, a ``num_gpus=1`` actor (``ServingActor``) draws the
    same weights on its card, builds the same engine and serves the same
@@ -162,7 +162,8 @@ script exits non-zero:
       rate is 0, so the third is the first after an update) and the adam
       mu after step 0, put back together, within STEP_GRAD_REL_L2 per
       leaf;
-      step ms, tokens/s, state and peak GB per card; one step profiled.
+      step ms, tokens/s, state and peak GB per card; one step of
+      ``fsdp=2, tp=2`` profiled (``MESH_TRACED``).
    b. ``train_f32_mesh_exactness``: llama_1b's width cut to 2 layers in
       f32 (plain attention) on ``dp=2, fsdp=2, tp=2``, 3 steps against
       ``mesh=None``: loss and grad norm, and every leaf of params, mu and
@@ -244,12 +245,28 @@ script exits non-zero:
     sample of 64 (1e-4); one ES and one ARS driver update (theta 1e-5
     rel. L2) and ``ESPolicy`` on a batch; ``MultiAgentPPO`` on
     RockPaperScissors end to end (three iterations, the third's updates
-    against the CPU within 1e-4); PPO in external mode end to end (a
+    against the CPU within 1e-4; its runners CPU actors of the port's
+    runtime, started for it); PPO in external mode end to end (a
     numpy simulator with CartPole's shapes in a thread, ``PolicyClient``
     over localhost, three iterations of 256 steps).  ms per update or
     iteration, samples/s, the busy share of one profiled IMPALA update,
     the server's ms per ``get_action``.  No kernel of the port runs here.
-12. A JSON line of kernels (each path's launches, the actor's under
+12. ``rllib_learner_actors``: RLlib on the port's runtime
+    (``init(num_cpus=4)``, the card counted as a ``GPU``):
+    ``DistributedLearnerGroup(num_learners=1, device=None)``, whose
+    ``LearnerWorker`` actor holds the ``GPU`` lease and forms an NCCL group
+    of one, runs PPO's update on the CartPole gate's MLP ([128, 4]) and
+    IMPALA's on its [64, 2] fragment, each against the same update of the
+    in-process learner on the card from the same seed (every leaf's rel.
+    L2 and the losses within 1e-4); the Nature CNN's update ([128, 8] f32
+    frames, ~116 MB a rollout) through the actor timed beside the
+    in-process one, and the worker's ready time; PPO's external mode with
+    ``learners(num_learners=1)`` for three iterations (the policy server's
+    weights equal the group's); two ``ReplayShard`` actors against two
+    in-process shards (equal samples before and after a priority update).
+    After ``shutdown()`` the card's free memory is back within 1 GB in
+    5 s.  No kernel of the port runs here.
+13. A JSON line of kernels (each path's launches, the actor's under
     ``runtime_serve``, the trainer's worker's under ``train_trainer``;
     the mesh paths' under ``train_mesh[...]``, the dp arms' under ``train_dp[...]``, the
     sp and pipeline runs' under ``train_sp_pp[...]``;
@@ -389,6 +406,9 @@ MOE_ROUTER_SKEW = 4.0
 # fsdp x ep (dp would hold its 27.4 GB of state twice); the f32 check and
 # the checkpoint round trip on llama_1b's width cut to 2 layers
 LLAMA_MESHES = (dict(fsdp=2, tp=2), dict(dp=2, fsdp=2, tp=2))
+# the meshes whose step is traced: not the 8-shard mesh, whose trace
+# (~30 s) pays for the phase rllib_learner_actors
+MESH_TRACED = LLAMA_MESHES[:1]
 MIXTRAL_MESH = dict(fsdp=2, ep=2)
 # the first three losses against mesh=None's: make_optimizer's warmup
 # gives step 0 a learning rate of 0, so the third is the first loss after
@@ -507,6 +527,12 @@ RL_CORPUS_STEPS = 6000     # CartPole-shaped offline corpus, transitions
 RL_OFFLINE_UPDATES = 10    # one train() of the offline learners
 RL_APEX_BATCH = 64         # the Ape-X gate's batch (tests/test_rllib_apex.py)
 RL_EXTERNAL_T = 256        # PPO's external-mode fragment, 3 iterations
+# The learner and replay actors on the runtime (phase rllib_learner_actors)
+RL_RUNTIME_STORE = 512 << 20   # the object store: a conv rollout is ~116 MB
+RL_RUNTIME_CPUS = 4            # the runtime's CPUs, and its idle pool's size
+RL_WARM_HOLD_S = 3.0           # a warm-up task holds its worker this long
+RL_SHARD_CAPACITY = 4096       # each ReplayShard's capacity
+RL_FREE_WAIT_S = 5             # the card's memory back after shutdown()
 
 
 def log(msg: str) -> None:
@@ -1065,7 +1091,6 @@ def serve_llama(dev, cfg, params):
                  peak_mem_gb=peak / 1e9)
     log("serve " + json.dumps(stats))
     check_prefill_logits(eng, cfg, prompts, dev)
-    where_time_goes(eng, cfg, prompts, dev)
     return stats, launches, outs
 
 
@@ -3017,8 +3042,9 @@ def train_llama_mesh(dev):
             cfg, spec, True, batch, MESH_TRAIN_STEPS, torch.bfloat16,
             FLASH_PER_LAYER, ref_rows, ref_mu0)
         out[mesh_label(spec)] = (stats, launches)
-        profile_step(step, state, batch,
-                     f"train_step_mesh[{mesh_label(spec)}]")
+        if spec in MESH_TRACED:
+            profile_step(step, state, batch,
+                         f"train_step_mesh[{mesh_label(spec)}]")
         del state, step
         gc.collect()
         torch.cuda.empty_cache()
@@ -4329,8 +4355,8 @@ def rl_es(dev, failures):
 
 
 def rl_multi_agent(dev, failures):
-    """MultiAgentPPO on RockPaperScissors end to end on the card (runners
-    in-process, the policies and the updates on the card): three
+    """MultiAgentPPO on RockPaperScissors end to end (runners CPU actors of
+    the port's runtime, ``rl_runtime``; the updates on the card): three
     iterations with finite losses; the third iteration's updates against a
     CPU learner from the same state, generator and rollout."""
     import math
@@ -4368,6 +4394,7 @@ def rl_multi_agent(dev, failures):
         results.append(algo.train())
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
+    algo.stop()
     losses = {k: v for k, v in results[-1].items() if k.endswith("_loss")}
     if not (len(losses) == 4
             and all(math.isfinite(r[k]) for r in results for k in losses)):
@@ -4397,10 +4424,13 @@ class RlSpace:
             self.n = n
 
 
-def rl_external(dev, failures):
+def rl_external(dev, failures, num_learners=0):
     """PPO in external mode end to end: a numpy simulator with CartPole's
     shapes drives the policy server over localhost through PolicyClient in
-    a thread; three iterations of RL_EXTERNAL_T steps."""
+    a thread; three iterations of RL_EXTERNAL_T steps.  With
+    ``num_learners`` the update runs in that many learner actors on the
+    card, and the server's weights must equal the group's after the
+    third."""
     import math
     import threading
     import numpy as np
@@ -4410,6 +4440,7 @@ def rl_external(dev, failures):
                            action_space=RlSpace((), n=2))
               .external(port=0)
               .env_runners(rollout_fragment_length=RL_EXTERNAL_T)
+              .learners(num_learners=num_learners)
               .training(num_epochs=2, num_minibatches=2,
                         model={"hidden": (32, 32)}))
     algo = config.build(device=None)
@@ -4439,30 +4470,98 @@ def rl_external(dev, failures):
     sim = threading.Thread(target=simulator, daemon=True)
     sim.start()
     times, results = [], []
+    served = group = None
     try:
         for _ in range(3):
             t = time.perf_counter()
             results.append(algo.train())
             times.append((time.perf_counter() - t) * 1e3)
+        served, _ = rllib.PolicyClient(
+            algo.policy_server.address).get_weights()
+        group = algo.get_weights()
     finally:
         stop.set()
         algo.stop()
         sim.join(timeout=30)
     last = results[-1]
+    weights_equal = (served is not None and set(served) == set(group)
+                     and all(np.array_equal(served[k], group[k])
+                             for k in group))
     ok = (last["training_iteration"] == 3
           and last["num_env_steps_sampled"] == 3 * RL_EXTERNAL_T
-          and math.isfinite(last["policy_loss"]) and not errors
-          and not sim.is_alive())
+          and all(math.isfinite(last[k])
+                  for k in ("policy_loss", "vf_loss", "entropy", "kl"))
+          and weights_equal and not errors and not sim.is_alive())
     if not ok:
-        failures.append(f"external ppo: {last}, errors {errors}, "
-                        f"simulator alive {sim.is_alive()}")
-    rl_line({"algorithm": "ppo external", "fragment": RL_EXTERNAL_T,
+        failures.append(f"external ppo (num_learners={num_learners}): "
+                        f"{last}, errors {errors}, server weights equal "
+                        f"{weights_equal}, simulator alive "
+                        f"{sim.is_alive()}")
+    rl_line({"algorithm": "ppo external", "num_learners": num_learners,
+             "server_weights_equal": weights_equal,
+             "fragment": RL_EXTERNAL_T,
              "ms_per_iteration": times,
              "get_action_ms_median": median(action_ms),
              "get_action_calls": len(action_ms),
              "env_steps_per_s": RL_EXTERNAL_T / (median(times) / 1e3),
              "policy_loss": last["policy_loss"],
              "num_env_steps_sampled": last["num_env_steps_sampled"]})
+
+
+def rl_warm_task(hold_s):
+    """In a worker of the runtime: import torch and ray_tpu_torch.rllib (no
+    CUDA), then hold the worker until ``hold_s`` after the start, so that
+    the warm-up tasks in flight each take a worker of their own.  -> the
+    import's seconds (0 in a worker that had them)."""
+    t0 = time.perf_counter()
+    import ray_tpu_torch.rllib  # noqa: F401
+    took = time.perf_counter() - t0
+    time.sleep(max(0.0, hold_s - (time.perf_counter() - t0)))
+    return took
+
+
+_RL_WARM = []
+
+
+def rl_warm(n):
+    """Warm ``n`` of the runtime's workers in the background: a worker
+    process can spend 7-13 s importing torch on an H100's machine (the
+    ``warm_import_s`` readings), and an actor lease takes an idle worker
+    before it spawns one, so an actor placed on a warm worker starts
+    without that import.  The pool keeps up to RL_RUNTIME_CPUS idle
+    workers."""
+    import ray_tpu_torch
+    task = ray_tpu_torch.remote(rl_warm_task).options(num_cpus=1)
+    _RL_WARM.extend(task.remote(RL_WARM_HOLD_S) for _ in range(n))
+
+
+def rl_warm_wait():
+    """Wait for the warm-up tasks in flight and for their workers to be
+    back in the pool (a finished task's lease returns after 2 s); -> the
+    import seconds each task took."""
+    import ray_tpu_torch
+    took = ray_tpu_torch.get(list(_RL_WARM), timeout=RUNTIME_WAIT_S)
+    _RL_WARM.clear()
+    deadline = time.monotonic() + 10
+    while (ray_tpu_torch.available_resources().get("CPU", 0)
+           < RL_RUNTIME_CPUS and time.monotonic() < deadline):
+        time.sleep(0.1)
+    return took
+
+
+def rl_runtime():
+    """The port's runtime for the RL phases, started once (the card
+    counted as a ``GPU``), its whole pool warmed at once; -> the seconds
+    ``init`` took (0 when it was up)."""
+    import ray_tpu_torch
+    if ray_tpu_torch.is_initialized():
+        return 0.0
+    t = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=RL_RUNTIME_CPUS,
+                       object_store_memory=RL_RUNTIME_STORE)
+    init_s = time.perf_counter() - t
+    rl_warm(RL_RUNTIME_CPUS)
+    return init_s
 
 
 def rllib_algorithms(dev):
@@ -4473,21 +4572,204 @@ def rllib_algorithms(dev):
     train() from a corpus through write_episodes and from_jsonl), Ape-X
     (|TD| and one update), ES and ARS (one driver update, the policy),
     multi-agent PPO and PPO's external mode end to end.  Every part runs
-    before the phase fails on what disagreed."""
+    before the phase fails on what disagreed.  It starts the RL phases'
+    runtime (``rl_runtime``), whose workers warm while the card works, and
+    leaves it up for ``rllib_learner_actors``."""
     import torch
     failures = []
     log(f"rllib_algorithms card: {card_line()}")
+    init_s = rl_runtime()
     for name, spec, appo, shape in RL_IMPALA:
         rl_impala(name, spec, appo, shape, dev, failures)
     rl_impala_dp(dev, failures)
     rl_offline(dev, failures)
     rl_apex(dev, failures)
     rl_es(dev, failures)
+    rl_line({"runtime_init_s": init_s, "warm_import_s": rl_warm_wait()})
     rl_multi_agent(dev, failures)
+    rl_warm(2)   # for the next phase, while external PPO runs
     rl_external(dev, failures)
     torch.cuda.synchronize()
     if failures:
         raise AssertionError("rllib_algorithms: " + "; ".join(failures))
+
+
+# ---------------------------------------------------------------------------
+# Phase rllib_learner_actors: RLlib's learner and replay actors on the runtime
+# ---------------------------------------------------------------------------
+
+def rl_group_update(name, spec, cfg, roll, learner_cls, failures):
+    """One ``DistributedLearnerGroup(num_learners=1, device=None)`` update
+    against the same update of the in-process learner on the card from
+    the same seed, held to RL_LEAF_RTOL; the worker's lease, backend and
+    ready time.  -> the group (still up) and its row."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.rllib import DistributedLearnerGroup, build_model
+    t = time.perf_counter()
+    group = DistributedLearnerGroup(spec, cfg, num_learners=1, seed=RL_SEED,
+                                    learner_cls=learner_cls, device=None)
+    ready_s = time.perf_counter() - t
+    info = group.info
+    if not (info["backend"] == "nccl" and info["num_processes"] == 1
+            and info["gpus"] == 1 and info["devices"] == ["cuda:0"]):
+        failures.append(f"{name}: the learner actor is {info}, not one "
+                        f"NCCL rank on a GPU lease")
+    local = learner_cls(build_model(spec), cfg, seed=RL_SEED, device=None)
+    base = host_tree(local.params)
+    m_local = local.update(roll)
+    m_group = group.update(roll)
+    got = {k: torch.tensor(v) for k, v in group.get_weights().items()}
+    # PPO's kl is near 0, so its relative difference is no measure
+    check = rl_compare(f"{name} learner actor", got, local.params, base,
+                       {k: (m_group[k], m_local[k]) for k in m_local
+                        if k != "kl"}, RL_LEAF_RTOL, failures)
+    want = host_tree(local.params)
+    check["max_leaf_abs_diff"] = max(
+        (got[k] - want[k]).abs().max().item() for k in want)
+    row = {"learner_actor": name, "model": spec,
+           "rollout": list(np.asarray(roll["rewards"]).shape),
+           "ready_s": ready_s, "info": info,
+           "against": "the in-process learner on the card", **check}
+    return group, local, row
+
+
+def rl_replay_shard_actors(failures):
+    """Ape-X's ReplayShard as 2 actors against 2 in-process shards of the
+    same seeds: the same transitions with the same |TD| priorities, then
+    ``sample``, ``update_priorities`` and ``sample`` again; the sampled
+    indices and weights equal."""
+    import numpy as np
+    import ray_tpu_torch
+    from ray_tpu_torch import rllib
+    cfg = rllib.APEXConfig().replay
+    shard_cls = ray_tpu_torch.remote(rllib.ReplayShard)
+    actors = [shard_cls.options(num_cpus=0.5).remote(
+        RL_SHARD_CAPACITY, cfg["alpha"], cfg["beta"], seed=RL_SEED + i)
+        for i in range(2)]
+    local = [rllib.ReplayShard(RL_SHARD_CAPACITY, cfg["alpha"], cfg["beta"],
+                               seed=RL_SEED + i) for i in range(2)]
+    rng = np.random.default_rng(RL_SEED)
+    equal = []
+    try:
+        for i, (a, s) in enumerate(zip(actors, local)):
+            batch = rl_q_batch(1024, 4, 2, False, seed=RL_SEED + i)
+            prios = rng.uniform(0.01, 2.0, 1024).astype(np.float32)
+            sizes = (ray_tpu_torch.get(a.add.remote(batch, prios),
+                                       timeout=60), s.add(batch, prios))
+            first = (ray_tpu_torch.get(a.sample.remote(RL_APEX_BATCH),
+                                       timeout=60),
+                     s.sample(RL_APEX_BATCH))
+            td = rng.uniform(0.01, 2.0, RL_APEX_BATCH).astype(np.float32)
+            ray_tpu_torch.get(a.update_priorities.remote(
+                first[1]["_indices"], td), timeout=60)
+            s.update_priorities(first[1]["_indices"], td)
+            second = (ray_tpu_torch.get(a.sample.remote(RL_APEX_BATCH),
+                                        timeout=60),
+                      s.sample(RL_APEX_BATCH))
+            equal.append(sizes[0] == sizes[1] and all(
+                np.array_equal(got[k], want[k])
+                for got, want in (first, second)
+                for k in ("_indices", "_weights")))
+    finally:
+        for a in actors:
+            ray_tpu_torch.kill(a)
+    if not all(equal):
+        failures.append(f"replay shard actors against in-process: {equal}")
+    return {"replay_shards": 2, "equal": equal}
+
+
+def rllib_learner_actors(dev):
+    """Phase rllib_learner_actors: RLlib on the port's runtime with the
+    card auto-detected (see the module docstring, 12.), the runtime
+    ``rllib_algorithms`` left up (or a new one).  Each actor starts on a
+    worker warmed in the background (``rl_warm``), so the ready times
+    exclude the worker's torch import, printed apart.  Every part runs
+    before the phase fails on what disagreed; then ``shutdown()``."""
+    import numpy as np
+    import torch
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib import (DistributedLearnerGroup, LearnerGroup,
+                                     build_model)
+    from ray_tpu_torch.rllib.impala import ImpalaLearner
+    from ray_tpu_torch.rllib.learner import Learner
+    failures = []
+    log(f"rllib_learner_actors card: {card_line()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    free_before, _ = torch.cuda.mem_get_info()
+    init_s = rl_runtime()
+    try:
+        warm_s = rl_warm_wait()
+        gpus = ray_tpu_torch.cluster_resources().get("GPU")
+        if gpus != torch.cuda.device_count():
+            failures.append(f"the runtime counts {gpus} GPUs")
+        # (a) PPO's MLP, (b) IMPALA's MLP: the actor against in-process
+        name, spec, cfg, (T, B) = RL_PPO[0]
+        group, _, row = rl_group_update(name, spec, cfg,
+                                        rl_rollout(spec, T, B), Learner,
+                                        failures)
+        group.shutdown()
+        rl_line({**row, "init_s": init_s, "warm_import_s": warm_s})
+        name, spec, appo, (T, B) = RL_IMPALA[0]
+        group, _, row = rl_group_update(
+            name, spec, dict(RL_IMPALA_CFG, use_appo_clip=appo),
+            rl_rollout(spec, T, B), ImpalaLearner, failures)
+        group.shutdown()
+        rl_line(row)
+        # (c) the Nature CNN through the actor: a reading beside the
+        # in-process update on the card (both under torch's default
+        # precision flags, which the actor's process keeps)
+        name, spec, cfg, (T, B) = RL_PPO[1]
+        roll = rl_rollout(spec, T, B)
+        roll["obs"] = roll["obs"].astype(np.float32)   # a runner's layout
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            t = time.perf_counter()
+            group = DistributedLearnerGroup(spec, cfg, num_learners=1,
+                                            seed=RL_SEED, device=None)
+            ready_s = time.perf_counter() - t
+            # warm three workers for (d) and (e) meanwhile
+            rl_warm(RL_RUNTIME_CPUS - 1)
+            local = LearnerGroup(build_model(spec), cfg, seed=RL_SEED,
+                                 device=None)
+            group.update(roll)
+            local.update(roll)
+            actor_ms = timed_calls(lambda: group.update(roll),
+                                   RL_TIMED["ppo"])
+            local_ms = timed_calls(lambda: local.update(roll),
+                                   RL_TIMED["ppo"])
+            group.shutdown()
+            del local
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        rl_line({"learner_actor": name, "model": spec, "rollout": [T, B],
+                 "rollout_bytes": int(sum(v.nbytes for v in roll.values())),
+                 "ready_s": ready_s, "ms_per_update_actor": actor_ms,
+                 "ms_per_update_in_process": local_ms,
+                 "actor_over_in_process": actor_ms / local_ms,
+                 "calls_timed": RL_TIMED["ppo"]})
+        del roll
+        warm_s = rl_warm_wait()
+        # (d) PPO's external mode with its update in a learner actor
+        rl_external(dev, failures, num_learners=1)
+        # (e) Ape-X's replay shards as actors
+        rl_line({**rl_replay_shard_actors(failures), "warm_import_s": warm_s})
+    finally:
+        ray_tpu_torch.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_after = wait_free_memory(free_before - RUNTIME_FREE_SLACK,
+                                  RL_FREE_WAIT_S)
+    rl_line({"learner_actors_memory": {"free_gb_before": free_before / 1e9,
+                                       "free_gb_after": free_after / 1e9}})
+    if free_after < free_before - RUNTIME_FREE_SLACK:
+        failures.append(f"the card's free memory {free_after / 1e9:.2f} GB "
+                        f"after shutdown(), {free_before / 1e9:.2f} before")
+    if failures:
+        raise AssertionError("rllib_learner_actors: " + "; ".join(failures))
 
 
 def main() -> int:
@@ -4634,6 +4916,8 @@ def main() -> int:
         rllib_learners(dev)
     with phase("rllib_algorithms"):
         rllib_algorithms(dev)
+    with phase("rllib_learner_actors"):
+        rllib_learner_actors(dev)
     mesh_launches = {f"train_mesh[{label}]": launches
                      for label, (_, launches) in llama_mesh.items()}
     mesh_launches[f"train_mixtral_mesh[{mesh_label(MIXTRAL_MESH)}]"] = (

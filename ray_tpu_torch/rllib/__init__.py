@@ -5,18 +5,20 @@ Counterpart of ``ray_tpu/rllib`` (reference surface: ``Algorithm``,
 one jitted program, data-parallel over a device mesh; the port runs the
 same update eagerly on the card (``device=None``) or the CPU
 (``device="cpu"``), and ``LearnerGroup(num_learners=N)`` splits PPO's batch
-over a device list from one process.  Runners, workers and replay shards
-(gymnasium stepping, the policy on the runner's device) are held
-in-process until the port reaches the runtime (ROADMAP A4); gymnasium is
-imported only by the runners and drivers, so this package imports
-without it.
+over a device list from one process.  As in the reference, the drivers
+sit on the runtime (``ray_tpu_torch.init()`` first): runners, workers and
+replay shards are actors (gymnasium stepping, the policy on the actor's
+CPU), and ``num_learners >= 1`` runs the update in learner actors
+(``DistributedLearnerGroup`` / ``LearnerWorker``: one
+``torch.distributed`` group, NCCL on the cards or gloo on the CPU).
+gymnasium is imported only by the runners and drivers, so this package
+imports without it.
 
 Ported: PPO and A2C (MLP and the Nature CNN), DQN, Rainbow, SAC, TD3,
 DDPG, IMPALA / APPO (V-trace), BC / MARWIL / CQL (offline), ES / ARS,
-Ape-X, multi-agent PPO and the external-env protocol
-(``PolicyServerInput`` / ``PolicyClient`` over HTTP).  Not yet: the
-learner actors (``DistributedLearnerGroup``, ``LearnerWorker``), which
-wait for ROADMAP A4 or A10.
+Ape-X, multi-agent PPO, the external-env protocol
+(``PolicyServerInput`` / ``PolicyClient`` over HTTP) and the learner
+actors.
 """
 
 from .a2c import A2C, A2CConfig
@@ -29,6 +31,7 @@ from .es import ARS, ARSConfig, ES, ESConfig
 from .external import PolicyClient, PolicyServerInput
 from .impala import APPO, APPOConfig, IMPALA, IMPALAConfig
 from .learner import Learner, LearnerGroup
+from .learner_group import DistributedLearnerGroup, LearnerWorker
 from .models import ActorCriticMLP, build_model
 from .multi_agent import (MultiAgentEnv, MultiAgentEnvRunner, MultiAgentPPO,
                           RockPaperScissors)
@@ -54,8 +57,15 @@ __all__ = ["PPO", "PPOConfig", "A2C", "A2CConfig", "DQN", "DQNConfig",
            "MultiAgentEnv", "MultiAgentEnvRunner", "MultiAgentPPO",
            "RockPaperScissors",
            "QNetwork", "EnvRunner", "Learner", "LearnerGroup",
+           "DistributedLearnerGroup", "LearnerWorker",
            "ActorCriticMLP", "ActorCriticConv", "build_model",
            "ReplayBuffer", "PrioritizedReplayBuffer",
            "NATURE_FILTERS", "DQNRunner", "build_q_model", "QNetworkSA",
            "SACRunner", "SquashedGaussianPolicy", "TD3Runner",
            "DeterministicPolicy"]
+
+# Usage telemetry: which libraries a cluster actually uses (reference:
+# usage_lib.record_library_usage at import time).  Never raises.
+from ..util.usage_stats import record_library_usage as _rlu
+_rlu("rllib")
+del _rlu

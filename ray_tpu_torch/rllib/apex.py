@@ -6,12 +6,13 @@ with a per-actor exploration ladder, replay sharded across dedicated
 actors, a learner that consumes shard samples and pushes refreshed
 priorities back).  The double-DQN update and the n-step runner are the
 port's ``dqn.py``; ``ReplayShard`` wraps the port's
-``PrioritizedReplayBuffer``.  The samplers and the shards are held
-in-process (the reference's are actors; ROADMAP A4): each sampler keeps
-one batch in flight, submitted with the weights snapshot of the
-iteration that submitted it and sampled when the next iteration harvests
-it, so inserts lag the learner by one iteration, as the reference's
-resubmit-on-arrival loop does.
+``PrioritizedReplayBuffer``.  As in the reference, the samplers
+(``DQNRunner``) and the shards are actors of the port's runtime (the
+shards at half a CPU each): each sampler keeps one batch in flight and
+is resubmitted the moment its batch is harvested, so samplers never wait
+on the learner; a batch goes to a round-robin shard with |TD| priorities
+computed on the driver's device, and the learner pulls from random
+shards and pushes refreshed priorities back.
 """
 
 from __future__ import annotations
@@ -100,20 +101,22 @@ class APEX(DQN):
         return None  # replay lives in the shards
 
     def __init__(self, config: APEXConfig, device=None):
+        import ray_tpu_torch
+
         super().__init__(config, device=device)
+        shard_cls = ray_tpu_torch.remote(ReplayShard)
         r = config.replay
         per_shard = max(1, r["capacity"] // config.num_replay_shards)
         self.shards = [
-            ReplayShard(per_shard, r["alpha"], r["beta"],
-                        seed=config.seed + i)
+            shard_cls.options(num_cpus=0.5).remote(
+                per_shard, r["alpha"], r["beta"], seed=config.seed + i)
             for i in range(config.num_replay_shards)]
         n = max(2, config.num_env_runners)
         self._actor_eps = [
             float(config.epsilon_base
                   ** (1.0 + i / (n - 1) * config.epsilon_alpha))
             for i in range(config.num_env_runners)]
-        #: (runner index, weights snapshot it was submitted with)
-        self._inflight: List[tuple] = []
+        self._inflight: Dict[Any, int] = {}   # sample ref -> runner index
         self._next_shard = 0
         self._rng = np.random.default_rng(config.seed)
 
@@ -135,43 +138,67 @@ class APEX(DQN):
         target = batch["rewards"] + batch["discounts"] * boot
         return (qa - target).abs()
 
-    def _harvest_and_insert(self) -> int:
-        """Sample every in-flight batch, resubmit its sampler, insert into
-        the shards with fresh priorities.  Returns env steps inserted."""
+    def _harvest_and_insert(self, timeout: float) -> int:
+        """Collect arrived sampler batches, resubmit samplers, insert
+        into shards with fresh priorities.  Returns env steps inserted."""
+        import ray_tpu_torch
+
         cfg = self.config
         per_runner = max(1, cfg.rollout_steps // cfg.num_env_runners)
-        weights = self.get_weights()
+        weights_ref = ray_tpu_torch.put(self.get_weights())
         if not self._inflight:
-            self._inflight = [(i, weights) for i in range(len(self.runners))]
+            for i, r in enumerate(self.runners):
+                ref = r.sample.remote(weights_ref, per_runner,
+                                      self._actor_eps[i],
+                                      cfg.train["n_step"],
+                                      cfg.train["gamma"])
+                self._inflight[ref] = i
+        ready, _ = ray_tpu_torch.wait(list(self._inflight),
+                                      num_returns=len(self._inflight),
+                                      timeout=timeout)
+        if not ready and self._inflight:
+            # the decoupled tier may lag the learner; block for one batch
+            # so an iteration always makes replay progress
+            ready, _ = ray_tpu_torch.wait(list(self._inflight),
+                                          num_returns=1, timeout=600)
         steps = 0
-        harvest, self._inflight = self._inflight, []
-        for i, submitted in harvest:
-            batch = self.runners[i].sample(
-                submitted, per_runner, self._actor_eps[i],
-                cfg.train["n_step"], cfg.train["gamma"])
+        add_refs = []
+        for ref in ready:
+            i = self._inflight.pop(ref)
+            batch = ray_tpu_torch.get(ref, timeout=60)
             prios = self._td_abs(self.params, self.target_params,
                                  self._device_batch(batch)).cpu().numpy()
             shard = self.shards[self._next_shard]
             self._next_shard = (self._next_shard + 1) % len(self.shards)
-            shard.add(batch, prios + 1e-6)
+            add_refs.append(shard.add.remote(batch, prios + 1e-6))
             steps += len(batch["rewards"])
             # resubmitted at once: the sampler never idles
-            self._inflight.append((i, weights))
+            nref = self.runners[i].sample.remote(
+                weights_ref, per_runner, self._actor_eps[i],
+                cfg.train["n_step"], cfg.train["gamma"])
+            self._inflight[nref] = i
+        if add_refs:
+            ray_tpu_torch.get(add_refs, timeout=60)
         return steps
 
     def train(self) -> Dict[str, Any]:
+        import ray_tpu_torch
+
         t0 = time.time()
         cfg = self.config
-        self._env_steps += self._harvest_and_insert()
+        self._env_steps += self._harvest_and_insert(timeout=0.05)
 
-        sizes = [s.size() for s in self.shards]
+        sizes = ray_tpu_torch.get([s.size.remote() for s in self.shards],
+                                  timeout=60)
         losses: List[torch.Tensor] = []
         if sum(sizes) >= cfg.replay["learn_starts"]:
             for _ in range(cfg.train["train_iters"]):
                 order = self._rng.permutation(len(self.shards))
                 picked = None
                 for j in order:  # the first shard deep enough this pull
-                    picked = self.shards[j].sample(cfg.train["batch_size"])
+                    picked = ray_tpu_torch.get(
+                        self.shards[j].sample.remote(
+                            cfg.train["batch_size"]), timeout=60)
                     if picked is not None:
                         break
                 if picked is None:
@@ -181,10 +208,12 @@ class APEX(DQN):
                                     self.opt_state,
                                     self._device_batch(picked))
                 losses.append(loss)
-                self.shards[int(j)].update_priorities(
+                self.shards[int(j)].update_priorities.remote(
                     picked["_indices"], td.abs().cpu().numpy() + 1e-6)
 
-        rets = [x for r in self.runners for x in r.episode_returns()]
+        rets = [x for per in ray_tpu_torch.get(
+            [r.episode_returns.remote() for r in self.runners], timeout=60)
+            for x in per]
         self._recent_returns.extend(rets)
         self._recent_returns = self._recent_returns[-100:]
         self._iteration += 1
@@ -202,6 +231,13 @@ class APEX(DQN):
             "num_updates": len(losses),
             "time_this_iter_s": time.time() - t0,
         }
+
+    def stop(self):
+        from .actors import kill_all
+
+        super().stop()
+        kill_all(getattr(self, "shards", []))
+        self.shards = []
 
 
 APEXConfig._algo_cls = APEX

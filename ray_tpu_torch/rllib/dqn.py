@@ -7,11 +7,14 @@ Polyak target with ``target_update_tau``: the reference jits the update
 into one program; here it runs eagerly on the driver's device, and the
 replay ring stays on the host (each sample is one transfer).
 
-The runners are in-process (the reference places them as actors; ROADMAP
-A4).  ``DQNRunner``'s epsilon-greedy draws and n-step aggregation are the
-reference's numpy, so with the same params it gives the reference's
-transitions.  ``DQN.learner_only`` builds the update alone from the
-observation and action sizes, with no env, no runner and no gymnasium.
+The runners are actors of the port's runtime (``ray_tpu_torch.init()``
+first), as the reference's are: one CPU each, their policy on the CPU,
+the weights through one ``put`` an iteration, the batches gathered in
+runner order.  ``DQNRunner``'s epsilon-greedy draws and n-step
+aggregation are the reference's numpy, so with the same params it gives
+the reference's transitions.  ``DQN.learner_only`` builds the update
+alone from the observation and action sizes, with no env, no runner and
+no gymnasium.
 """
 
 from __future__ import annotations
@@ -149,6 +152,9 @@ class DQNRunner:
             self._done_returns.clear()
         return out
 
+    def ping(self) -> bool:
+        return True
+
 
 class DQNConfig:
     """Builder (reference: DQNConfig fluent API)."""
@@ -217,17 +223,21 @@ class DQN:
     def __init__(self, config: DQNConfig, device=None):
         import gymnasium as gym
 
+        import ray_tpu_torch
+
         probe = gym.make(config.env_name, **config.env_config)
         obs_dim = int(np.prod(probe.observation_space.shape))
         action_dim = int(probe.action_space.n)
         probe.close()
         self._setup(config, obs_dim, action_dim, device)
         self.buffer = self._make_buffer()
+        runner_cls = ray_tpu_torch.remote(DQNRunner)
         self.runners = [
-            DQNRunner(config.env_name, self.model_spec,
-                      num_envs=config.num_envs_per_runner,
-                      seed=config.seed + 1000 * i,
-                      env_config=config.env_config, device=self.device)
+            runner_cls.options(num_cpus=1).remote(
+                config.env_name, self.model_spec,
+                num_envs=config.num_envs_per_runner,
+                seed=config.seed + 1000 * i,
+                env_config=config.env_config, device="cpu")
             for i in range(config.num_env_runners)]
         self._iteration = 0
         self._env_steps = 0
@@ -320,22 +330,27 @@ class DQN:
                                             - e["epsilon_start"])
 
     def _device_batch(self, sample) -> Dict[str, torch.Tensor]:
-        batch = {k: torch.as_tensor(sample[k]).to(self.device)
+        # copies: a sample from a runner or a shard actor is read-only
+        batch = {k: torch.tensor(sample[k], device=self.device)
                  for k in ("obs", "actions", "rewards", "next_obs",
                            "discounts")}
         if "_weights" in sample:
-            batch["weights"] = torch.as_tensor(sample["_weights"]).to(
-                self.device)
+            batch["weights"] = torch.tensor(sample["_weights"],
+                                            device=self.device)
         return batch
 
     def train(self) -> Dict[str, Any]:
+        import ray_tpu_torch
+
         t0 = time.time()
         cfg = self.config
         eps = self._epsilon()
-        weights = self.get_weights()
+        weights_ref = ray_tpu_torch.put(self.get_weights())
         per_runner = max(1, cfg.rollout_steps // cfg.num_env_runners)
-        batches = [r.sample(weights, per_runner, eps, cfg.train["n_step"],
-                            cfg.train["gamma"]) for r in self.runners]
+        batches = ray_tpu_torch.get(
+            [r.sample.remote(weights_ref, per_runner, eps,
+                             cfg.train["n_step"], cfg.train["gamma"])
+             for r in self.runners], timeout=600)
         for b in batches:
             self.buffer.add(b)
             self._env_steps += len(b["rewards"])
@@ -352,7 +367,9 @@ class DQN:
                                               td.cpu().numpy())
                 losses.append(float(loss))
 
-        rets = [x for r in self.runners for x in r.episode_returns()]
+        rets = [x for per in ray_tpu_torch.get(
+            [r.episode_returns.remote() for r in self.runners], timeout=60)
+            for x in per]
         self._recent_returns.extend(rets)
         self._recent_returns = self._recent_returns[-100:]
         self._iteration += 1
@@ -369,9 +386,9 @@ class DQN:
         }
 
     def stop(self):
-        for r in getattr(self, "runners", []):
-            for env in r.envs:
-                env.close()
+        from .actors import kill_all
+
+        kill_all(getattr(self, "runners", []))
         self.runners = []
 
     def get_weights(self):

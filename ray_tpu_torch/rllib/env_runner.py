@@ -3,9 +3,10 @@
 Counterpart of ``ray_tpu/rllib/env_runner.py`` (reference:
 ``rllib/env/env_runner.py:9`` and ``rllib/evaluation/rollout_worker.py:159``):
 it owns gymnasium envs, takes policy weights, and returns fixed-length
-sample batches.  The reference runs it as an actor; until the port reaches
-the runtime (ROADMAP A4) the drivers hold it in-process.  Stepping is
-Python on the host; the policy runs on the runner's ``device``.  Each
+sample batches.  The drivers run it as an actor of the port's runtime, as
+the reference does, with ``device="cpu"``: the reference's runners run
+their policy on the worker's CPU devices.  Stepping is Python on the
+host; the policy runs on the runner's ``device``.  Each
 ``sample`` reseeds its draws from ``(seed << 20) ^ calls``, as the
 reference reseeds its key, here a ``torch.Generator`` on the host.
 gymnasium is imported by the constructor, so the module imports without it.
@@ -102,3 +103,6 @@ class EnvRunner:
         if clear:
             self._done_returns.clear()
         return out
+
+    def ping(self) -> bool:
+        return True

@@ -16,8 +16,10 @@ per layer ``b`` then ``w`` (sorted keys), so a JAX ``theta`` is the same
 policy here.  Its forward runs on the policy's device (``device=None``:
 the card), one observation per env step; the rank-weighted update
 ``theta + lr * (w @ eps) / denom - lr * l2 * theta`` runs on the driver's
-device.  The workers are held in-process (the reference's are actors;
-ROADMAP A4) and evaluate their chunks of seeds in turn.
+device.  The workers are actors of the port's runtime (one CPU each,
+their policy on the CPU), as the reference's are: ``theta`` goes to them
+through one ``put`` an iteration, and they evaluate their chunks of
+seeds at once.
 """
 
 from __future__ import annotations
@@ -189,6 +191,9 @@ class ESWorker:
                                mean, std, None)
         return ret
 
+    def ping(self) -> bool:
+        return True
+
 
 class ESConfig:
     """Builder (reference: ESConfig fluent API)."""
@@ -244,6 +249,8 @@ class ES:
     def __init__(self, config: ESConfig, device=None):
         import gymnasium as gym
 
+        import ray_tpu_torch
+
         from . import examples_env  # noqa: F401
 
         probe = gym.make(config.env_name, **config.env_config)
@@ -254,11 +261,12 @@ class ES:
         probe.close()
         self._setup(config, obs_dim, action_dim, continuous, device)
         cfg = config.cfg
+        worker_cls = ray_tpu_torch.remote(ESWorker)
         self.workers = [
-            ESWorker(config.env_name, self.spec, seed=config.seed + 1000 * i,
-                     env_config=config.env_config,
-                     episode_horizon=cfg["episode_horizon"],
-                     device=self.device)
+            worker_cls.options(num_cpus=1).remote(
+                config.env_name, self.spec, seed=config.seed + 1000 * i,
+                env_config=config.env_config,
+                episode_horizon=cfg["episode_horizon"], device="cpu")
             for i in range(config.num_env_runners)]
 
     @classmethod
@@ -283,7 +291,7 @@ class ES:
         self.filter = _RunningStat(obs_dim)
         self._use_filter = cfg["observation_filter"] == "MeanStdFilter"
         self._seed_seq = np.random.SeedSequence(config.seed)
-        self.workers: List[ESWorker] = []
+        self.workers: List[Any] = []
         self._iteration = 0
         self._timesteps = 0
 
@@ -324,6 +332,8 @@ class ES:
             self.theta, eps, w[idx].astype(np.float32), float(denom))
 
     def train(self) -> Dict[str, Any]:
+        import ray_tpu_torch
+
         cfg = self.config.cfg
         t0 = time.time()
         n = int(cfg["num_perturbations"])
@@ -332,10 +342,12 @@ class ES:
         mean, std = (self.filter.stats() if self._use_filter else
                      (np.zeros(self.spec["obs_dim"], np.float32),
                       np.ones(self.spec["obs_dim"], np.float32)))
+        theta_ref = ray_tpu_torch.put(self.theta)
         chunks = np.array_split(np.asarray(seeds), len(self.workers))
-        outs = [w.evaluate(self.theta, [int(x) for x in chunk],
-                           float(cfg["sigma"]), mean, std)
+        futs = [w.evaluate.remote(theta_ref, [int(x) for x in chunk],
+                                  float(cfg["sigma"]), mean, std)
                 for w, chunk in zip(self.workers, chunks) if len(chunk)]
+        outs = ray_tpu_torch.get(futs, timeout=600)
         rets = np.concatenate([o["returns"] for o in outs])     # [n, 2]
         lens = np.concatenate([o["lengths"] for o in outs])
         if self._use_filter:
@@ -346,8 +358,10 @@ class ES:
         self.update_from_returns(seeds, rets)
 
         # unperturbed evaluation rollouts for the reported return
-        eval_rets = [self.workers[i % len(self.workers)].rollout_current(
-            self.theta, mean, std) for i in range(int(cfg["eval_episodes"]))]
+        eval_rets = ray_tpu_torch.get(
+            [self.workers[i % len(self.workers)].rollout_current.remote(
+                self.theta, mean, std)
+             for i in range(int(cfg["eval_episodes"]))], timeout=600)
         self._iteration += 1
         self._timesteps += int(lens.sum())
         return {
@@ -380,8 +394,9 @@ class ES:
         return self._policy.act(self.theta, (flat - mean) / std)
 
     def stop(self):
-        for w in self.workers:
-            w.env.close()
+        from .actors import kill_all
+
+        kill_all(self.workers)
         self.workers = []
 
 

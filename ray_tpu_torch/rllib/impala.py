@@ -12,23 +12,21 @@ then optax's clip + Adam (``optim.Adam``).  Under
 devices, which is exact since V-trace runs per column; each device's sums
 are divided by the global T·B and the gradients summed in device order.
 
-The driver keeps the reference's asynchronous contract in-process: each
-runner has one fragment in flight, recorded with the weights snapshot and
-policy version it was submitted under; fragments are consumed first in,
-first out; a runner is resubmitted before the update that consumes its
-fragment, under a snapshot refreshed every ``broadcast_interval``
-updates.  So a fragment is sampled under stale weights and
-``version_lags`` is real (``num_env_runners`` in steady state at
-``broadcast_interval`` 1).  What changed is time: the reference's runners
-are actors that sample while the learner updates; until the port reaches
-the runtime (ROADMAP A4) there are no actors, and a runner samples its
-fragment, under the snapshot it was submitted with, when the driver
-consumes it, so sampling and the update take turns.
+The driver is the reference's asynchronous loop on the port's runtime:
+the runners are ``EnvRunner`` actors (one CPU each, their policy on the
+CPU), each with one fragment in flight, recorded with the policy version
+its weights snapshot (one ``put``, refreshed every ``broadcast_interval``
+updates) was taken at.  Each update consumes the first fragment to land
+(``wait``) and resubmits its runner before the update, so sampling
+overlaps the learner and a fragment lands a few versions stale
+(``version_lags``).  ``num_learners >= 1`` runs the update in learner
+actors (``DistributedLearnerGroup`` with ``learner_cls=ImpalaLearner``):
+the fragment's columns split over the ranks, so ``num_envs_per_runner``
+must divide by them.
 """
 
 from __future__ import annotations
 
-import collections
 import time
 from typing import Any, Dict, List, Optional
 
@@ -51,6 +49,7 @@ class IMPALAConfig:
         self.num_learners = 0
         self.num_devices_per_learner = 1
         self.seed = 0
+        self.worker_env: Optional[Dict[str, str]] = None
         self.model: Dict[str, Any] = {"hidden": (64, 64)}
         self.train: Dict[str, Any] = {
             "lr": 5e-4, "gamma": 0.99, "grad_clip": 40.0,
@@ -77,8 +76,9 @@ class IMPALAConfig:
     def learners(self, num_learners: int = 0,
                  num_devices_per_learner: int = 1):
         """0 = the driver's learner (``num_devices_per_learner > 1``: an
-        in-process dp split); N >= 1 = learner actors, which the port does
-        not have yet (``build`` raises)."""
+        in-process dp split); N >= 1 = N learner actors on one process
+        group (learner_group.py): the decoupled actor/learner split the
+        IMPALA paper describes."""
         self.num_learners = num_learners
         self.num_devices_per_learner = num_devices_per_learner
         return self
@@ -94,9 +94,10 @@ class IMPALAConfig:
         return self
 
     def debugging(self, seed: int = 0, worker_env: Optional[dict] = None):
-        """``worker_env`` sets the reference's actor environment; runners
-        are in-process here, so it is not used."""
+        """``worker_env``: environment variables each runner and learner
+        actor sets before it builds (``actors.actor_class``)."""
         self.seed = seed
+        self.worker_env = worker_env
         return self
 
     def build(self, device=None) -> "IMPALA":
@@ -178,32 +179,27 @@ class ImpalaLearner(Learner):
 
     def update(self, rollout: Dict[str, np.ndarray]) -> Dict[str, float]:
         """One Adam step on the fragment's V-trace loss (split over the dp
-        devices by column), metrics read in one copy."""
+        devices, and the ranks of a process group, by column), metrics
+        read in one copy."""
         T, B = np.asarray(rollout["rewards"]).shape[:2]
         grads, aux = self._shard_grads(self._place_batch(rollout),
-                                       sorted(self.params), T * B)
+                                       sorted(self.params),
+                                       T * B * self.world)
         self.opt.step_(leaves(self.params), grads, self.opt_state)
         values = torch.stack(list(aux.values())).tolist()
         return dict(zip(aux, values))
 
 
 class IMPALA:
-    """Driver: one fragment in flight per runner, consumed first in, first
-    out, each runner resubmitted before the update (see the module
-    docstring)."""
+    """Async driver: one in-flight sample per runner, resubmit-on-arrival."""
 
     def __init__(self, config: IMPALAConfig, device=None):
         import gymnasium as gym
 
+        from .actors import actor_class
         from .env_runner import EnvRunner
         from .models import build_model
 
-        if config.num_learners >= 1:
-            raise NotImplementedError(
-                "learner actors (num_learners >= 1, DistributedLearnerGroup "
-                "in rllib/learner_group.py) wait for ROADMAP A4 or A10; use "
-                "learners(num_learners=0, num_devices_per_learner=N) for an "
-                "in-process dp split")
         self.config = config
         self.device = device_mod.resolve(device)
         probe = gym.make(config.env_name, **config.env_config)
@@ -216,60 +212,81 @@ class IMPALA:
                                action_dim=action_dim,
                                hidden=tuple(config.model["hidden"]),
                                continuous=continuous)
-        n_dp = max(1, config.num_devices_per_learner)
-        self.learner = ImpalaLearner(
-            build_model(self.model_spec), config.train,
-            mesh=dp_mesh(n_dp, device) if n_dp > 1 else None,
-            seed=config.seed, device=self.device)
+        if config.num_learners >= 1:
+            from .learner_group import DistributedLearnerGroup
+
+            self.learner = DistributedLearnerGroup(
+                self.model_spec, config.train,
+                num_learners=config.num_learners, seed=config.seed,
+                learner_cls=ImpalaLearner,
+                devices_per_learner=config.num_devices_per_learner,
+                device=device, worker_env=config.worker_env)
+        else:
+            n_dp = max(1, config.num_devices_per_learner)
+            self.learner = ImpalaLearner(
+                build_model(self.model_spec), config.train,
+                mesh=dp_mesh(n_dp, device) if n_dp > 1 else None,
+                seed=config.seed, device=self.device)
+        runner_cls = actor_class(EnvRunner, config.worker_env)
         self.runners = [
-            EnvRunner(config.env_name, self.model_spec,
-                      num_envs=config.num_envs_per_runner,
-                      seed=config.seed + 1000 * i,
-                      env_config=config.env_config, device=self.device)
+            runner_cls.options(num_cpus=1).remote(
+                config.env_name, self.model_spec,
+                num_envs=config.num_envs_per_runner,
+                seed=config.seed + 1000 * i,
+                env_config=config.env_config, device="cpu")
             for i in range(config.num_env_runners)]
         self._iteration = 0
         self._recent_returns: List[float] = []
         self.policy_version = 0
-        self._weights: Optional[Dict[str, np.ndarray]] = None
+        self._weights_ref = None
         self._weights_version = -1
-        #: (runner, weights snapshot, version it was submitted under),
-        #: oldest first
-        self._in_flight: collections.deque = collections.deque()
-        #: diagnostic: version lag of consumed fragments
+        #: ref -> (runner, version the fragment was sampled under)
+        self._in_flight: Dict[Any, tuple] = {}
+        #: diagnostic: version lag of consumed fragments (proof of async)
         self.version_lags: List[int] = []
 
-    def _fresh_weights(self) -> Dict[str, np.ndarray]:
-        """The snapshot new fragments sample under: refreshed once
-        ``broadcast_interval`` updates have passed since the last one."""
-        if (self._weights is None
+    def _fresh_weights_ref(self):
+        import ray_tpu_torch
+
+        if (self._weights_ref is None
                 or self.policy_version - self._weights_version
                 >= self.config.broadcast_interval):
-            self._weights = self.learner.get_weights()
+            self._weights_ref = ray_tpu_torch.put(self.learner.get_weights())
             self._weights_version = self.policy_version
-        return self._weights
+        return self._weights_ref
 
-    def _submit(self, runner) -> None:
-        self._in_flight.append((runner, self._fresh_weights(),
-                                self._weights_version))
+    def _submit(self, runner):
+        ref = runner.sample.remote(self._fresh_weights_ref(),
+                                   self.config.rollout_len)
+        self._in_flight[ref] = (runner, self._weights_version)
 
     def train(self) -> Dict[str, Any]:
-        """One iteration = ``updates_per_iter`` learner steps, each on the
-        oldest fragment in flight; its runner is resubmitted first."""
+        """One iteration = updates_per_iter learner steps, each consuming the
+        first fragment to land; its runner is resubmitted IMMEDIATELY, so
+        sampling continues while the learner's update runs."""
+        import ray_tpu_torch
+
         t0 = time.time()
         for r in self.runners:
-            if not any(rn is r for rn, _, _ in self._in_flight):
+            if not any(rn is r for rn, _ in self._in_flight.values()):
                 self._submit(r)
         metrics: Dict[str, float] = {}
         for _ in range(self.config.updates_per_iter):
-            runner, weights, version = self._in_flight.popleft()
-            batch = runner.sample(weights, self.config.rollout_len)
+            ready, _ = ray_tpu_torch.wait(list(self._in_flight),
+                                          num_returns=1, timeout=600)
+            runner, version = self._in_flight.pop(ready[0])
+            batch = ray_tpu_torch.get(ready[0])
+            # resubmit BEFORE updating: the runner samples the next fragment
+            # while the learner computes, the decoupling IMPALA is about
             self._submit(runner)
             self.version_lags.append(self.policy_version - version)
             if len(self.version_lags) > 64:
                 del self.version_lags[:-64]
             metrics = self.learner.update(batch)
             self.policy_version += 1
-        rets = [x for r in self.runners for x in r.episode_returns()]
+        rets = [x for per in ray_tpu_torch.get(
+            [r.episode_returns.remote() for r in self.runners], timeout=60)
+            for x in per]
         self._recent_returns.extend(rets)
         self._recent_returns = self._recent_returns[-100:]
         self._iteration += 1
@@ -287,11 +304,13 @@ class IMPALA:
         }
 
     def stop(self):
-        for r in self.runners:
-            for env in r.envs:
-                env.close()
+        from .actors import kill_all
+
+        kill_all(self.runners)
         self.runners = []
         self._in_flight.clear()
+        if hasattr(self.learner, "shutdown"):
+            self.learner.shutdown()
 
     def get_weights(self):
         return self.learner.get_weights()

@@ -22,6 +22,21 @@ order on the first device, to the single-device ones.  The params and
 Adam's state live on the first device, and every step copies the params
 to the others.
 
+A learner can also be one rank of a ``torch.distributed`` group
+(``process_group``; ``learner_group.py``'s learner actors), the port's
+counterpart of the reference's mesh over every process's devices.  Its
+``update`` then takes the rank's slice of the global batch, and the dp
+blocks are process-major: rank r's devices hold global blocks
+``r * N .. r * N + N - 1``.  Each rank runs the same update on its own
+blocks, and one ``all_reduce`` (SUM) combines what the device sum
+combines: the gradients and the metrics, after the device sum.  Two more
+keep the normalisation global, its mean and then its sum of squared
+deviations (``jnp.std``'s two passes).  Every rank draws each epoch's
+permutation from its own ``seed + 1`` generator, so the draws agree
+without a message, and a rank that holds none of a minibatch's rows
+still enters every collective, with zeros.  The ranks add the same sums
+and step Adam alike, so their params stay equal.
+
 The one random draw of an update, each epoch's permutation, goes through
 ``_permutation``, which a test can replace with JAX's.  The learner draws
 it on the host from a ``torch.Generator`` seeded with ``seed + 1`` (the
@@ -34,6 +49,7 @@ from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import device as device_mod
 from ..parallel import mesh as mesh_mod
@@ -82,11 +98,13 @@ def dp_mesh(num_learners: int, device=None) -> mesh_mod.Mesh:
 
 class Learner:
     """Owns params + optimizer state; ``update()`` runs the PPO update on
-    the learner's device (or over ``mesh``'s ``dp`` devices)."""
+    the learner's device (or over ``mesh``'s ``dp`` devices), as one rank
+    of ``process_group`` when one is given (see the module docstring)."""
 
     def __init__(self, model, config: Dict[str, Any],
                  mesh: Optional[mesh_mod.Mesh] = None, seed: int = 0,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 process_group=None):
         self.model = model
         self.cfg = dict(config)
         self.mesh = mesh
@@ -94,6 +112,11 @@ class Learner:
             [device_mod.resolve(device)] if mesh is None
             else list(mesh.devices.flat))
         self.device = self.devices[0]
+        self.group = process_group
+        self.rank = 0 if process_group is None else dist.get_rank(
+            process_group)
+        self.world = 1 if process_group is None else dist.get_world_size(
+            process_group)
         # params drawn on the host: the same seed gives the same params on
         # every device
         params = model.init(torch.Generator().manual_seed(seed))
@@ -165,21 +188,37 @@ class Learner:
                 v = np.asarray(v)
                 blk = (v[d * bl:(d + 1) * bl] if v.ndim <= 1
                        else v[:, d * bl:(d + 1) * bl])
-                part[k] = torch.from_numpy(np.ascontiguousarray(blk)).to(dev)
+                # a copy: the object store hands out read-only arrays
+                part[k] = torch.tensor(blk, device=dev)
             out.append(part)
         return out
 
     def _route(self, idx: torch.Tensor, B: int) -> List[torch.Tensor]:
-        """Global flat rows ``idx`` (row t * B + b of [T, B]) -> each
-        device's local flat rows (t * B/N + b - d * B/N) on that device."""
-        if len(self.devices) == 1:
+        """Global flat rows ``idx`` (row t * B + b of the global [T, B])
+        -> each of this rank's devices' local flat rows (t * bl + b - k *
+        bl for global block k = rank * N + d of width bl) on that device."""
+        nd = len(self.devices)
+        if nd * self.world == 1:
             return [idx.to(self.device)]
-        bl = B // len(self.devices)
+        bl = B // (nd * self.world)
         col, row = idx % B, idx // B
         shard = col // bl
         local = row * bl + col - shard * bl
-        return [local[shard == d].to(dev)
+        return [local[shard == self.rank * nd + d].to(dev)
                 for d, dev in enumerate(self.devices)]
+
+    def _sum_ranks(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each tensor summed over the process group's ranks, through one
+        ``all_reduce`` of their concatenation (as they are without a
+        group).  The sums come back as tensors of their own, not views at
+        odd offsets of one buffer: the optimizer's foreach norm may sum a
+        misaligned tensor in another order."""
+        if self.group is None:
+            return tensors
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
+        return [part.view_as(t).clone() for part, t in
+                zip(flat.split([t.numel() for t in tensors]), tensors)]
 
     # -------------------------------------------------------------- public
 
@@ -189,6 +228,7 @@ class Learner:
         minibatches = cfg.get("num_minibatches", 4)
         shards = self._place_batch(rollout)
         T, B = np.asarray(rollout["rewards"]).shape[:2]
+        B *= self.world  # the global batch's columns
         flats = []
         for r in shards:
             advs = self._gae(r["rewards"], r["values"], r["dones"],
@@ -203,12 +243,13 @@ class Learner:
                 "returns": returns.reshape(-1),
             })
         n = T * B
-        # the normalisation is global: sums over every shard, in order
-        adv_mean = mesh_mod.ordered_sum(
-            [f["advantages"].sum() for f in flats]) / n
-        var = mesh_mod.ordered_sum(
+        # the normalisation is global: sums over every shard, in order,
+        # then over the ranks
+        adv_mean = self._sum_ranks([mesh_mod.ordered_sum(
+            [f["advantages"].sum() for f in flats])])[0] / n
+        var = self._sum_ranks([mesh_mod.ordered_sum(
             [((f["advantages"] - adv_mean.to(f["advantages"].device)) ** 2)
-             .sum() for f in flats]) / n
+             .sum() for f in flats])])[0] / n
         std = torch.sqrt(var)
         for f in flats:
             a = f["advantages"]
@@ -234,7 +275,7 @@ class Learner:
         """The loss gradients and metrics of one global batch given as
         each device's part (``batches[d]`` on device d, every mean divided
         by the global ``count``), summed over the devices in order on the
-        first."""
+        first, then over the ranks."""
         per_grads, per_aux = [], []
         for d, (dev, mb) in enumerate(zip(self.devices, batches)):
             src = {k: (self.params[k] if d == 0
@@ -246,12 +287,14 @@ class Learner:
                                                  [p[k] for k in keys]))
             per_aux.append({k: v.detach() for k, v in aux.items()})
         if len(per_grads) == 1:
-            return list(per_grads[0]), per_aux[0]
-        grads = [mesh_mod.ordered_sum([g[i] for g in per_grads])
-                 for i in range(len(keys))]
-        aux = {k: mesh_mod.ordered_sum([a[k] for a in per_aux])
-               for k in per_aux[0]}
-        return grads, aux
+            grads, aux = list(per_grads[0]), per_aux[0]
+        else:
+            grads = [mesh_mod.ordered_sum([g[i] for g in per_grads])
+                     for i in range(len(keys))]
+            aux = {k: mesh_mod.ordered_sum([a[k] for a in per_aux])
+                   for k in per_aux[0]}
+        summed = self._sum_ranks(grads + list(aux.values()))
+        return summed[:len(grads)], dict(zip(aux, summed[len(grads):]))
 
     def get_weights(self) -> Dict[str, np.ndarray]:
         return to_numpy(self.params)

@@ -11,8 +11,8 @@ from one host ``torch.Generator`` per ``sample``, seeded from
 ``(seed << 20) ^ calls`` as the reference seeds its key, through the
 models' draw functions (``models._gumbel``), so a test can feed JAX's.
 ``MultiAgentPPO`` owns one PPO ``Learner`` per policy; its runners are
-held in-process (the reference's are actors; ROADMAP A4).  None of it
-needs gymnasium.
+actors of the port's runtime (one CPU each, their policies on the CPU),
+as the reference's are.  None of it needs gymnasium.
 """
 
 from __future__ import annotations
@@ -205,11 +205,15 @@ class MultiAgentEnvRunner:
                 v.clear()
         return out
 
+    def ping(self) -> bool:
+        return True
+
 
 class MultiAgentPPO:
-    """One PPO Learner per policy over in-process runners (reference:
+    """One PPO Learner per policy over shared rollout actors (reference:
     multi-policy training in ``Algorithm`` with a PolicyMap).  The learners
-    and the runners' policies run on ``device`` (``None``: the card)."""
+    run on ``device`` (``None``: the card), the runners' policies on the
+    CPU."""
 
     def __init__(self, env_ctor: Callable[[], MultiAgentEnv],
                  policy_mapping_fn: Callable[[str], str],
@@ -217,6 +221,8 @@ class MultiAgentPPO:
                  train_config: Optional[Dict[str, Any]] = None,
                  hidden: Tuple[int, ...] = (32, 32), seed: int = 0,
                  device=None):
+        import ray_tpu_torch
+
         from .learner import Learner
         from .models import build_model
 
@@ -235,18 +241,24 @@ class MultiAgentPPO:
             pid: Learner(build_model(self.model_specs[pid]), cfg,
                          seed=seed + i, device=self.device)
             for i, pid in enumerate(self.policy_ids)}
+        runner_cls = ray_tpu_torch.remote(MultiAgentEnvRunner)
         self.runners = [
-            MultiAgentEnvRunner(env_ctor, self.model_specs, mapping,
-                                seed=seed + 7 * i, device=self.device)
+            runner_cls.options(num_cpus=1).remote(
+                env_ctor, self.model_specs, mapping, seed=seed + 7 * i,
+                device="cpu")
             for i in range(num_runners)]
         self.rollout_len = rollout_len
         self._iteration = 0
         self._recent: Dict[str, List[float]] = {p: [] for p in self.policy_ids}
 
     def train(self) -> Dict[str, Any]:
+        import ray_tpu_torch
+
         t0 = time.time()
-        weights = self.get_weights()
-        samples = [r.sample(weights, self.rollout_len) for r in self.runners]
+        wref = ray_tpu_torch.put(self.get_weights())
+        samples = ray_tpu_torch.get(
+            [r.sample.remote(wref, self.rollout_len) for r in self.runners],
+            timeout=600)
         metrics: Dict[str, Any] = {}
         for pid, learner in self.learners.items():
             per = [s[pid] for s in samples if pid in s]
@@ -258,8 +270,10 @@ class MultiAgentPPO:
                 for k in per[0]}
             m = learner.update(rollout)
             metrics.update({f"{pid}/{k}": v for k, v in m.items()})
-        for r in self.runners:
-            for pid, vals in r.episode_returns().items():
+        for rets in ray_tpu_torch.get(
+                [r.episode_returns.remote() for r in self.runners],
+                timeout=60):
+            for pid, vals in rets.items():
                 self._recent[pid].extend(vals)
                 self._recent[pid] = self._recent[pid][-100:]
         self._iteration += 1
@@ -275,4 +289,7 @@ class MultiAgentPPO:
         return {pid: ln.get_weights() for pid, ln in self.learners.items()}
 
     def stop(self):
+        from .actors import kill_all
+
+        kill_all(self.runners)
         self.runners = []

@@ -5,16 +5,20 @@ Counterpart of ``ray_tpu/rllib/ppo.py`` (reference:
 config builder, the rollout fan-out, the learner update and the weight
 broadcast, with the update on the card (``learner.py``).
 
-The reference places its runners as actors and gathers their samples in
-runner order.  The port builds the same ``EnvRunner`` objects in-process
-(seeds ``seed + 1000 * i``) and calls ``sample`` on each in turn.  In
+As in the reference, the runners are actors of the runtime
+(``ray_tpu_torch.init()`` first): ``EnvRunner`` actors (seeds ``seed +
+1000 * i``, one CPU each, their policy on the CPU), fed the learner's
+weights through one ``put`` an iteration and gathered in runner order.
+``num_learners >= 1`` runs the update in that many learner actors
+(``learner_group.DistributedLearnerGroup``); 0 runs it in the driver.  In
 external-env mode (``.external(port)``, spaces from ``.environment``)
 there are no runners: samples arrive over the policy server
-(``external.py``), whose forward runs on the learner's device.  What sits
-on the runtime raises ``NotImplementedError``: learner actors
-(``num_learners >= 1``, which wait for ROADMAP A4 or A10) and the Tune
-trainable (A4).  ``build(device=None)`` runs the learner and the runners'
-policies on the card, and raises without one; tests pass ``"cpu"``.
+(``external.py``), whose forward runs on the driver's device.
+``debugging(worker_env=...)`` sets the actors' environment.  The Tune
+trainable raises until tune is ported (ROADMAP A4 (e)).
+``build(device=None)`` runs the update (the driver's, or the learner
+actors' on a ``GPU`` each) on the card, and raises without one; tests
+pass ``"cpu"``.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ class PPOConfig:
             grad_clip=0.5)
         self.model: Dict[str, Any] = dict(hidden=(64, 64))
         self.seed = 0
+        self.worker_env: Optional[Dict[str, str]] = None
         self.observation_space = None
         self.action_space = None
         self.external_port: Optional[int] = None
@@ -85,8 +90,9 @@ class PPOConfig:
                  num_devices_per_learner: int = 1):
         """Reference semantics (AlgorithmConfig.learners): 0 = update in the
         driver process on its local devices (``num_devices_per_learner > 1``
-        = an in-process dp split); N >= 1 = learner actors, which the port
-        does not have yet (``build`` raises)."""
+        = an in-process dp split); N >= 1 = N learner actors forming one
+        process group (learner_group.py), each on
+        ``num_devices_per_learner`` devices."""
         self.num_learners = num_learners
         self.num_devices_per_learner = num_devices_per_learner
         return self
@@ -102,9 +108,10 @@ class PPOConfig:
         return self
 
     def debugging(self, seed: int = 0, worker_env: Optional[dict] = None):
-        """``worker_env`` sets the reference's actor environment; runners
-        are in-process here, so it is not used."""
+        """``worker_env``: environment variables each runner and learner
+        actor sets before it builds (``actors.actor_class``)."""
         self.seed = seed
+        self.worker_env = worker_env
         return self
 
     #: algorithm class this config builds — subclasses (A2CConfig) override
@@ -118,7 +125,7 @@ class PPOConfig:
 
 
 class PPO:
-    """The algorithm driver: rollouts from in-process runners (or the
+    """The algorithm driver: rollouts from the runner actors (or the
     policy server) -> the update -> weights back to them.
 
     ``train()`` returns the reference's result dict (episode_return_mean,
@@ -126,16 +133,11 @@ class PPO:
 
     def __init__(self, config: PPOConfig, device=None):
         from .. import device as device_mod
+        from .actors import actor_class
         from .env_runner import EnvRunner
         from .learner import LearnerGroup
         from .models import build_model
 
-        if config.num_learners >= 1:
-            raise NotImplementedError(
-                "learner actors (num_learners >= 1, DistributedLearnerGroup "
-                "in rllib/learner_group.py) are ROADMAP A8's second part and "
-                "wait for A4 or A10; use learners(num_learners=0, "
-                "num_devices_per_learner=N) for an in-process dp split")
         self.config = config
         self.device = device_mod.resolve(device)
         if config.env_name is not None:
@@ -172,10 +174,22 @@ class PPO:
                                    action_dim=action_dim,
                                    hidden=tuple(config.model["hidden"]),
                                    continuous=continuous)
-        n_dp = max(1, config.num_devices_per_learner)
-        self.learner_group = LearnerGroup(
-            build_model(self.model_spec), config.train, num_learners=n_dp,
-            seed=config.seed, device=device if n_dp > 1 else self.device)
+        if config.num_learners >= 1:
+            from .learner_group import DistributedLearnerGroup
+
+            self.learner_group = DistributedLearnerGroup(
+                self.model_spec, config.train,
+                num_learners=config.num_learners, seed=config.seed,
+                devices_per_learner=config.num_devices_per_learner,
+                device=device, worker_env=config.worker_env)
+        else:
+            # driver-local: num_devices_per_learner > 1 maps to an
+            # in-process dp split over that many devices
+            n_dp = max(1, config.num_devices_per_learner)
+            self.learner_group = LearnerGroup(
+                build_model(self.model_spec), config.train,
+                num_learners=n_dp, seed=config.seed,
+                device=device if n_dp > 1 else self.device)
         self.policy_server = None
         self.runners = []
         if config.external_port is not None:
@@ -189,18 +203,22 @@ class PPO:
                 fragment_len=config.external_fragment_len,
                 device=self.device)
         else:
+            runner_cls = actor_class(EnvRunner, config.worker_env)
             self.runners = [
-                EnvRunner(config.env_name, self.model_spec,
-                          num_envs=config.num_envs_per_runner,
-                          seed=config.seed + 1000 * i,
-                          env_config=config.env_config, device=self.device)
+                runner_cls.options(num_cpus=1).remote(
+                    config.env_name, self.model_spec,
+                    num_envs=config.num_envs_per_runner,
+                    seed=config.seed + 1000 * i,
+                    env_config=config.env_config, device="cpu")
                 for i in range(config.num_env_runners)]
         self._iteration = 0
         self._recent_returns: List[float] = []
 
     def train(self) -> Dict[str, Any]:
-        """One iteration: sample on every runner in turn (or take
-        ``rollout_len`` steps from the policy server), one update."""
+        """One iteration: sample on all runners (or take ``rollout_len``
+        steps from the policy server), one update."""
+        import ray_tpu_torch
+
         t0 = time.time()
         if self.policy_server is not None:
             rollout = self.policy_server.next(self.config.rollout_len)
@@ -209,16 +227,19 @@ class PPO:
             rets = self.policy_server.episode_returns()
             steps = self.config.rollout_len
         else:
-            weights = self.learner_group.get_weights()
-            batches = [r.sample(weights, self.config.rollout_len)
-                       for r in self.runners]
+            weights_ref = ray_tpu_torch.put(self.learner_group.get_weights())
+            batches = ray_tpu_torch.get(
+                [r.sample.remote(weights_ref, self.config.rollout_len)
+                 for r in self.runners], timeout=600)
             # concat along the env axis: [T, sum(B_i), ...]
             rollout = {
                 k: np.concatenate([b[k] for b in batches],
                                   axis=0 if k == "last_values" else 1)
                 for k in batches[0]}
             metrics = self.learner_group.update(rollout)
-            rets = [x for r in self.runners for x in r.episode_returns()]
+            rets = [x for per in ray_tpu_torch.get(
+                [r.episode_returns.remote() for r in self.runners],
+                timeout=60) for x in per]
             steps = (self.config.rollout_len * self.config.num_env_runners
                      * self.config.num_envs_per_runner)
         self._recent_returns.extend(rets)
@@ -235,20 +256,22 @@ class PPO:
         }
 
     def stop(self):
+        from .actors import kill_all
+
         if self.policy_server is not None:
             self.policy_server.stop()
             self.policy_server = None
-        for r in self.runners:
-            for env in r.envs:
-                env.close()
+        kill_all(self.runners)
         self.runners = []
+        if hasattr(self.learner_group, "shutdown"):
+            self.learner_group.shutdown()
 
     def get_weights(self):
         return self.learner_group.get_weights()
 
     @staticmethod
     def as_tune_trainable(config_builder):
-        """The reference wraps the driver into a ``ray_tpu.tune`` trainable,
-        which is the runtime."""
+        """The reference wraps the driver into a ``ray_tpu.tune`` trainable;
+        the port has no tune yet."""
         raise NotImplementedError(
-            "as_tune_trainable needs ray_tpu.tune, the runtime: ROADMAP A4")
+            "as_tune_trainable needs ray_tpu_torch.tune: ROADMAP A4 (e)")

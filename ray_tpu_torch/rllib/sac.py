@@ -11,8 +11,9 @@ of them over both critics together.
 The update's two normal draws (next actions, then actions) go through
 ``_normal``, which a test can replace with JAX's; the driver draws them on
 the host from a ``torch.Generator`` seeded from the config's seed.  The
-runners are in-process (ROADMAP A4); ``SAC.learner_only`` builds the
-update alone, with no env and no gymnasium.
+runners are actors of the port's runtime with their policy on the CPU,
+as the reference's are; ``SAC.learner_only`` builds the update alone,
+with no env and no gymnasium.
 """
 
 from __future__ import annotations
@@ -159,6 +160,9 @@ class SACRunner:
             self._done_returns.clear()
         return out
 
+    def ping(self) -> bool:
+        return True
+
 
 class SACConfig:
     """Builder (reference: SACConfig fluent API)."""
@@ -219,6 +223,8 @@ class SAC:
     def __init__(self, config: SACConfig, device=None):
         import gymnasium as gym
 
+        import ray_tpu_torch
+
         from .replay_buffer import ReplayBuffer
 
         probe = gym.make(config.env_name, **config.env_config)
@@ -228,11 +234,13 @@ class SAC:
         self._setup(config, obs_dim, action_dim, device)
         self.buffer = ReplayBuffer(config.replay["capacity"],
                                    seed=config.seed)
+        runner_cls = ray_tpu_torch.remote(SACRunner)
         self.runners = [
-            SACRunner(config.env_name, self.spec,
-                      num_envs=config.num_envs_per_runner,
-                      seed=config.seed + 1000 * i,
-                      env_config=config.env_config, device=self.device)
+            runner_cls.options(num_cpus=1).remote(
+                config.env_name, self.spec,
+                num_envs=config.num_envs_per_runner,
+                seed=config.seed + 1000 * i,
+                env_config=config.env_config, device="cpu")
             for i in range(config.num_env_runners)]
         self._iteration = 0
         self._env_steps = 0
@@ -345,13 +353,17 @@ class SAC:
                 for k, v in sample.items() if not k.startswith("_")}
 
     def train(self) -> Dict[str, Any]:
+        import ray_tpu_torch
+
         t0 = time.time()
         cfg = self.config
         warm = (cfg.replay.get("random_warmup", True)
                 and self._env_steps < cfg.replay["learn_starts"])
-        weights = self.get_weights()
+        weights_ref = ray_tpu_torch.put(self.get_weights())
         per_runner = max(1, cfg.rollout_steps // cfg.num_env_runners)
-        batches = [r.sample(weights, per_runner, warm) for r in self.runners]
+        batches = ray_tpu_torch.get(
+            [r.sample.remote(weights_ref, per_runner, warm)
+             for r in self.runners], timeout=600)
         for b in batches:
             self.buffer.add(b)
             self._env_steps += len(b["rewards"])
@@ -366,7 +378,9 @@ class SAC:
             closs, aloss, alpha_v = (float(closs), float(aloss),
                                      float(alpha_v))
 
-        rets = [x for r in self.runners for x in r.episode_returns()]
+        rets = [x for per in ray_tpu_torch.get(
+            [r.episode_returns.remote() for r in self.runners], timeout=60)
+            for x in per]
         self._recent_returns.extend(rets)
         self._recent_returns = self._recent_returns[-100:]
         self._iteration += 1
@@ -382,9 +396,9 @@ class SAC:
         }
 
     def stop(self):
-        for r in getattr(self, "runners", []):
-            for env in r.envs:
-                env.close()
+        from .actors import kill_all
+
+        kill_all(getattr(self, "runners", []))
         self.runners = []
 
     def get_weights(self):

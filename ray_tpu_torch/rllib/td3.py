@@ -9,8 +9,9 @@ reference's static argument is; ``twin_q=False`` is DDPG's single critic.
 The update runs on the driver's device; its one draw, the smoothing noise,
 goes through ``_normal`` (a test can replace it with JAX's), drawn on the
 host from a ``torch.Generator`` seeded from the config's seed.  Shares
-``QNetworkSA`` and the replay buffer with SAC; the runners are in-process
-(ROADMAP A4), and ``TD3.learner_only`` builds the update alone.
+``QNetworkSA`` and the replay buffer with SAC; the runners are actors of
+the port's runtime with their policy on the CPU, as the reference's are,
+and ``TD3.learner_only`` builds the update alone.
 """
 
 from __future__ import annotations
@@ -71,10 +72,6 @@ class TD3Runner:
         self._mid, self._half = (high + low) / 2.0, (high - low) / 2.0
         self._returns: List[float] = []
         self._ep_ret = np.zeros(num_envs)
-
-    @property
-    def envs(self):
-        return self._envs
 
     def _scale(self, a: np.ndarray) -> np.ndarray:
         return self._mid + self._half * a
@@ -187,6 +184,8 @@ class TD3:
     def __init__(self, config: TD3Config, device=None):
         import gymnasium as gym
 
+        import ray_tpu_torch
+
         from .replay_buffer import ReplayBuffer
 
         probe = gym.make(config.env_name, **config.env_config)
@@ -196,13 +195,15 @@ class TD3:
         self._setup(config, obs_dim, action_dim, device)
         self.buffer = ReplayBuffer(config.replay["capacity"],
                                    seed=config.seed)
+        runner_cls = ray_tpu_torch.remote(TD3Runner)
         self.runners = [
-            TD3Runner(config.env_name, self.spec,
-                      num_envs=config.num_envs_per_runner,
-                      seed=config.seed + 1000 * i,
-                      env_config=config.env_config,
-                      explore_noise=config.train["explore_noise"],
-                      device=self.device)
+            runner_cls.options(num_cpus=1).remote(
+                config.env_name, self.spec,
+                num_envs=config.num_envs_per_runner,
+                seed=config.seed + 1000 * i,
+                env_config=config.env_config,
+                explore_noise=config.train["explore_noise"],
+                device="cpu")
             for i in range(config.num_env_runners)]
         self._iteration = 0
         self._env_steps = 0
@@ -309,13 +310,17 @@ class TD3:
         return update
 
     def train(self) -> Dict[str, Any]:
+        import ray_tpu_torch
+
         t0 = time.time()
         cfg = self.config
         warm = (cfg.replay.get("random_warmup", True)
                 and self._env_steps < cfg.replay["learn_starts"])
-        weights = self.get_weights()
+        weights_ref = ray_tpu_torch.put(self.get_weights())
         per_runner = max(1, cfg.rollout_steps // cfg.num_env_runners)
-        batches = [r.sample(weights, per_runner, warm) for r in self.runners]
+        batches = ray_tpu_torch.get(
+            [r.sample.remote(weights_ref, per_runner, warm)
+             for r in self.runners], timeout=600)
         for b in batches:
             self.buffer.add(b)
             self._env_steps += len(b["rewards"])
@@ -333,7 +338,9 @@ class TD3:
                     do_actor=(self._updates % delay == 0))
             closs, aloss = float(closs), float(aloss)
 
-        rets = [x for r in self.runners for x in r.episode_returns()]
+        rets = [x for per in ray_tpu_torch.get(
+            [r.episode_returns.remote() for r in self.runners], timeout=60)
+            for x in per]
         self._recent_returns.extend(rets)
         self._recent_returns = self._recent_returns[-100:]
         self._iteration += 1
@@ -349,9 +356,9 @@ class TD3:
         }
 
     def stop(self):
-        for r in getattr(self, "runners", []):
-            for env in r.envs:
-                env.close()
+        from .actors import kill_all
+
+        kill_all(getattr(self, "runners", []))
         self.runners = []
 
     def get_weights(self):

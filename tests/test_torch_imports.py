@@ -80,7 +80,8 @@ RUNTIME_MODULES = tuple(f"ray_tpu_torch.{m}" for m in (
 RLLIB_MODULES = tuple(f"ray_tpu_torch.rllib.{m}" for m in (
     "replay_buffer", "examples_env", "models", "conv", "optim", "learner",
     "env_runner", "ppo", "a2c", "dqn", "rainbow", "sac", "td3", "ddpg",
-    "offline", "impala", "multi_agent", "external", "es", "apex"))
+    "offline", "impala", "multi_agent", "external", "es", "apex",
+    "actors", "learner_group"))
 
 #: the train and data libraries, every module
 TRAIN_DATA_MODULES = tuple(f"ray_tpu_torch.train.{m}" for m in (
@@ -137,11 +138,16 @@ data = rl.TransitionDataset(*(np.zeros((8, 4), np.float32),
 rl.CQL.learner_only(rl.CQLConfig().training(train_batch_size=4,
                                             updates_per_iter=2),
                     4, 2, device="cpu", data=data).train()
-# RockPaperScissors needs no gymnasium: multi-agent PPO runs end to end
+# RockPaperScissors needs no gymnasium: multi-agent PPO runs end to end,
+# its runner an actor of the port's runtime
+import ray_tpu_torch
+ray_tpu_torch.init(num_cpus=2, object_store_memory=64 << 20)
 ma = rl.MultiAgentPPO(lambda: rl.RockPaperScissors(episode_len=4),
                       lambda aid: aid, num_runners=1, rollout_len=8,
                       hidden=(4,), device="cpu")
 ma.train()
+ma.stop()
+ray_tpu_torch.shutdown()
 try:
     rl.DQNRunner("CartPole-v1", algo.model_spec, device="cpu")
 except ImportError as e:

@@ -1,12 +1,13 @@
 """The reference's tier-1 DQN learning gate (tests/test_rllib_dqn.py) on
-the port, its runner in-process and its update on the CPU.
+the port, its runner an actor of the port's runtime and its update on the
+CPU.
 
 The gate runs in a fresh interpreter.  Each ``train()`` makes thousands of
 small torch calls, and each releases the GIL and waits for it back: a busy
 Python thread that an earlier test leaves in the same worker process (one
 that hung past its timeout) stretches 30 iterations from 1.5 s to 191 s,
 past the suite's per-test limit.  In its own process the gate depends on
-nothing an earlier file left behind.
+nothing an earlier file left behind; it starts its runtime there.
 """
 
 import json
@@ -29,8 +30,11 @@ import numpy as np
 import torch
 
 torch.set_num_threads(1)
+import ray_tpu_torch
 from ray_tpu_torch.rllib.dqn import DQNConfig
 
+ray_tpu_torch.init(num_cpus=4, object_store_memory=64 << 20,
+                   worker_env={"OMP_NUM_THREADS": "1"})
 algo = (DQNConfig()
         .environment("CartPole-v1")
         .env_runners(num_env_runners=1, num_envs_per_env_runner=2,
@@ -53,6 +57,7 @@ try:
                       "loss": result["loss"]}))
 finally:
     algo.stop()
+    ray_tpu_torch.shutdown()
 '''
 
 

@@ -34,6 +34,18 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def runtime():
+    """One runtime of the port for this file: the drivers' runners,
+    workers and shards are its actors, each on one torch thread."""
+    import ray_tpu_torch
+
+    ray_tpu_torch.init(num_cpus=4, object_store_memory=64 << 20,
+                       worker_env={"OMP_NUM_THREADS": "1"})
+    yield
+    ray_tpu_torch.shutdown()
+
+
 BANDIT = "ray_tpu_torch.rllib.examples_env:Bandit-v0"
 
 

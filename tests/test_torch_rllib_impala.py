@@ -3,8 +3,8 @@ JAX package's (ray_tpu/rllib/impala.py) on the CPU, in f32: V-trace's
 targets and corrected advantages against the reference's reverse scan
 within 1e-6, the loss, its gradients and one update (IMPALA and APPO)
 from JAX's params within 1e-4, the dp split against one device within
-2e-4, and the in-process driver's stale fragments; then APPO's run (the
-reference's tier-1 test)."""
+2e-4, and the driver's stale fragments, its runners actors of the port's
+runtime; then APPO's run (the reference's tier-1 test)."""
 
 import numpy as np
 import pytest
@@ -26,6 +26,18 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def runtime():
+    """One runtime of the port for this file: the drivers' runners,
+    workers and shards are its actors, each on one torch thread."""
+    import ray_tpu_torch
+
+    ray_tpu_torch.init(num_cpus=4, object_store_memory=64 << 20,
+                       worker_env={"OMP_NUM_THREADS": "1"})
+    yield
+    ray_tpu_torch.shutdown()
 
 
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -188,9 +200,11 @@ def test_dp_split_matches_one_device(appo):
 
 
 def test_driver_samples_under_stale_snapshots(monkeypatch):
-    """Two runners, broadcast every update: each consumed fragment was
-    sampled under the snapshot of the version it was submitted with,
-    which is behind the learner's (lag >= 1; 2 in steady state)."""
+    """Two runner actors, broadcast every update, each update on the first
+    fragment to land: each consumed fragment was sampled under the snapshot
+    of the version its runner was submitted with, ``lag`` versions behind
+    the learner's, 0 <= lag <= num_env_runners."""
+    import ray_tpu_torch
     from ray_tpu_torch.rllib import IMPALAConfig
 
     algo = (IMPALAConfig().environment("CartPole-v1")
@@ -199,30 +213,39 @@ def test_driver_samples_under_stale_snapshots(monkeypatch):
             .training(lr=5e-3, updates_per_iter=3,
                       model={"hidden": (16, 16)})
             .debugging(seed=0).build(device="cpu"))
-    #: per consumed fragment: the blob it was sampled under, and the
-    #: learner's weights then (runners sample as the driver consumes)
-    sampled, now = [], []
+    #: the blob each submitted fragment is sampled under, by its ref
+    submitted_under = {}
+    #: per consumed fragment: its ref, and the learner's weights then
+    consumed, now = [], []
+    submit = algo._submit
 
-    def record(runner):
-        sample = runner.sample
+    def recording_submit(runner):
+        submit(runner)
+        ref = list(algo._in_flight)[-1]
+        submitted_under[ref] = ray_tpu_torch.get(algo._weights_ref)
 
-        def recording_sample(weights, rollout_len):
-            sampled.append({k: v.copy() for k, v in weights.items()})
+    class Recording(dict):
+        def pop(self, ref, *default):
+            consumed.append(ref)
             now.append(algo.learner.get_weights())
-            return sample(weights, rollout_len)
-        monkeypatch.setattr(runner, "sample", recording_sample)
+            return super().pop(ref, *default)
 
-    for r in algo.runners:
-        record(r)
+    monkeypatch.setattr(algo, "_submit", recording_submit)
+    algo._in_flight = Recording()
     try:
+        # the runners' processes up before the first fragment is timed
+        ray_tpu_torch.get([r.ping.remote() for r in algo.runners],
+                          timeout=60)
         for _ in range(2):
             res = algo.train()
     finally:
         algo.stop()
     lags = algo.version_lags
-    assert lags == [0, 1, 2, 2, 2, 2], lags
+    assert len(lags) == 6 and all(0 <= lag <= 2 for lag in lags), lags
+    assert np.isfinite(res["mean_version_lag"])
     assert res["mean_version_lag"] == pytest.approx(np.mean(lags))
     assert res["num_env_steps_sampled"] == 2 * 3 * 16 * 2
+    sampled = [submitted_under[ref] for ref in consumed]
     for k, lag in enumerate(lags):
         # consumed at version k, sampled under version k - lag's snapshot
         for n in sampled[k]:
@@ -252,8 +275,20 @@ def test_appo_clipped_surrogate_runs():
 
 
 def test_learners_ge_1_raises():
+    """num_learners >= 1 builds the learner actors; a fragment whose env
+    axis does not split over their dp shards raises the reference's
+    divisibility error."""
     from ray_tpu_torch.rllib import IMPALAConfig
+    from ray_tpu_torch.rllib.learner_group import DistributedLearnerGroup
 
-    with pytest.raises(NotImplementedError, match="A4 or A10"):
-        (IMPALAConfig().environment("CartPole-v1").learners(num_learners=1)
-         .build(device="cpu"))
+    algo = (IMPALAConfig().environment("CartPole-v1")
+            .env_runners(num_env_runners=1, num_envs_per_env_runner=1,
+                         rollout_fragment_length=8)
+            .learners(num_learners=2).build(device="cpu"))
+    try:
+        assert isinstance(algo.learner, DistributedLearnerGroup)
+        assert algo.learner.info["num_processes"] == 2
+        with pytest.raises(ValueError, match="not divisible by the dp mesh"):
+            algo.train()
+    finally:
+        algo.stop()

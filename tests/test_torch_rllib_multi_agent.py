@@ -2,8 +2,8 @@
 against the JAX package's (ray_tpu/rllib/multi_agent.py) on the CPU:
 RockPaperScissors' steps equal, ``MultiAgentEnvRunner``'s per-policy
 batches equal JAX's with JAX's draws fed in (``models._gumbel``), and the
-reference's two-policy ``MultiAgentPPO`` test with the runners
-in-process."""
+reference's two-policy ``MultiAgentPPO`` test with the runners as
+actors of the port's runtime."""
 
 import numpy as np
 import pytest
@@ -21,6 +21,18 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def runtime():
+    """One runtime of the port for this file: the drivers' runners,
+    workers and shards are its actors, each on one torch thread."""
+    import ray_tpu_torch
+
+    ray_tpu_torch.init(num_cpus=4, object_store_memory=64 << 20,
+                       worker_env={"OMP_NUM_THREADS": "1"})
+    yield
+    ray_tpu_torch.shutdown()
 
 
 def test_multi_agent_env_contract():
@@ -120,7 +132,7 @@ def test_runner_batches_equal_jax(shared, monkeypatch):
 def test_multi_agent_ppo_two_policies():
     """The reference's test (tests/test_rllib_impala.py): two policies train
     against each other on RPS, per-policy batches and learners, the runners
-    in-process."""
+    actors."""
     from ray_tpu_torch.rllib import MultiAgentPPO, RockPaperScissors
 
     algo = MultiAgentPPO(
@@ -162,7 +174,10 @@ def test_multi_agent_ppo_updates_each_policy_from_its_rollout(monkeypatch):
             seen[pid] = rollout
             return upd(rollout)
         monkeypatch.setattr(lrn, "update", recording)
-    algo.train()
+    try:
+        algo.train()
+    finally:
+        algo.stop()
     for i, pid in enumerate(algo.policy_ids):
         assert seen[pid]["obs"].shape == (16, 2, 4)
         fresh = Learner(build_model(algo.model_specs[pid]),

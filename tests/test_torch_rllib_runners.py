@@ -1,7 +1,7 @@
 """The port's EnvRunner and PPO driver (ray_tpu_torch/rllib/env_runner.py,
 ppo.py) on the CPU: the reference's rollout test, JAX's model on the port's
-rollouts, a short in-process ``PPO.train()`` and what raises until the
-port reaches the runtime."""
+rollouts, a short ``PPO.train()`` with its runners as actors of the port's
+runtime, learner actors at ``num_learners=1`` and what still raises."""
 
 import numpy as np
 import pytest
@@ -20,6 +20,18 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def runtime():
+    """One runtime of the port for this file: the drivers' runners,
+    workers and shards are its actors, each on one torch thread."""
+    import ray_tpu_torch
+
+    ray_tpu_torch.init(num_cpus=4, object_store_memory=64 << 20,
+                       worker_env={"OMP_NUM_THREADS": "1"})
+    yield
+    ray_tpu_torch.shutdown()
 
 
 # ------------------------------------------------------------- runners
@@ -107,12 +119,21 @@ def test_ppo_train_smoke():
 
 
 def test_runtime_parts_raise_not_implemented():
+    """Only the Tune trainable raises now: ``num_learners=1`` builds one
+    learner actor (gloo on the CPU), and the external-env mode is ported
+    (tests/test_torch_rllib_external.py)."""
     from ray_tpu_torch.rllib import PPO, PPOConfig
+    from ray_tpu_torch.rllib.learner_group import DistributedLearnerGroup
 
-    cfg = PPOConfig().environment("CartPole-v1").learners(num_learners=1)
-    with pytest.raises(NotImplementedError, match="A8's second part"):
-        cfg.build(device="cpu")
-    # the external-env mode is ported (tests/test_torch_rllib_external.py)
+    algo = (PPOConfig().environment("CartPole-v1")
+            .env_runners(num_env_runners=1, rollout_fragment_length=16)
+            .learners(num_learners=1).build(device="cpu"))
+    try:
+        assert isinstance(algo.learner_group, DistributedLearnerGroup)
+        assert algo.learner_group.info["num_processes"] == 1
+        assert algo.learner_group.info["backend"] == "gloo"
+    finally:
+        algo.stop()
     cfg = PPOConfig().external(port=9900)
     assert cfg.external_port == 9900 and cfg.external_fragment_len == 64
     with pytest.raises(NotImplementedError, match="A4"):

@@ -2,9 +2,10 @@
 (tests/test_rllib.py, tests/test_rllib_conv_sac.py,
 tests/test_rllib_impala.py, tests/test_rllib_offline.py): PPO and A2C on
 CartPole, conv PPO on Catch, SAC, TD3 and DDPG on Pendulum, IMPALA on
-CartPole, MARWIL against BC on a mixed corpus, with the reference's
-configs and thresholds, runners in-process, updates on the CPU.  Marked
-``slow`` as the reference's are."""
+CartPole, MARWIL against BC on a mixed corpus, and PPO on CartPole with
+two learner actors (tests/test_learner_group.py), with the reference's
+configs and thresholds, the runners actors of the port's runtime, updates
+on the CPU.  Marked ``slow`` as the reference's are."""
 
 import numpy as np
 import pytest
@@ -20,6 +21,18 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def runtime():
+    """One runtime of the port for this file: the drivers' runners and
+    learners are its actors, each on one torch thread."""
+    import ray_tpu_torch
+
+    ray_tpu_torch.init(num_cpus=4, object_store_memory=64 << 20,
+                       worker_env={"OMP_NUM_THREADS": "1"})
+    yield
+    ray_tpu_torch.shutdown()
 
 
 def _best(algo, iters, stop_at, key="episode_return_mean"):
@@ -197,3 +210,23 @@ def test_marwil_beats_bc_on_mixed_data(tmp_path):
     bc = run(0.0)
     assert marwil > 60, marwil
     assert marwil >= bc * 0.8, (marwil, bc)
+
+
+@pytest.mark.slow
+def test_ppo_learns_cartpole_with_learner_actors():
+    """The learning gate with num_learners=2: CartPole return clears 100
+    (random policy ~20) with the update running in two learner actor
+    processes, never in the driver."""
+    from ray_tpu_torch.rllib import PPOConfig
+
+    algo = (PPOConfig()
+            .environment("CartPole-v1")
+            .env_runners(num_env_runners=2, num_envs_per_env_runner=2,
+                         rollout_fragment_length=128)
+            .learners(num_learners=2)
+            .training(lr=1e-3, num_epochs=8, num_minibatches=4,
+                      entropy_coeff=0.01, model={"hidden": (64, 64)})
+            .debugging(seed=0)
+            .build(device="cpu"))
+    best, res = _best(algo, 30, 100.0)
+    assert best >= 100.0, f"best return {best} < 100 within budget: {res}"
