@@ -41,16 +41,25 @@ script exits non-zero:
    before and read just after.  Then the prefill logits of one batch
    through the kernel against the same prefill through the kernel's plain
    version (not traced, to pay for ``rllib_learner_actors``: the tp=2
-   and Mixtral phases trace theirs).  Then ``runtime_serve_llama3_8b``:
-   the port's runtime (``ray_tpu_torch.init``) counts the card as a
-   ``GPU`` resource, a ``num_gpus=1`` actor (``ServingActor``) draws the
-   same weights on its card, builds the same engine and serves the same
-   requests: its streams equal the in-process ones token for token, B1
-   launches in its prefill, one request streams through an actor
-   generator method, a 256 MB CPU bf16 tensor goes through ``put`` into
-   the actor and onto the card with equal checksums, and after ``kill``
-   and ``shutdown()`` the card's free memory is back within 1 GB (the
-   ``runtime`` line).  The same requests then go through:
+   and Mixtral phases trace theirs).  Then ``serve_llama3_8b_deployment``:
+   the port's runtime (``ray_tpu_torch.init``, started before phase 2 so
+   that its workers import torch while nvcc builds, and waited for
+   before phase 3, so that no import overlaps a timed kernel) counts
+   the card as a ``GPU`` resource, ``serve.run`` deploys
+   ``llm_deployment("llama3-8b")`` on a ``num_gpus=1`` replica (class
+   ``serving_replica()``: ``LLMServer`` with readers for this script),
+   which draws the same weights on its card, and the same requests are
+   sent through the ``DeploymentHandle`` together (they reach the replica
+   one stream at a time, ROADMAP C12, so concurrent admission through the
+   handle is not covered): its streams equal the
+   in-process ones token for token, B1 launches in its prefill,
+   ``stats()`` counts the 128 tokens, the replica's generator method
+   (the proxies' path) streams the first request's tokens again, ``slo_signal()`` holds a TTFT
+   sample, a 256 MB CPU bf16 tensor goes through ``put`` and its
+   ``ObjectRef`` through the handle into the replica and onto the card
+   with equal checksums, and after ``serve.shutdown()`` and
+   ``shutdown()`` the card's free memory is back within 1 GB (the
+   ``serve_deployment`` line).  The same requests then go through:
    a. the paged engine (``paged=True, page_size=64``), whose prefill
       attends with f32 einsums over the gathered pages as the JAX
       package's does: no kernel may launch; its prefill logits against the
@@ -266,8 +275,9 @@ script exits non-zero:
     in-process shards (equal samples before and after a priority update).
     After ``shutdown()`` the card's free memory is back within 1 GB in
     5 s.  No kernel of the port runs here.
-13. A JSON line of kernels (each path's launches, the actor's under
-    ``runtime_serve``, the trainer's worker's under ``train_trainer``;
+13. A ``phases`` line: each phase's seconds and the script's total.  A
+    JSON line of kernels (each path's launches, the replica's under
+    ``serve_deployment``, the trainer's worker's under ``train_trainer``;
     the mesh paths' under ``train_mesh[...]``, the dp arms' under ``train_dp[...]``, the
     sp and pipeline runs' under ``train_sp_pp[...]``;
     B1-B3 at each mesh's shard shape, checked
@@ -352,12 +362,16 @@ MAX_TOKENS = 16
 SERVE_MAX_LEN, PAGE_SIZE = 2048, 64
 # serve_llama3_8b_tp2 runs Llama-3-8B at full width cut to 16 of its 32
 # layers, which keeps this script under half its time limit with the
-# runtime phase
+# deployment phase
 TP_SERVE_LAYERS = 16
-# the runtime phase: every wait's limit (s), so an actor that never
-# schedules fails the run instead of hanging it; the card's free memory
-# after shutdown() within this many bytes of where it stood before; the
-# CPU bf16 tensor put into the actor (256 MB)
+# the deployment phase: the preset LLMServer builds (Llama-3-8B, as
+# ``models.config.PRESETS`` names it) and the engine's keywords; every
+# wait's limit (s), so a replica that never schedules fails the run
+# instead of hanging it; the card's free memory after shutdown() within
+# this many bytes of where it stood before; the CPU bf16 tensor put into
+# the replica (256 MB)
+SERVE_PRESET = "llama3-8b"
+DEPLOY_ENGINE_KW = dict(warmup_buckets=True)
 RUNTIME_WAIT_S = 300
 RUNTIME_FREE_SLACK = 1 << 30
 RUNTIME_PUT_ELEMS = 128 * 1024 * 1024
@@ -539,12 +553,19 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+#: each phase's seconds, in order, and the script's start (the ``phases``
+#: line at the end)
+PHASE_S = {}
+T_START = time.perf_counter()
+
+
 @contextlib.contextmanager
 def phase(name: str):
     t0 = time.perf_counter()
     log(f"== phase {name}")
     yield
-    log(f"== phase {name}: {time.perf_counter() - t0:.1f} s")
+    PHASE_S[name] = time.perf_counter() - t0
+    log(f"== phase {name}: {PHASE_S[name]:.1f} s")
 
 
 def nvidia_smi(query: str) -> str:
@@ -1094,61 +1115,54 @@ def serve_llama(dev, cfg, params):
     return stats, launches, outs
 
 
-class ServingActor:
-    """Llama-3-8B's engine in a ``num_gpus=1`` actor of the port's runtime
-    (phase ``runtime_serve_llama3_8b``).  Defined in this script, so the
-    runtime ships it by value.  The constructor draws the weights on the
-    actor's card from seed 0 as ``serving_params`` does, builds the engine
-    as ``serve_llama`` does and warms the same buckets."""
+def serving_replica():
+    """-> the replica class of phase ``serve_llama3_8b_deployment``:
+    ``LLMServer`` (its ``__init__``, ``__call__``, ``stats`` and
+    ``prefix_digest`` unchanged) with two readers for this script: B1's
+    launch count and the engine's admit batches, and a tensor's checksums
+    on the replica's card.  Made in a function, so that cloudpickle ships
+    the class by value."""
+    from ray_tpu_torch.serve.llm import LLMServer
 
-    def __init__(self, cfg):
-        import torch
-        from ray_tpu_torch.serve.llm import LLMEngine
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        self.cfg = cfg
-        dev = torch.device("cuda", torch.cuda.current_device())
-        params = serving_params("llama3_8b (in the actor)", cfg, dev)
-        self.eng = LLMEngine(cfg, params, device="cuda", num_slots=8,
-                             max_len=SERVE_MAX_LEN)
-        warm(self.eng, cfg, (LONG_PROMPTS[0], SHORT_PROMPTS[0]))
+    class ServingReplica(LLMServer):
+        def launches(self, reset=False):
+            """B1's launches in this process and the engine's admit
+            batches by bucket, the card's name and the peak memory since
+            the last reset; ``reset`` then zeroes the count and the
+            peak."""
+            import torch
+            from ray_tpu_torch.ops.flash_attention import flash_attention
+            torch.cuda.synchronize()
+            got = {"flash_launches": flash_attention.launches,
+                   "admit_batches_by_bucket": dict(
+                       self.engine.admit_batches_by_bucket),
+                   "device": torch.cuda.get_device_name(),
+                   "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            if reset:
+                torch.cuda.reset_peak_memory_stats()
+                flash_attention.launches = 0
+            return got
 
-    def ready(self):
-        """-> GB allocated on the card once the constructor has run."""
-        import torch
-        return torch.cuda.memory_allocated() / 1e9
+        async def checksums(self, ref):
+            """The object ``ref`` names (an ``ObjectRef``: the handle
+            passes it through unresolved) onto the card, and
+            ``tensor_checksums`` there."""
+            import asyncio
 
-    def run(self, prompts):
-        """``run_requests`` on the prompts, B1's launches counted from 0."""
-        import torch
-        import ray_tpu_torch
-        from ray_tpu_torch.ops.flash_attention import flash_attention
-        before = dict(self.eng.admit_batches_by_bucket)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        flash_attention.launches = 0
-        outs, _, stats = run_requests(self.eng, self.cfg, prompts)
-        launches = flash_attention.launches
-        return {"outs": outs, "stats": stats, "flash_launches": launches,
-                "long_prefill_batches": long_batches_since(self.eng, before),
-                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-                "device": torch.cuda.get_device_name(),
-                "gpu_ids": ray_tpu_torch.get_gpu_ids()}
+            import torch
+            import ray_tpu_torch
+            t = await asyncio.wrap_future(ray_tpu_torch.as_future(ref))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = t.to("cuda")
+            torch.cuda.synchronize()
+            copy_s = time.perf_counter() - t0
+            return {"device": str(x.device), "dtype": str(x.dtype),
+                    "numel": x.numel(), "sums": tensor_checksums(x),
+                    "host_to_card_s": copy_s}
 
-    def stream(self, prompt):
-        yield from self.eng.stream(list(prompt), max_tokens=MAX_TOKENS)
-
-    def checksums(self, t):
-        """The tensor onto the card, and ``tensor_checksums`` there."""
-        import torch
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        x = t.to("cuda")
-        torch.cuda.synchronize()
-        copy_s = time.perf_counter() - t0
-        return {"device": str(x.device), "dtype": str(x.dtype),
-                "numel": x.numel(), "sums": tensor_checksums(x),
-                "host_to_card_s": copy_s}
+    return ServingReplica
 
 
 def tensor_checksums(x):
@@ -1173,57 +1187,146 @@ def wait_free_memory(want, timeout):
         time.sleep(0.5)
 
 
-def runtime_serve_llama(dev, cfg, prompts, in_stats, in_outs):
-    """Phase runtime_serve_llama3_8b: the port's runtime on the card.
-    ``init`` counts the card as a ``GPU`` resource and puts its session
-    under the temporary directory (``TMPDIR``); a ``num_gpus=1`` actor
-    holds its own Llama-3-8B engine (a second 16 GB copy of the weights)
-    and serves the dense phase's 8 requests: the same streams as the
-    in-process engine (``in_outs``), B1 at least ``num_layers`` times per
-    long prefill batch inside the actor; one request streamed through an
-    actor generator method; a 256 MB CPU bf16 tensor through ``put`` into
-    the actor and onto the card, checksums equal to the host's.  Then
-    ``kill`` and ``shutdown``: the card's free memory back within 1 GB of
-    where it stood.  Every wait has a timeout."""
-    import cloudpickle
+def stream_together(handle, prompts, timeout_s):
+    """Every prompt's stream sent through the deployment handle together,
+    one thread each, each ``stream`` bounded by ``timeout_s``: -> (streams,
+    stats as ``run_requests`` gives them: TTFT per request from the common
+    start, at this end of the handle, and decode tokens/s after the first
+    token; and each request's first chunk to its last).  They are not
+    served together: the runtime sends a process's calls to one actor in
+    batches, each after the previous batch's reply (ROADMAP C12), so the
+    later streams reach the replica when the first one ends, and each
+    stream's chunks arrive together at its end.  Concurrent admission
+    through the handle is not exercised until C12 is decided."""
+    import threading
+
+    outs = [[] for _ in prompts]
+    firsts, lasts = [None] * len(prompts), [None] * len(prompts)
+    errors = []
+
+    def one(i):
+        try:
+            for tok in handle.stream({"tokens": prompts[i],
+                                      "max_tokens": MAX_TOKENS},
+                                     timeout_s=timeout_s):
+                lasts[i] = time.monotonic()
+                if firsts[i] is None:
+                    firsts[i] = lasts[i]
+                outs[i].append(tok)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    t_start = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout_s + 30)
+    t_done = time.monotonic()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"streams failed or hung: {errors}")
+    ttft = sorted((f - t_start) * 1e3 for f in firsts)
+    return outs, {
+        "requests": len(prompts), "tokens_out": sum(map(len, outs)),
+        "ttft_ms": ttft, "ttft_ms_p50": ttft[len(ttft) // 2],
+        # per request in the prompts' order: its first chunk to its last
+        "first_to_last_ms": [(b - a) * 1e3 for a, b in zip(firsts, lasts)],
+        "decode_tok_s": sum(len(t) - 1 for t in outs) / (t_done
+                                                          - min(firsts)),
+        "wall_s": t_done - t_start}
+
+
+def start_serve_runtime():
+    """The port's runtime for phase ``serve_llama3_8b_deployment``, started
+    ahead of it with its pool warmed in the background (``rl_warm``: a
+    worker process spends 7-13 s importing torch on an H100's machine),
+    so that the kernels' build covers the imports (``rl_warm_wait`` ends
+    them before the first timed kernel) and the replica takes a warm
+    worker; -> (the session's directory, the seconds ``init`` took)."""
+    import ray_tpu_torch
+    t0 = time.perf_counter()
+    session_dir = ray_tpu_torch.init(num_cpus=RL_RUNTIME_CPUS)["session_dir"]
+    init_s = time.perf_counter() - t0
+    rl_warm(RL_RUNTIME_CPUS)
+    return session_dir, init_s
+
+
+def serve_llama_deployment(dev, cfg, prompts, in_stats, in_outs, runtime):
+    """Phase serve_llama3_8b_deployment: the port's serve library on the
+    card, on the runtime ``start_serve_runtime`` started (``runtime``: its
+    session, ``init`` seconds and the warm-up's import seconds, its pool
+    warmed before the kernel phases).  ``init`` counts the card as a
+    ``GPU`` resource and puts its session under the temporary directory
+    (``TMPDIR``).
+    ``serve.run`` deploys ``llm_deployment(SERVE_PRESET)`` (8 slots,
+    ``max_len`` 2048, weights drawn on the replica's card from seed 0: the
+    in-process phase's Llama-3-8B, a second 16 GB copy) on a
+    ``num_gpus=1`` lease, with ``serving_replica()`` as its class, and
+    waits until it is HEALTHY.  The dense phase's 8 requests go through
+    the ``DeploymentHandle`` together: the same streams as the in-process
+    engine (``in_outs``), B1 at least ``num_layers`` times per long
+    prefill batch inside the replica; ``stats()`` through the handle with
+    ``LLMServer``'s keys, its ``tokens_out`` 128 more than before the
+    requests; the first prompt again through the replica's streaming
+    generator method (the proxies' path), the same tokens;
+    ``serve.slo_signal()`` with every request's TTFT; a 256 MB CPU bf16
+    tensor through ``put``, its ``ObjectRef`` through the handle into the
+    replica and onto its card, checksums equal to the host's; the
+    runtime's ``GPU`` held by the replica's lease while it serves.  Then
+    ``serve.shutdown()`` and ``shutdown()``: the card's free memory back
+    within 1 GB of where it stood.  Every wait has a timeout."""
     import torch
 
     import ray_tpu_torch
-    from ray_tpu_torch import native
-    from ray_tpu_torch.core import api
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.llm import llm_deployment
 
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     free_before, _ = torch.cuda.mem_get_info()
-    t0 = time.perf_counter()
-    session_dir = ray_tpu_torch.init(num_cpus=4)["session_dir"]
-    init_s = time.perf_counter() - t0
+    t_phase = time.perf_counter()
+    session_dir, init_s, warm_s = runtime
     try:
         gpus = ray_tpu_torch.cluster_resources().get("GPU")
         if gpus != torch.cuda.device_count():
             raise AssertionError(f"the runtime counts {gpus} GPUs, torch "
                                  f"{torch.cuda.device_count()}")
-        store_native = api._state.node_agent.store.pool is not None
+        dep = llm_deployment(
+            SERVE_PRESET, num_slots=8, max_len=SERVE_MAX_LEN,
+            engine_kwargs=dict(DEPLOY_ENGINE_KW),
+            ray_actor_options={"num_gpus": 1},
+            health_check_timeout_s=RUNTIME_WAIT_S)
+        dep = dataclasses.replace(dep, func_or_class=serving_replica())
         t0 = time.perf_counter()
-        actor = ray_tpu_torch.remote(ServingActor).options(
-            num_gpus=1).remote(cfg)
-        ready = ray_tpu_torch.get(actor.ready.remote(),
-                                  timeout=RUNTIME_WAIT_S)
-        ready_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        got = ray_tpu_torch.get(actor.run.remote(prompts),
-                                timeout=RUNTIME_WAIT_S)
-        run_call_s = time.perf_counter() - t0
-        gen = actor.stream.options(num_returns="streaming").remote(
-            prompts[0])
-        streamed = []
+        handle = serve.run(dep, timeout_s=RUNTIME_WAIT_S)
+        healthy_s = time.perf_counter() - t0
+        # the replica's lease holds the card while it serves
+        gpus_leased = gpus - ray_tpu_torch.available_resources().get("GPU", 0)
+        ready = handle.launches.remote(True).result(timeout_s=RUNTIME_WAIT_S)
+        stats_before = handle.stats.remote().result(timeout_s=RUNTIME_WAIT_S)
+        outs, stats = stream_together(handle, prompts, RUNTIME_WAIT_S)
+        got = handle.launches.remote().result(timeout_s=RUNTIME_WAIT_S)
+        before = ready["admit_batches_by_bucket"]
+        long_batches = sum(
+            n - before.get(bk, 0)
+            for bk, n in got["admit_batches_by_bucket"].items() if bk >= 1024)
+        server_stats = handle.stats.remote().result(timeout_s=RUNTIME_WAIT_S)
+        # the path the HTTP and gRPC proxies take: the replica's streaming
+        # generator method, each token its own object
+        replica = ray_tpu_torch.get_actor(
+            serve.status()[dep.name]["replicas"][0]["name"])
+        gen = replica.handle_request_gen.options(
+            num_returns="streaming").remote(
+                ({"tokens": prompts[0], "max_tokens": MAX_TOKENS},), {}, None)
+        generated = []
         while True:
             try:
-                r = gen.next(timeout=RUNTIME_WAIT_S)
+                ref = gen.next(timeout=RUNTIME_WAIT_S)
             except StopIteration:
                 break
-            streamed.append(ray_tpu_torch.get(r, timeout=RUNTIME_WAIT_S))
+            generated.append(ray_tpu_torch.get(ref, timeout=RUNTIME_WAIT_S))
         g = torch.Generator().manual_seed(0)
         host = torch.randn(RUNTIME_PUT_ELEMS, generator=g).to(torch.bfloat16)
         want_sums = tensor_checksums(host)
@@ -1231,72 +1334,95 @@ def runtime_serve_llama(dev, cfg, prompts, in_stats, in_outs):
         ref = ray_tpu_torch.put(host)
         put_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        sums = ray_tpu_torch.get(actor.checksums.remote(ref),
-                                 timeout=RUNTIME_WAIT_S)
+        sums = handle.checksums.remote(ref).result(timeout_s=RUNTIME_WAIT_S)
         call_s = time.perf_counter() - t0
         del ref
-        ray_tpu_torch.kill(actor)
-        # the packed submit plane serves batched task submissions; this
-        # phase's calls go one at a time, so it may not have loaded: say
-        # whether it did, and whether it builds and loads here
-        submit_native = {"loaded_in_phase": native.submit_plane_loaded(),
-                         "builds": native.load_submit_plane() is not None}
+        # the replica's SLO window reaches the controller with its health
+        # check (every 2 s)
+        deadline = time.monotonic() + RUNTIME_WAIT_S
+        while True:
+            slo = serve.slo_signal().get(dep.name, {})
+            if (slo.get("window_n", 0) >= len(prompts)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.5)
     finally:
+        serve.shutdown()
         ray_tpu_torch.shutdown()
     free_after = wait_free_memory(free_before - RUNTIME_FREE_SLACK,
                                   RUNTIME_WAIT_S)
 
-    stats = got["stats"]
-    outs = got["outs"]
     row = {
-        "init_s": init_s, "actor_ready_s": ready_s, "run_call_s": run_call_s,
-        "gpu_resource": gpus, "session_dir": session_dir,
-        "device": got["device"],
-        "gpu_ids": got["gpu_ids"], "actor_allocated_gb": ready,
-        "ttft_ms_p50": stats["ttft_ms_p50"],
+        "card": card_line(), "deployment": dep.name,
+        "init_s": init_s, "warm_import_s": warm_s,
+        "deploy_to_healthy_s": healthy_s,
+        "gpu_resource": gpus, "gpus_leased": gpus_leased,
+        "session_dir": session_dir, "device": got["device"],
+        "replica_allocated_gb": ready["allocated_gb"],
+        "warmup_admit_batches_by_bucket": ready["admit_batches_by_bucket"],
+        "warmup_steps": stats_before["steps"],
+        "ttft_ms_p50": stats["ttft_ms_p50"], "ttft_ms": stats["ttft_ms"],
+        "first_to_last_ms": stats["first_to_last_ms"],
         "decode_tok_s": stats["decode_tok_s"],
         "in_process": {"ttft_ms_p50": in_stats["ttft_ms_p50"],
                        "decode_tok_s": in_stats["decode_tok_s"]},
         "flash_launches": got["flash_launches"],
-        "long_prefill_batches": got["long_prefill_batches"],
+        "long_prefill_batches": long_batches,
         "peak_mem_gb": got["peak_mem_gb"],
         "streams_equal_in_process": outs == in_outs,
         "tokens_equal_in_process": sum(
             a == b for x, y in zip(outs, in_outs) for a, b in zip(x, y)),
-        "generator_stream_equal": streamed == outs[0],
+        "stats": server_stats,
+        "tokens_out_delta": (server_stats["tokens_out"]
+                             - stats_before["tokens_out"]),
+        "generator_stream_equal": generated == outs[0],
+        "slo_signal": slo,
         "put_bytes": host.numel() * host.element_size(), "put_s": put_s,
         "put_call_s": call_s, "host_to_card_s": sums["host_to_card_s"],
         "checksums_equal": sums["sums"] == want_sums,
-        "native_store": store_native, "native_submit_plane": submit_native,
-        "cloudpickle": f"{cloudpickle.__version__} "
-                       f"({Path(cloudpickle.__file__).parent})",
-        "free_gb_before": free_before / 1e9, "free_gb_after": free_after / 1e9}
-    log("runtime " + json.dumps(row))
+        "free_gb_before": free_before / 1e9, "free_gb_after": free_after / 1e9,
+        "phase_s": time.perf_counter() - t_phase}
+    log("serve_deployment " + json.dumps(row))
+    stats_keys = {"steps", "tokens_out", "active", "free_slots",
+                  "admit_batches", "batch_occupancy", "padding_fraction",
+                  "active_slots", "num_slots"}
+    failures = []
     if Path(session_dir).parent != Path(tempfile.gettempdir(), "raytpu"):
-        raise AssertionError(f"the session {session_dir} is not under the "
-                             f"temporary directory {tempfile.gettempdir()}")
-    if row["device"] != torch.cuda.get_device_name(0):
-        raise AssertionError(f"the actor ran on {row['device']}")
-    if got["long_prefill_batches"] < 1 or got["flash_launches"] < (
-            cfg.num_layers * got["long_prefill_batches"]):
-        raise AssertionError(
+        failures.append(f"the session {session_dir} is not under the "
+                        f"temporary directory {tempfile.gettempdir()}")
+    if row["device"] != torch.cuda.get_device_name(0) or gpus_leased != 1:
+        failures.append(f"the replica ran on {row['device']} with "
+                        f"{gpus_leased} GPUs leased")
+    if long_batches < 1 or got["flash_launches"] < (
+            cfg.num_layers * long_batches):
+        failures.append(
             f"flash kernel launched {got['flash_launches']} times in the "
-            f"actor for {got['long_prefill_batches']} prefill batches at "
-            f"bucket >= 1024 ({cfg.num_layers} layers)")
+            f"replica for {long_batches} prefill batches at bucket >= 1024 "
+            f"({cfg.num_layers} layers)")
     if not row["streams_equal_in_process"]:
-        raise AssertionError(f"the actor's streams {outs} differ from the "
-                             f"in-process engine's {in_outs}")
+        failures.append(f"the deployment's streams {outs} differ from the "
+                        f"in-process engine's {in_outs}")
     if not row["generator_stream_equal"]:
-        raise AssertionError(f"the generator method streamed {streamed}, "
-                             f"the request's stream is {outs[0]}")
+        failures.append(f"the replica's generator method streamed "
+                        f"{generated}, the handle {outs[0]}")
+    if set(server_stats) != stats_keys or row["tokens_out_delta"] != (
+            len(prompts) * MAX_TOKENS):
+        failures.append(f"stats() gave {stats_before}, then {server_stats}")
+    if not (slo.get("window_n", 0) >= len(prompts)
+            and slo.get("ttft_p95_ms", 0) > 0):
+        failures.append(f"slo_signal() lacks the requests' TTFT: {slo}")
     if not (row["checksums_equal"] and sums["dtype"] == "torch.bfloat16"
-            and sums["numel"] == host.numel()):
-        raise AssertionError(f"the tensor reached the card as {sums}, "
-                             f"host checksums {want_sums}")
+            and sums["numel"] == host.numel()
+            and sums["device"].startswith("cuda")):
+        failures.append(f"the tensor reached the card as {sums}, host "
+                        f"checksums {want_sums}")
     if free_after < free_before - RUNTIME_FREE_SLACK:
-        raise AssertionError(
-            f"the card has {free_after / 1e9:.2f} GB free after shutdown(), "
-            f"{free_before / 1e9:.2f} GB before the phase")
+        failures.append(
+            f"the card has {free_after / 1e9:.2f} GB free after shutdown(),"
+            f" {free_before / 1e9:.2f} GB before the phase")
+    if failures:
+        raise AssertionError("serve_llama3_8b_deployment: "
+                             + "; ".join(failures))
     return row
 
 
@@ -4796,6 +4922,9 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
 
     from ray_tpu_torch.ops import _build
+    # the deployment phase's runtime: its workers import torch while nvcc
+    # builds
+    serve_runtime = start_serve_runtime()
     with phase("build"):
         built = _build.build()
         log(f"build: {json.dumps(built)}")
@@ -4811,6 +4940,11 @@ def main() -> int:
         if dropped:
             raise AssertionError(f"ptxas ignored setmaxnreg in {dropped} "
                                  f"(C7508)")
+    # the imports end before any kernel is timed: a build already in
+    # _build/ takes no time, and the imports would then slow the timed
+    # kernel rows
+    with phase("serve_runtime_warm"):
+        serve_runtime += (rl_warm_wait(),)
 
     with phase("flash_forward_kernel"):
         flash_rows = check_flash(dev)
@@ -4822,10 +4956,11 @@ def main() -> int:
     with phase("serve_llama3_8b"):
         serve_stats, serve_launches, serve_outs = serve_llama(
             dev, serve_cfg, serve_params)
-    with phase("runtime_serve_llama3_8b"):
-        runtime_row = runtime_serve_llama(dev, serve_cfg,
-                                          serving_prompts(serve_cfg),
-                                          serve_stats, serve_outs)
+    with phase("serve_llama3_8b_deployment"):
+        deploy_row = serve_llama_deployment(dev, serve_cfg,
+                                            serving_prompts(serve_cfg),
+                                            serve_stats, serve_outs,
+                                            serve_runtime)
     with phase("serve_llama3_8b_paged"):
         serve_llama_paged(dev, serve_cfg, serve_params)
     with phase("serve_llama3_8b_paged_prefix"):
@@ -4950,7 +5085,7 @@ def main() -> int:
         "source": "ray_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:42",
         "design": HOPPER_DESIGN,
-        "launches": (serve_launches + runtime_row["flash_launches"]
+        "launches": (serve_launches + deploy_row["flash_launches"]
                      + spec_launches + tp_launches
                      + train_launches["flash_attention_fwd"]
                      + trainer_launches["flash_attention_fwd"]
@@ -4961,7 +5096,7 @@ def main() -> int:
                            for m in mesh_launches.values())),
         "launches_by_path": {
             "serve": serve_launches,
-            "runtime_serve": runtime_row["flash_launches"],
+            "serve_deployment": deploy_row["flash_launches"],
             "serve_paged_spec": spec_launches,
             "serve_tp2": tp_launches,
             "train": train_launches["flash_attention_fwd"],
@@ -5061,6 +5196,8 @@ def main() -> int:
                            "library_ms": None},
         })
     log(f"card: {card}")
+    log("phases " + json.dumps({"seconds": PHASE_S,
+                                "total_s": time.perf_counter() - T_START}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,10 +42,18 @@ Counterpart of the engine in ``ray_tpu/serve/llm.py``:
   raises); the decode state, sampling and the scheduler's tensors live on
   shard 0's device.  A failure in a prefill or a decode dispatch reaches
   the affected callers' queues.
+* Observability (``serve/observability.py``), behind one
+  ``obs.enabled()`` check per hook: ``submit`` captures the replica's
+  deployment tag and the caller's trace context and counts prompt tokens;
+  an admit batch records its size, occupancy and queue waits and stamps
+  ``batch_wait``; the first token stamps ``prefill`` and the engine TTFT;
+  retirement stamps ``decode``, TPOT and the generated tokens; prefix
+  lookups and speculative dispatches are counted.  No hook runs per
+  decode step.
 
-Not ported yet: the observability hooks (metrics, spans and gauges on the
-runtime's metrics registry) and ``LLMServer`` / ``llm_deployment``, which
-sit on the JAX package's runtime (ROADMAP A4).
+``LLMServer`` / ``llm_deployment`` deploy the engine through ``serve``
+(this package's runtime): one engine per replica, on the replica's card
+unless ``engine_kwargs`` names another device.
 """
 
 from __future__ import annotations
@@ -66,6 +74,9 @@ from ..models import speculative as spec
 from ..models import transformer
 from ..models.convert import tp_split
 from ..parallel.mesh import cuda_devices
+from ..util import tracing
+from . import observability as obs
+from .deployment import deployment as serve_deployment
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
 _FLUSH = object()
@@ -74,7 +85,9 @@ _FLUSH = object()
 class GenRequest:
     __slots__ = ("tokens", "max_tokens", "temperature", "top_k", "eos_id",
                  "out", "slot", "generated", "submitted_at", "first_token_at",
-                 "pages", "prompt_len")
+                 "pages", "prompt_len", "deployment", "trace_ctx",
+                 "submitted_wall", "admitted_wall", "first_token_wall",
+                 "span_parent")
 
     def __init__(self, tokens: List[int], max_tokens: int,
                  temperature: float, top_k: int, eos_id: Optional[int]):
@@ -90,6 +103,17 @@ class GenRequest:
         self.prompt_len = len(tokens)
         self.submitted_at = time.monotonic()
         self.first_token_at: Optional[float] = None
+        # observability: the replica's deployment tag and the caller's
+        # trace context (captured at submit, on the caller's thread), and
+        # the wall-clock stamps the engine thread turns into the
+        # batch_wait -> prefill -> decode spans
+        self.deployment = "-"
+        self.trace_ctx: Optional[tuple] = None
+        self.submitted_wall = time.time()
+        self.admitted_wall: Optional[float] = None
+        self.first_token_wall: Optional[float] = None
+        #: the previous stage's span id
+        self.span_parent: Optional[str] = None
 
 
 def _tp_devices(device, tp: int) -> List[torch.device]:
@@ -245,6 +269,7 @@ class LLMEngine:
         #: layer: the target's when the cache is dense, the draft's with
         #: speculative decoding; the paged prefill runs no kernel)
         self.admit_batches_by_bucket: Dict[int, int] = {}
+        self._obs_dep = "-"  # deployment tag, learned from the first request
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="llm-engine")
         self._thread.start()
@@ -262,6 +287,15 @@ class LLMEngine:
                              f"{self.max_len}")
         req = GenRequest(list(map(int, tokens)), max_tokens, temperature,
                          top_k, eos_id)
+        if obs.enabled():
+            # the replica sets both before it calls user code, so the
+            # engine's spans and metrics carry the request's deployment
+            # and chain into its trace
+            req.deployment = obs.current_deployment()
+            req.trace_ctx = tracing.current_context()
+            if req.deployment != "-":
+                self._obs_dep = req.deployment
+            obs.add_tokens(req.deployment, "in", req.prompt_len)
         self._pending.put(req)
         self._wake.set()
         return req
@@ -356,6 +390,75 @@ class LLMEngine:
             return t.to(self.devices[s], memory_format=torch.contiguous_format,
                         copy=True)
         return tp_split(params, self.tp, place)
+
+    # ----------------------------------------------------- observability
+
+    def _obs_admit(self, reqs: List[GenRequest]):
+        """One admit batch went through: its size, occupancy and queue
+        waits, the slot and KV gauges, and a ``batch_wait`` span per
+        request under its trace."""
+        if not obs.enabled():
+            return
+        now = time.time()
+        obs.record_batch(self._obs_dep, len(reqs), self.prefill_batch,
+                         waits_s=[now - r.submitted_wall for r in reqs])
+        self._obs_gauges()
+        for r in reqs:
+            if r.trace_ctx is None:
+                # no serve request around: one trace per request, so its
+                # three stage spans still chain together.  Minted here,
+                # not in submit: os.urandom releases the GIL, and the
+                # scheduler thread would then take a burst of submits
+                # from one caller in pieces, one prefill batch each
+                r.trace_ctx = (tracing.new_id(), None)
+            r.admitted_wall = now
+            r.span_parent = obs.stamp_span(
+                "batch_wait", r.submitted_wall, now - r.submitted_wall,
+                trace_id=r.trace_ctx[0] if r.trace_ctx else None,
+                parent_id=r.trace_ctx[1] if r.trace_ctx else None,
+                deployment=r.deployment)
+
+    def _obs_first_token(self, r: GenRequest, now_mono: float):
+        """A request's prefill finished: the engine TTFT (the SLO window
+        takes the replica's sample instead, one per request) and the
+        ``prefill`` span under ``batch_wait``."""
+        if not obs.enabled():
+            return
+        r.first_token_wall = time.time()
+        obs.observe_ttft(r.deployment, now_mono - r.submitted_at,
+                         stage="engine", window=False)
+        t0 = r.admitted_wall or r.submitted_wall
+        r.span_parent = obs.stamp_span(
+            "prefill", t0, r.first_token_wall - t0,
+            trace_id=r.trace_ctx[0] if r.trace_ctx else None,
+            parent_id=r.span_parent,
+            deployment=r.deployment, prompt_len=r.prompt_len)
+
+    def _obs_retire(self, r: GenRequest):
+        """A request is done: the ``decode`` span (first token to last),
+        TPOT, the generated tokens and the slot and KV gauges."""
+        if not obs.enabled():
+            return
+        obs.add_tokens(r.deployment, "out", r.generated)
+        now = time.time()
+        if r.first_token_wall is not None:
+            obs.stamp_span(
+                "decode", r.first_token_wall, now - r.first_token_wall,
+                trace_id=r.trace_ctx[0] if r.trace_ctx else None,
+                parent_id=r.span_parent,
+                deployment=r.deployment, tokens=r.generated)
+        if r.generated > 1 and r.first_token_at is not None:
+            obs.observe_tpot(r.deployment,
+                             (time.monotonic() - r.first_token_at)
+                             / (r.generated - 1))
+        self._obs_gauges()
+
+    def _obs_gauges(self):
+        obs.set_engine_gauges(
+            self._obs_dep, len(self._active),
+            kv_pages_used=self.allocator.used() if self.paged else None,
+            kv_pages_total=(max(self.num_pages - 1, 1) if self.paged
+                            else None))
 
     # -------------------------------------------------------- scheduler
 
@@ -487,6 +590,7 @@ class LLMEngine:
             self.admit_batches_by_bucket.get(bucket, 0) + 1)
         self.admit_rows_real += len(reqs)
         self.admit_rows_padded += self.prefill_batch - len(reqs)
+        self._obs_admit(reqs)
 
     def _plan_pages(self, r: GenRequest):
         """Reserve pages for one request: reuse cached prefix pages, allocate
@@ -513,6 +617,7 @@ class LLMEngine:
             # counted only on a successful plan: an arena-full requeue
             # retries this whole function and must not count twice
             self.prefix.count_lookup(reused)
+            obs.record_prefix_lookup(r.deployment, reused > 0, reused)
         return reused, rpages + private
 
     def _admit_paged(self, reqs: List[GenRequest], bucket: int):
@@ -628,15 +733,22 @@ class LLMEngine:
         tokens = tokens_dev.cpu().numpy()   # waits for the dispatch
         counts = counts_dev.cpu().numpy()
         rounds = round_counts_dev.cpu().numpy()     # [num_rounds, slots]
+        d_tok = d_round = d_draft = d_acc = 0
         for row in rounds:
             act = int((row > 0).sum())
             if not act:
                 continue
-            self.spec_rounds += act
-            self.spec_tokens += int(row.sum())
-            self.spec_drafted += (k - 1) * act
-            self.spec_accepted += int(
-                np.minimum(np.maximum(row - 1, 0), k - 1).sum())
+            d_round += act
+            d_tok += int(row.sum())
+            d_draft += (k - 1) * act
+            d_acc += int(np.minimum(np.maximum(row - 1, 0), k - 1).sum())
+        self.spec_rounds += d_round
+        self.spec_tokens += d_tok
+        self.spec_drafted += d_draft
+        self.spec_accepted += d_acc
+        if d_round:
+            obs.record_spec_dispatch(self._obs_dep, d_round, d_tok, d_draft,
+                                     d_acc)
         now = time.monotonic()
         for s, r in snapshot.items():
             for j in range(int(counts[s])):
@@ -658,6 +770,7 @@ class LLMEngine:
             for i, s in enumerate(prefill_slots):
                 r = snapshot[s]
                 r.first_token_at = now
+                self._obs_first_token(r, now)
                 self._emit(r, int(tokens[i]))
         else:
             # decode entry: [steps_per_dispatch, slots]
@@ -683,6 +796,7 @@ class LLMEngine:
         if r.slot in self._active and self._active[r.slot] is r:
             del self._active[r.slot]
             self._free_slots.append(r.slot)
+            self._obs_retire(r)
             self._release_pages(r)
         r.out.put(_FLUSH)
 
@@ -695,3 +809,76 @@ class LLMEngine:
         if self.paged and r.pages:
             self.allocator.release(r.pages)
             r.pages = []
+
+
+# ---------------------------------------------------------------------------
+# Serve deployment
+# ---------------------------------------------------------------------------
+
+class LLMServer:
+    """Streaming LLM endpoint: body {"tokens": [...], "max_tokens": N,
+    "temperature": t} -> streamed token ids (one per chunk).
+
+    Deploy via ``llm_deployment(...)``.  The engine draws its weights from
+    ``seed`` on its device unless ``engine_kwargs`` passes ``params``, and
+    runs on the replica's card unless ``engine_kwargs`` passes ``device``.
+    """
+
+    def __init__(self, preset: str = "tiny", num_slots: int = 8,
+                 max_len: Optional[int] = None, seed: int = 0,
+                 engine_kwargs: Optional[dict] = None):
+        from ..models import config as mcfg
+        cfg = (mcfg.tiny() if preset == "tiny"
+               else mcfg.PRESETS[preset]())
+        self.engine = LLMEngine(cfg, num_slots=num_slots, max_len=max_len,
+                                seed=seed, **(engine_kwargs or {}))
+
+    async def __call__(self, request):
+        """Async generator: polls the engine's token queue off the loop, so
+        one stream never blocks the replica's event loop (other streams,
+        health checks and queue-length probes go on)."""
+        import asyncio
+
+        body = request.json() if hasattr(request, "json") else request
+        tokens = body["tokens"]
+        req = self.engine.submit(
+            tokens, max_tokens=int(body.get("max_tokens", 64)),
+            temperature=float(body.get("temperature", 0.0)),
+            eos_id=body.get("eos_id"))
+        loop = asyncio.get_event_loop()
+        while True:
+            item = await loop.run_in_executor(None, req.out.get)
+            if not isinstance(item, int):
+                if isinstance(item, BaseException):
+                    raise item
+                return  # _FLUSH
+            yield item
+
+    def stats(self) -> dict:
+        return {"steps": self.engine.steps,
+                "tokens_out": self.engine.tokens_out,
+                "active": len(self.engine._active),
+                "free_slots": len(self.engine._free_slots),
+                **self.engine.breakdown()}
+
+    def prefix_digest(self) -> Optional[dict]:
+        """Replica heartbeat hook (the replica's health check sends it
+        beside the SLO snapshot): the engine's first-page prefix digest
+        for cache-aware routing, capped by ``serve_prefix_digest_max``;
+        None (dense engine, or prefix caching off) leaves the router on
+        plain power-of-two choices for this replica."""
+        from ..core.config import get_config
+        cap = int(getattr(get_config(), "serve_prefix_digest_max", 32))
+        return self.engine.prefix_digest(cap)
+
+
+def llm_deployment(preset: str = "tiny", *, num_replicas: int = 1,
+                   num_slots: int = 8, max_len: Optional[int] = None,
+                   route_prefix: Optional[str] = None,
+                   engine_kwargs: Optional[dict] = None, **options):
+    """Build the Serve deployment for an LLM preset."""
+    dep = serve_deployment(
+        LLMServer, name=f"llm-{preset}", num_replicas=num_replicas,
+        route_prefix=route_prefix, **options)
+    return dep.bind(preset=preset, num_slots=num_slots, max_len=max_len,
+                    engine_kwargs=engine_kwargs)
