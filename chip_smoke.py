@@ -144,7 +144,23 @@ script exits non-zero:
    NCCL of world size 1, each loss within 1e-3 of the in-process step's,
    B1/B2/B3 128/64/64 in the worker (the ``tuner`` line: the trial's and
    the worker's ready times, the worker's median step beside the
-   in-process one, the phase's wall time).  Then ``job_submit`` on the
+   in-process one, the phase's wall time).  Then ``darray_collective``
+   on the same runtime: ``experimental.darray.dot`` of two seeded 4096^2
+   f32 arrays at its default 512 blocks, 64 ``num_gpus=1`` block tasks,
+   within 1e-5 relative L2 of a float64 product, and an int64 ``dot``
+   bit for bit to its CPU tasks' and to numpy's int32 wrap;
+   ``to_torch()`` and ``to_torch(mesh, PartitionSpec("dp", None))`` on
+   the card equal to ``assemble()``; ``util.collective.mesh_collectives``
+   on a dp=2, tp=2 mesh of the card, every op and keyword along dp and
+   tp, bit for bit to the same calls on CPU parts; a two-rank
+   ``CollectiveGroup`` (rank 0 a ``num_gpus=1`` actor passing CUDA
+   tensors, rank 1 a CPU actor passing numpy) through barrier,
+   allreduce, broadcast, allgather, reducescatter and send / recv,
+   against numpy, and its state actor gone after
+   ``destroy_collective_group`` (the ``darray_collective`` line: the
+   seconds of ``from_numpy``, ``dot`` and ``assemble``, GFLOP/s, one
+   block's product in-process, each group op's seconds).  Then
+   ``job_submit`` on the
    same runtime: ``ray_tpu_torch.scripts.cli.main(["submit", "--", ...])``
    submits an entrypoint that joins the cluster
    (``init(address="auto")``) and runs B1 once in a ``num_gpus=1`` task
@@ -394,12 +410,36 @@ DEPLOY_ENGINE_KW = dict(warmup_buckets=True)
 RUNTIME_WAIT_S = 300
 RUNTIME_FREE_SLACK = 1 << 30
 RUNTIME_PUT_ELEMS = 128 * 1024 * 1024
-# train_llama_1b_tuner: the steps the TorchTrainer's worker takes; the
-# runtime's shared-memory arena (the dataset's batch is 66 kB); how long
-# after shutdown() the card's memory may take to come back (s)
+# train_llama_1b_tuner: the steps the TorchTrainer's worker takes; its
+# runtime's shared-memory arena (the dataset's batch is 66 kB;
+# darray_collective's operands and product 192 MiB); how long after
+# shutdown() the card's memory may take to come back (s)
 TRAINER_STEPS = 4
-TRAINER_STORE_BYTES = 256 << 20
+TUNER_RUNTIME_STORE = 512 << 20
+# the tuner runtime's CPUs, and so its warm pool: the trial's actor and
+# the trainer's worker, then darray_collective's block tasks and rank 0
+TUNER_RUNTIME_CPUS = 6
 TRAINER_FREE_WAIT_S = 5
+# darray_collective: the block product's square f32 operands (seed 0, at
+# darray.DEFAULT_BLOCK: 8 x 8 grids of 1 MiB blocks) and its limit against
+# a float64 product (a TF32 product fails it); the int64 case (M, K, N):
+# one output block over two inner blocks, the second ragged;
+# mesh_collectives' f32 part on a dp=2, tp=2 mesh of the card, and the
+# ops and keywords it runs along each axis
+DARRAY_N = 4096
+DARRAY_REL_L2 = 1e-5
+DARRAY_INT_SHAPE = (500, 1000, 300)
+COLLECTIVE_PART = (1024, 1024)
+COLLECTIVE_OPS = (
+    ("allreduce", {"op": "sum"}), ("allreduce", {"op": "mean"}),
+    ("allreduce", {"op": "max"}), ("allreduce", {"op": "min"}),
+    ("allgather", {"tiled": False}), ("allgather", {"tiled": True}),
+    ("reducescatter", {"scatter_dimension": 0}),
+    ("reducescatter", {"scatter_dimension": 1}),
+    ("alltoall", {"split_axis": 0, "concat_axis": 1}),
+    ("alltoall", {"split_axis": 1, "concat_axis": 0}),
+    ("permute", {"perm": [(0, 1), (1, 0)]}), ("permute", {"perm": [(1, 0)]}),
+    ("broadcast", {"root": 0}), ("broadcast", {"root": 1}))
 # job_submit: the job's one B1 launch at Llama-3-8B's attention layout
 # (B, S, H, KV, D), causal, on this device; how long the CLI waits for the
 # job to end (s)
@@ -2687,15 +2727,17 @@ def start_tuner_runtime():
     """The port's runtime for phase ``train_llama_1b_tuner`` (``init``, the
     card auto-detected), started ahead of it with its pool warmed in the
     background (``rl_warm``) over phase ``train_f32_mesh_exactness``,
-    which times no kernel: the trial's actor and the trainer's worker then
-    take warm workers instead of importing torch for 7-13 s each.  ->
-    the seconds ``init`` took."""
+    which times no kernel: the trial's actor and the trainer's worker, and
+    phase darray_collective's block tasks and its rank 0, then take warm
+    workers instead of importing torch for 7-13 s each (TUNER_RUNTIME_CPUS
+    of them: the pool keeps that many idle).  -> the seconds ``init``
+    took."""
     import ray_tpu_torch
     t0 = time.perf_counter()
-    ray_tpu_torch.init(num_cpus=RL_RUNTIME_CPUS,
-                       object_store_memory=TRAINER_STORE_BYTES)
+    ray_tpu_torch.init(num_cpus=TUNER_RUNTIME_CPUS,
+                       object_store_memory=TUNER_RUNTIME_STORE)
     init_s = time.perf_counter() - t0
-    rl_warm(RL_RUNTIME_CPUS)
+    rl_warm(TUNER_RUNTIME_CPUS)
     return init_s
 
 
@@ -3019,6 +3061,272 @@ def job_submit(free_before):
             f"the card has {free_after / 1e9:.2f} GB free "
             f"{TRAINER_FREE_WAIT_S} s after shutdown(), "
             f"{free_before / 1e9:.2f} GB before train_llama_1b_tuner")
+    return row
+
+
+def collective_rank():
+    """The host group's rank as an actor class (defined here, so that the
+    actors get it by value): ``run`` forms the group and runs the
+    reference test's sequence (barrier, allreduce, broadcast, allgather,
+    send / recv) plus ``reducescatter``, passing each payload as a tensor
+    on ``device`` (None: numpy); -> each op's result and seconds."""
+    import ray_tpu_torch
+
+    @ray_tpu_torch.remote
+    class CollectiveRank:
+        def ready(self):
+            """-> whether this worker had torch imported (warm)."""
+            import sys
+            return "torch" in sys.modules
+
+        def run(self, rank, world, name, device):
+            import time
+
+            import numpy as np
+
+            from ray_tpu_torch.util import collective as col
+
+            if device is not None:
+                import torch
+
+            def give(x):
+                return x if device is None else torch.from_numpy(x).to(device)
+
+            g = col.init_collective_group(world, rank, group_name=name)
+            out, seconds = {}, {}
+
+            def timed(op, fn):
+                t = time.perf_counter()
+                out[op] = fn()
+                seconds[op] = time.perf_counter() - t
+
+            timed("barrier", g.barrier)
+            timed("allreduce",
+                  lambda: g.allreduce(give(np.array([1.0 * (rank + 1)]))))
+            timed("broadcast", lambda: g.broadcast(
+                give(np.array([42.0 + rank])), src_rank=1))
+            timed("allgather", lambda: g.allgather(give(np.array([rank]))))
+            timed("reducescatter", lambda: g.reducescatter(
+                give(np.arange(4, dtype=np.float32) * (rank + 1))))
+            if rank == 0:
+                timed("send", lambda: g.send(give(np.array([7.0])),
+                                             dst_rank=1))
+            else:
+                timed("recv", lambda: g.recv(src_rank=0))
+            values = [x for v in out.values() if v is not None
+                      for x in (v if isinstance(v, list) else [v])]
+            return {"rank": rank, "seconds": seconds,
+                    "gave": ("numpy" if device is None
+                             else str(give(np.zeros(1)).device)),
+                    "all_numpy": all(isinstance(v, np.ndarray)
+                                     for v in values),
+                    "results": {k: (None if v is None else
+                                    [x.tolist() for x in v]
+                                    if isinstance(v, list) else v.tolist())
+                                for k, v in out.items()}}
+
+        def destroy(self, name):
+            from ray_tpu_torch.util import collective as col
+            col.destroy_collective_group(name)
+
+    return CollectiveRank
+
+
+def darray_collective(dev):
+    """Phase darray_collective: ``experimental/darray.py`` and
+    ``util/collective.py`` on the runtime ``start_tuner_runtime`` started,
+    after ``train_llama_1b_tuner`` (``job_submit`` shuts it down; this
+    phase does when it fails).
+
+    1. ``darray.dot`` of two seeded DARRAY_N^2 f32 arrays at
+       ``DEFAULT_BLOCK``: one ``num_gpus=1`` task per output block (64),
+       each summing 8 block products on the card; the assembled product
+       within DARRAY_REL_L2 relative L2 of a float64 numpy product; an
+       int64 case (DARRAY_INT_SHAPE) equal bit for bit to the same call
+       with ``device="cpu"`` and to numpy's product wrapped to int32.
+    2. ``to_torch()`` a tensor on ``dev`` equal bit for bit to
+       ``assemble()``; ``to_torch(mesh, PartitionSpec("dp", None))`` on a
+       2-entry mesh of ``dev`` two parts of DARRAY_N / 2 rows on it, equal
+       to the host slices.
+    3. ``mesh_collectives`` on a dp=2, tp=2 mesh of ``dev``: every op and
+       keyword of COLLECTIVE_OPS along dp and tp, each result on ``dev``
+       and equal bit for bit to the same call on CPU parts.
+    4. ``CollectiveGroup`` of two actors: rank 0 on a ``num_gpus=1`` lease
+       passing tensors on ``dev``, rank 1 on a CPU passing numpy (rank 0
+       made first, while the pool's warm workers are idle); every result
+       numpy and equal to numpy's; then ``destroy_collective_group``
+       removes the group's state actor.
+    Readings: seconds to ``from_numpy``, ``dot`` (submit to every block
+    done) and ``assemble``, GFLOP/s, one output block's product run in
+    this process (no task: the task's own share), rank 0's ready seconds
+    and whether its worker was warm, each group op's seconds, the phase's
+    wall time.  -> the row."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.experimental import darray
+    from ray_tpu_torch.parallel.mesh import MeshSpec, PartitionSpec
+    from ray_tpu_torch.util import collective as col
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)
+    n = DARRAY_N
+    name = "darray_collective"
+    actors = []
+    try:
+        a, b = (rng.standard_normal((n, n), dtype=np.float32)
+                for _ in range(2))
+        t = time.perf_counter()
+        da, db = darray.from_numpy(a), darray.from_numpy(b)
+        from_numpy_s = time.perf_counter() - t
+        t = time.perf_counter()
+        dc = darray.dot(da, db)
+        refs = list(dc.blocks.flat)
+        ready, _ = ray_tpu_torch.wait(refs, num_returns=len(refs),
+                                      timeout=RUNTIME_WAIT_S)
+        dot_s = time.perf_counter() - t
+        t = time.perf_counter()
+        c = dc.assemble()
+        assemble_s = time.perf_counter() - t
+        # one output block's product in this process, with no task around
+        # it: what of a task's time is the product and its copies
+        blocks = ray_tpu_torch.get([da.blocks[0, j] for j in range(
+            da.num_blocks[1])] + [db.blocks[i, 0]
+                                  for i in range(db.num_blocks[0])])
+        block_ms = []
+        for _ in range(3):
+            t = time.perf_counter()
+            darray._k_matmul_sum(*blocks)
+            block_ms.append((time.perf_counter() - t) * 1e3)
+        del blocks
+        want = a.astype(np.float64) @ b.astype(np.float64)
+        rel_l2 = float(np.linalg.norm(c - want) / np.linalg.norm(want))
+
+        m, k, p = DARRAY_INT_SHAPE
+        ai = rng.integers(-2 ** 20, 2 ** 20, (m, k))
+        bi = rng.integers(-2 ** 20, 2 ** 20, (k, p))
+        dai, dbi = darray.from_numpy(ai), darray.from_numpy(bi)
+        int_card = darray.dot(dai, dbi).assemble()
+        int_cpu = darray.dot(dai, dbi, device="cpu").assemble()
+        wrapped = (ai @ bi + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+        whole = dc.to_torch()
+        whole_ok = whole.device == dev and torch.equal(whole.cpu(),
+                                                       torch.from_numpy(c))
+        del whole
+        mesh2 = MeshSpec(dp=2, fsdp=1).build([dev] * 2)
+        sharded = dc.to_torch(mesh2, PartitionSpec("dp", None))
+        parts_ok = [part.device == dev and tuple(part.shape) == (n // 2, n)
+                    and torch.equal(part.cpu(), torch.from_numpy(
+                        c[i * n // 2:(i + 1) * n // 2]))
+                    for i, part in enumerate(sharded.parts)]
+        del sharded
+
+        spec = MeshSpec(dp=2, fsdp=1, tp=2)
+        card_mesh, cpu_mesh = spec.build([dev] * 4), spec.build(["cpu"] * 4)
+        host_parts = [torch.from_numpy(x) for x in rng.standard_normal(
+            (4, *COLLECTIVE_PART), dtype=np.float32)]
+        card_parts = [x.to(dev) for x in host_parts]
+        mesh_calls, mesh_differ = 0, []
+        t = time.perf_counter()
+        for axis in ("dp", "tp"):
+            for method, kw in COLLECTIVE_OPS:
+                fn = getattr(col.mesh_collectives, method)
+                got = fn(card_parts, card_mesh, axis, **kw)
+                ref = fn(host_parts, cpu_mesh, axis, **kw)
+                mesh_calls += 1
+                if not all(g.device == dev and torch.equal(g.cpu(), r)
+                           for g, r in zip(got, ref)):
+                    mesh_differ.append(f"{method} {kw} along {axis}")
+        mesh_s = time.perf_counter() - t
+        del card_parts
+
+        # the darray tasks' leases back in the pool first: rank 0 then
+        # takes a warm worker (torch imported)
+        rl_warm_wait()
+        rank_cls = collective_rank()
+        t = time.perf_counter()
+        actors.append(rank_cls.options(num_gpus=1).remote())
+        rank0_warm = ray_tpu_torch.get(actors[0].ready.remote(),
+                                       timeout=RUNTIME_WAIT_S)
+        rank0_ready_s = time.perf_counter() - t
+        actors.append(rank_cls.remote())
+        ray_tpu_torch.get(actors[1].ready.remote(), timeout=RUNTIME_WAIT_S)
+        t = time.perf_counter()
+        ranks = ray_tpu_torch.get(
+            [actors[0].run.remote(0, 2, name, str(dev)),
+             actors[1].run.remote(1, 2, name, None)],
+            timeout=RUNTIME_WAIT_S)
+        group_s = time.perf_counter() - t
+        ray_tpu_torch.get(actors[0].destroy.remote(name),
+                          timeout=RUNTIME_WAIT_S)
+        deadline = time.monotonic() + 10
+        state_gone = False
+        while not state_gone and time.monotonic() < deadline:
+            try:
+                ray_tpu_torch.get_actor(f"_collective:{name}")
+                time.sleep(0.1)
+            except ValueError:
+                state_gone = True
+        for actor in actors:
+            ray_tpu_torch.kill(actor)
+    except BaseException:
+        ray_tpu_torch.shutdown()
+        raise
+
+    want_ranks = [
+        {"barrier": None, "allreduce": [3.0], "broadcast": [43.0],
+         "allgather": [[0], [1]], "reducescatter": [0.0, 3.0],
+         "send": None},
+        {"barrier": None, "allreduce": [3.0], "broadcast": [43.0],
+         "allgather": [[0], [1]], "reducescatter": [6.0, 9.0],
+         "recv": [7.0]}]
+    row = {"card": card_line(), "n": n, "block": darray.DEFAULT_BLOCK,
+           "dot_tasks": len(refs), "from_numpy_s": from_numpy_s,
+           "dot_s": dot_s, "assemble_s": assemble_s,
+           "dot_gflop_s": 2 * n ** 3 / dot_s / 1e9,
+           "dot_ms_per_task": dot_s / len(refs) * 1e3,
+           "block_product_in_process_ms": block_ms, "rel_l2": rel_l2,
+           "int_shape": list(DARRAY_INT_SHAPE),
+           "int_dtype": str(int_card.dtype),
+           "to_torch_whole": whole_ok, "to_torch_parts": parts_ok,
+           "mesh_calls": mesh_calls, "mesh_differ": mesh_differ,
+           "mesh_s": mesh_s, "rank0_ready_s": rank0_ready_s,
+           "rank0_warm": rank0_warm,
+           "group_s": group_s,
+           "group_op_s": {r["rank"]: r["seconds"] for r in ranks},
+           "rank0_gave": ranks[0]["gave"], "state_actor_gone": state_gone,
+           "phase_wall_s": time.perf_counter() - t_phase}
+    log("darray_collective " + json.dumps(row))
+    if len(ready) != len(refs):
+        raise AssertionError(f"{len(ready)} of {len(refs)} block products "
+                             f"done in {RUNTIME_WAIT_S} s")
+    if c.dtype != np.float32 or not rel_l2 <= DARRAY_REL_L2:
+        raise AssertionError(f"the {n}^2 dot ({c.dtype}) is {rel_l2} "
+                             f"relative L2 from float64 (limit "
+                             f"{DARRAY_REL_L2})")
+    if not (np.array_equal(int_card, int_cpu)
+            and np.array_equal(int_card, wrapped)):
+        raise AssertionError("the int64 dot on the card differs from the "
+                             "CPU tasks' or from numpy's wrapped to int32")
+    if not whole_ok or parts_ok != [True, True]:
+        raise AssertionError(f"to_torch on {dev}: whole {whole_ok}, "
+                             f"mesh parts {parts_ok}")
+    if mesh_differ:
+        raise AssertionError(f"mesh_collectives on {dev} differ from the "
+                             f"CPU: {mesh_differ}")
+    if ranks[0]["gave"] != str(dev) or ranks[1]["gave"] != "numpy":
+        raise AssertionError(f"the ranks passed {ranks[0]['gave']} and "
+                             f"{ranks[1]['gave']}")
+    for got, want_rank in zip(ranks, want_ranks):
+        if got["results"] != want_rank or not got["all_numpy"]:
+            raise AssertionError(f"rank {got['rank']}'s results "
+                                 f"{got['results']} (numpy: "
+                                 f"{got['all_numpy']}), want {want_rank}")
+    if not state_gone:
+        raise AssertionError("destroy_collective_group left the group's "
+                             "state actor")
     return row
 
 
@@ -4902,8 +5210,8 @@ def rl_warm(n):
     process can spend 7-13 s importing torch on an H100's machine (the
     ``warm_import_s`` readings), and an actor lease takes an idle worker
     before it spawns one, so an actor placed on a warm worker starts
-    without that import.  The pool keeps up to RL_RUNTIME_CPUS idle
-    workers."""
+    without that import.  The pool keeps as many idle workers as the
+    runtime has CPUs."""
     import ray_tpu_torch
     task = ray_tpu_torch.remote(rl_warm_task).options(num_cpus=1)
     _RL_WARM.extend(task.remote(RL_WARM_HOLD_S) for _ in range(n))
@@ -4916,9 +5224,10 @@ def rl_warm_wait():
     import ray_tpu_torch
     took = ray_tpu_torch.get(list(_RL_WARM), timeout=RUNTIME_WAIT_S)
     _RL_WARM.clear()
+    cpus = ray_tpu_torch.cluster_resources().get("CPU", 0)
     deadline = time.monotonic() + 10
-    while (ray_tpu_torch.available_resources().get("CPU", 0)
-           < RL_RUNTIME_CPUS and time.monotonic() < deadline):
+    while (ray_tpu_torch.available_resources().get("CPU", 0) < cpus
+           and time.monotonic() < deadline):
         time.sleep(0.1)
     return took
 
@@ -5284,6 +5593,8 @@ def main() -> int:
     with phase("train_llama_1b_tuner"):
         tuner_launches, tuner_free = train_llama_tuner(train_stats,
                                                        tuner_runtime)
+    with phase("darray_collective"):
+        darray_collective(dev)
     with phase("job_submit"):
         job_row = job_submit(tuner_free)
     gc.collect()

@@ -1,11 +1,13 @@
 """ray_tpu_torch.experimental — counterparts of ``ray.experimental``.
 
 Reference surface: ``python/ray/experimental/`` — ``internal_kv`` (GCS KV
-access), ``set_resource`` and ``simple_shuffle``.  The JAX package's
-distributed block-array (``darray``) is not ported yet.  Kept deliberately
-small; stable pieces graduate into ``ray_tpu_torch.util``.
+access), ``set_resource``, ``simple_shuffle`` and the distributed
+block-array package (``experimental/array/``, here ``darray`` with torch
+block products on the card + a ``to_torch`` mesh bridge).  Kept
+deliberately small; stable pieces graduate into ``ray_tpu_torch.util``.
 """
 
+from . import darray
 from .dynamic_resources import set_resource
 from .shuffle import simple_shuffle
 from .internal_kv import (
@@ -17,6 +19,7 @@ from .internal_kv import (
 )
 
 __all__ = [
+    "darray",
     "set_resource",
     "simple_shuffle",
     "internal_kv_get",

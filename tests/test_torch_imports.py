@@ -68,7 +68,7 @@ def test_every_module_imports_with_jax_and_ray_tpu_blocked():
                  "ray_tpu_torch.parallel.zero",
                  "ray_tpu_torch.parallel.quant_collectives") + (
                  RLLIB_MODULES + TRAIN_DATA_MODULES + TUNE_WORKFLOW_MODULES
-                 + CONTROL_PLANE_MODULES):
+                 + CONTROL_PLANE_MODULES + LAST_MODULES):
         assert name in res.stdout.split(), res.stdout
 
 
@@ -107,6 +107,31 @@ CONTROL_PLANE_MODULES = tuple(f"ray_tpu_torch.{m}" for m in (
     "autoscaler.gcp", "autoscaler.launcher", "autoscaler.providers",
     "autoscaler.v2", "scripts", "scripts.cli", "util.joblib",
     "util.daskcompat", "util.multiprocessing", "util.procmem"))
+
+#: the last modules of the JAX package to be ported
+LAST_MODULES = ("ray_tpu_torch.util.collective",
+                "ray_tpu_torch.experimental.darray")
+
+#: the JAX package's modules with no counterpart at the same path: jax
+#: shims with nothing to port (None), or the port's file in their place
+NOT_MIRRORED = {"util/jax_compat.py": None, "utils/__init__.py": None,
+                "utils/testing.py": None,
+                "train/jax_utils.py": "train/torch_utils.py"}
+
+
+def test_port_has_every_module_of_the_reference():
+    """Every ``.py`` file of ``ray_tpu/`` has its counterpart at the same
+    path in ``ray_tpu_torch/``, but the named jax shims and
+    ``train/jax_utils.py``, whose counterpart is ``train/torch_utils.py``."""
+    def modules(root):
+        return {str(f.relative_to(root)) for f in root.rglob("*.py")
+                if "__pycache__" not in f.parts}
+
+    missing = modules(ROOT / "ray_tpu") - modules(PORT)
+    assert missing == set(NOT_MIRRORED), missing ^ set(NOT_MIRRORED)
+    for counterpart in filter(None, NOT_MIRRORED.values()):
+        assert (PORT / counterpart).is_file(), counterpart
+
 
 _LIGHT_IMPORT = r'''
 import sys

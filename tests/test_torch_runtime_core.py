@@ -429,7 +429,10 @@ RUNTIME_DIRS = ("core", "native", "util", "dag", "experimental", "train",
                 "data")
 #: the files where the port's runtime differs from the renamed copy: the
 #: GPU seam, the profiler on torch, the build directory, the session
-#: root under ``TMPDIR``, no ``darray``; the train library on
+#: root under ``TMPDIR``, ``darray`` on torch; ``util/collective.py`` and
+#: ``experimental/darray.py``, whose seams their own copy guards hold as
+#: text (``tests/test_torch_collective.py``, ``test_torch_darray.py``);
+#: the train library on
 #: ``torch.distributed`` and the GPU (``use_gpu``, ``TorchTrainer``, the
 #: mesh over the worker's cards, the card's peak and memory), and no
 #: ``iter_jax_batches``
@@ -440,6 +443,7 @@ SEAM_FILES = {
     "core/worker_main.py",
     "core/runtime_context.py", "native/__init__.py", "util/profiler.py",
     "util/usage_stats.py", "experimental/__init__.py",
+    "util/collective.py", "experimental/darray.py",
     "train/config.py", "train/context.py", "train/observability.py",
     "train/worker_group.py", "train/backend.py", "train/trainer.py",
     "train/__init__.py", "data/dataset.py", "data/iterator.py"}
