@@ -33,6 +33,16 @@ script exits non-zero:
    required to give the same bits.  Times beside the bounds, the plain
    versions' and the backward of ``scaled_dot_product_attention`` (one
    library call for B2 + B3 together).
+   Then ``attention_kernels_f16_f32``: B1-B4 in f16 (the same ``wgmma``
+   bodies, templated on the 16-bit type) and in f32 (a body of their own
+   on the CUDA cores), each against its plain version in the same type:
+   B1 at (8, 2048, 32, 8, 128), B2-B4 at llama_1b's (8, 2048, 16, 8,
+   128), B4 with softcap 0 and 50, timed beside the bound at the type's
+   peak (f32 also beside the 3xTF32 bound a later redesign aims at), the
+   plain versions' and SDPA's ms in the same type; then a ragged S, D=64
+   with no mask, D=256 with GQA reps 4, and strided views.  Limits
+   (DTYPE_ATOL): f16 out 5e-3, lse 1e-3, dq/dk/dv 5e-3 of the largest
+   magnitude; f32 2e-5, 1e-5, 1e-4; the backward bitwise repeatable.
 5. The serving path at full width: ``LLMEngine`` on Llama-3-8B (32 layers,
    hidden 4096, random bf16 weights from seed 0, drawn once and passed to
    every serving engine), 8 concurrent requests, 5 with prompts of
@@ -75,6 +85,12 @@ script exits non-zero:
       acceptance read, the vanilla paged engine on the same weights beside
       it (streams' agreement read, no limit), the dense and paged verify
       windows' logits against 4 sequential decode steps;
+      then ``serve_llama3_8b_f16``: the same weights cast once to f16
+      (freed after the phase), ``LLMEngine(compute_dtype=torch.float16)``
+      and the dense phase's requests: B1 f16 32 launches per long batch
+      and no other type, one 8 x 2048 prefill's logits through B1 f16
+      against its plain version in f16 (rms limit, every logit finite),
+      TTFT p50, decode tok/s and the prefill's ms beside bf16's;
    d. ``serve_llama3_8b_tp2``: ``LLMEngine(tp=2)`` splits the same
       weights, cut to 16 of the 32 layers (``TP_SERVE_LAYERS``), over two
       shards (on cuda:0 and cuda:1 with two cards, else
@@ -86,10 +102,15 @@ script exits non-zero:
       b. check them (the paged run not traced);
    e. a 2-layer f32 cut at full width: the spec streams must equal the
       vanilla ones, and the spec engine's pages a fresh prefill's of each
-      verified sequence (the rollback invariant); then
-      ``serve_f32_tp_exactness``: the same cut's tp=2 streams must equal
-      tp=1's, dense and paged, and each shard's K/V tp=1's at its KV heads
-      within 1e-4 of the largest magnitude.
+      verified sequence (the rollback invariant; its line carries the
+      launches: the paged prefill runs no kernel, the draft's dense
+      prefill B1 f32); then ``serve_f32_tp_exactness``: the same cut's
+      tp=2 streams must equal tp=1's, dense and paged, and each shard's
+      K/V tp=1's at its KV heads within 1e-4 of the largest magnitude;
+      the dense prefills at bucket 1024 launch B1 f32 (2 per batch at
+      tp=1, on both shards at tp=2), the paged ones none; one 4 x 1024
+      prefill's logits through B1 f32 against plain attention within
+      1e-4 of the largest magnitude.
    f. ``moe_layer``: ``moe_mlp`` against its one-hot version (the
       reference's einsums, with its own top-k by argmax) at Mixtral-8x7B's
       width in bf16 (H 4096, M 14336, 8 experts, top 2) for one 8 x 2048
@@ -204,11 +225,14 @@ script exits non-zero:
       step ms, tokens/s, state and peak GB per card; one step of
       ``fsdp=2, tp=2`` profiled (``MESH_TRACED``).
    b. ``train_f32_mesh_exactness``: llama_1b's width cut to 2 layers in
-      f32 (plain attention) on ``dp=2, fsdp=2, tp=2``, 3 steps against
+      f32 (B1-B3 f32 on every shard and in ``mesh=None``, 2/1/1 per layer
+      and step) on ``dp=2, fsdp=2, tp=2``, 3 steps against
       ``mesh=None``: loss and grad norm, and every leaf of params, mu and
-      nu, within 1e-4 relative; the same for f. below's three runs on a
-      4-layer cut and 4 rows (the ring's recurrence under sp; leaves
-      merged from the pipeline's stages).  The port's runtime for the
+      nu, within 1e-4 relative; first one ``mesh=None`` step through the
+      kernels against the same step through their plain versions, held to
+      1e-4 likewise; the same for f. below's three runs on a
+      4-layer cut and 4 rows (the ring's recurrence under sp, whose kernel
+      route takes bf16 only; leaves merged from the pipeline's stages).  The port's runtime for the
       next phase starts before it and its workers import torch beside
       it (it times no kernel); ``tuner_runtime_warm`` waits for them.
       Then ``train_llama_1b_tuner`` (phase 6's second half), its trial's
@@ -310,7 +334,8 @@ script exits non-zero:
     After ``shutdown()`` the card's free memory is back within 1 GB in
     5 s.  No kernel of the port runs here.
 13. A ``phases`` line: each phase's seconds and the script's total.  A
-    JSON line of kernels (each path's launches, the replica's under
+    JSON line of kernels, one row per kernel and type (bf16, ``_f16``,
+    ``_f32``; each path's launches, the replica's under
     ``serve_deployment``, the tuner's trial's worker's under ``train_tuner``,
     the submitted job's task's under ``job_submit``;
     the mesh paths' under ``train_mesh[...]``, the dp arms' under ``train_dp[...]``, the
@@ -340,6 +365,12 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM published peaks (dense bf16 tensor-core rate, HBM3 bandwidth)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
+# the f32 kernels' rates: the CUDA cores' f32 FMA rate, which bounds them,
+# and the tensor cores' TF32 rate over the three products of a 3xTF32
+# design (each f32 operand split into a TF32 high and low part), the
+# bound of a later redesign that keeps f32 accuracy on the tensor cores
+PEAK_F32_FLOPS = 67e12
+PEAK_3XTF32_FLOPS = 495e12 / 3
 # special-function units (exp, tanh): 16 results per clock per SM, 132 SMs
 SFU_PER_CLOCK = 16 * 132
 SPLASH_SOFTCAP = 50.0   # Gemma-2's attention logit softcap
@@ -356,6 +387,14 @@ LSE_ATOL = 1e-3      # f32 lse: same terms summed in another order
 # plain version's largest magnitude: P and dS round to bf16 at other tile
 # boundaries and f32 sums run in another order
 GRAD_RTOL = 2e-2
+# the same limits for the f16 and f32 kernels (B1-B4) against their plain
+# versions in the same type: (out, lse, dq/dk/dv as a share of the largest
+# magnitude).  f16 keeps 3 more mantissa bits than bf16, so P and dS round
+# 8 times finer; f32 rounds nothing (out within tests/test_ops.py's 2e-5,
+# the f32 sums of 64-to-2048 terms in another order)
+DTYPE_ATOL = {"bf16": (OUT_ATOL, LSE_ATOL, GRAD_RTOL),
+              "f16": (5e-3, 1e-3, 5e-3),
+              "f32": (2e-5, 1e-5, 1e-4)}
 # one llama_1b training step (16 bf16 layers, fp32 params), attention
 # through the kernels against attention through their plain versions: the
 # loss within this absolute difference, every gradient leaf within this
@@ -515,6 +554,24 @@ MESH_SHARD_LABELS = ("llama_1b fsdp=2,tp=2", "llama_1b dp=2,fsdp=2,tp=2",
                      "llama_1b sp=2 off-diagonal hop (no mask)",
                      "llama_1b pp=2 microbatch (M=4)")
 MESH_F32_LAYERS, MESH_F32_STEPS, MESH_F32_RTOL = 2, 3, 1e-4
+# phase attention_kernels_f16_f32: B1 at the serving path's bucket-2048
+# prefill and B2-B4 at llama_1b's training batch (B4 with softcap 0 and
+# 50), timed, in f16 and in f32 against their plain versions in the same
+# type; then, untimed, the edges: a ragged S, D=64 with KV=H and no mask,
+# D=256 with GQA reps 4 and 64 rows past a tile, and strided views (q, k,
+# v head slices of one tensor; dO a transposed view)
+DTYPE_EDGE_CASES = ((2, 1000, 32, 8, 128, True, False, False),
+                    (2, 1024, 16, 16, 64, False, False, False),
+                    (1, 1088, 16, 4, 256, True, False, False),
+                    (2, 1088, 32, 8, 128, True, False, True))
+DTYPE_FWD_CASES = ((8, 2048, 32, 8, 128, True, True, False),
+                   *DTYPE_EDGE_CASES)
+DTYPE_BWD_CASES = ((8, 2048, 16, 8, 128, True, True, False),
+                   *DTYPE_EDGE_CASES)
+DTYPE_SPLASH_CASES = ((8, 2048, 16, 8, 128, True, 0.0, True),
+                      (8, 2048, 16, 8, 128, True, SPLASH_SOFTCAP, True),
+                      (1, 1024, 8, 2, 256, True, SPLASH_SOFTCAP, False),
+                      (2, 1024, 16, 16, 128, False, SPLASH_SOFTCAP, False))
 CKPT_LAYERS = 2
 # sequence parallelism and the pipeline (ops/ring_attention.py,
 # parallel/pipeline.py): llama_1b through make_train_step on sp=2 and
@@ -664,15 +721,26 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def attention_bound_ms(b, s, h, kv, d, causal):
+def dtype_peak(dtype=None):
+    """-> (bytes per element, peak FLOP/s) of the kernels on ``dtype``
+    inputs (bf16 by default): the tensor cores' dense rate for bf16 and
+    f16, the CUDA cores' f32 rate for f32."""
+    import torch
+    return ((4, PEAK_F32_FLOPS) if dtype == torch.float32
+            else (2, PEAK_BF16_FLOPS))
+
+
+def attention_bound_ms(b, s, h, kv, d, causal, dtype=None, peak=None):
     """Least time for the work this input needs: q.k and p.v over the
-    (q, k) pairs the mask keeps, at the bf16 tensor-core peak, against
-    q/k/v read once and out (bf16) + lse (f32) written once, at the HBM
-    rate."""
+    (q, k) pairs the mask keeps, at the dtype's peak (bf16 by default;
+    ``peak`` overrides it), against q/k/v read once and out + lse (f32)
+    written once, at the HBM rate."""
+    elem, rate = dtype_peak(dtype)
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 4 * b * h * d * pairs
-    nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kv * d) + 4 * b * h * s
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    nbytes = elem * (2 * b * s * h * d + 2 * b * s * kv * d) + 4 * b * h * s
+    t_ops = flops / (peak or rate) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -685,12 +753,22 @@ def sdpa_call(q, k, v, causal, scale=None):
         qt, kt, vt, is_causal=causal, enable_gqa=True, scale=scale)
 
 
-def check_flash(dev):
-    """Phase 3: the flash kernel against its plain version."""
+def dtype_tag(dtype) -> str:
+    """bf16, f16 or f32: the suffix of the kernels' entry points."""
+    from ray_tpu_torch.ops.flash_attention import KERNEL_DTYPES
+    return KERNEL_DTYPES[dtype]
+
+
+def check_flash(dev, dtype=None, cases=None):
+    """Phase 3: the flash kernel against its plain version, in bf16 (and,
+    in phase ``attention_kernels_f16_f32``, at ``cases`` in ``dtype``)."""
     import torch
     from ray_tpu_torch.ops import flash_attention as fa
 
-    cases = [  # (B, S, H, KV, D, causal, timed, strided)
+    dtype = dtype or torch.bfloat16
+    tag = dtype_tag(dtype)
+    out_atol, lse_atol, _ = DTYPE_ATOL[tag]
+    cases = cases or [  # (B, S, H, KV, D, causal, timed, strided)
         (8, 2048, 32, 8, 128, True, True, False),   # bucket-2048 prefill
         (8, 1024, 32, 8, 128, True, True, False),   # bucket-1024 prefill
         # a tp=2 shard's prefill (Llama's and Mixtral's 32 q / 8 KV heads
@@ -711,55 +789,60 @@ def check_flash(dev):
     for b, s, h, kv, d, causal, timed, strided in cases:
         if strided:
             qkv = torch.randn((b, s, h + 2 * kv, d), generator=gen,
-                              device=dev, dtype=torch.bfloat16)
+                              device=dev, dtype=dtype)
             q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
         else:
             q = torch.randn((b, s, h, d), generator=gen, device=dev,
-                            dtype=torch.bfloat16)
+                            dtype=dtype)
             k = torch.randn((b, s, kv, d), generator=gen, device=dev,
-                            dtype=torch.bfloat16)
+                            dtype=dtype)
             v = torch.randn((b, s, kv, d), generator=gen, device=dev,
-                            dtype=torch.bfloat16)
+                            dtype=dtype)
         out, lse = fa._flash_fwd(q, k, v, causal)
         torch.cuda.synchronize()
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal)
         err = (out.float() - ref_out.float()).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
-        bound, bound_by = attention_bound_ms(b, s, h, kv, d, causal)
-        row = {"shape": [b, s, h, kv, d], "causal": causal,
+        bound, bound_by = attention_bound_ms(b, s, h, kv, d, causal, dtype)
+        row = {"dtype": tag, "shape": [b, s, h, kv, d], "causal": causal,
                "strided": strided, "max_abs_err": err,
                "lse_max_abs_err": lse_err, "bound_ms": bound,
                "bound_by": bound_by}
+        if tag == "f32":
+            row["bound_3xtf32_ms"] = attention_bound_ms(
+                b, s, h, kv, d, causal, dtype, PEAK_3XTF32_FLOPS)[0]
         if timed:
             row["ms"] = time_ms(lambda: fa._flash_fwd(q, k, v, causal), 10)
             row["plain_ms"] = time_ms(
                 lambda: fa.flash_attention_reference(q, k, v, causal), 3, 1)
             row["library_ms"] = time_ms(sdpa_call(q, k, v, causal), 10)
         log("flash_attention_fwd " + json.dumps(row))
-        if not (err <= OUT_ATOL and lse_err <= LSE_ATOL):
+        if not (err <= out_atol and lse_err <= lse_atol):
             raise AssertionError(
-                f"flash kernel disagrees with its plain version at "
+                f"flash kernel ({tag}) disagrees with its plain version at "
                 f"{row['shape']} causal={causal} strided={strided}: out {err}"
-                f" (atol {OUT_ATOL}), lse {lse_err} (atol {LSE_ATOL})")
+                f" (atol {out_atol}), lse {lse_err} (atol {lse_atol})")
         results.append(row)
         del q, k, v, out, lse, ref_out, ref_lse
     torch.cuda.empty_cache()
     return results
 
 
-def attention_bwd_bounds_ms(b, s, h, kv, d, causal):
+def attention_bwd_bounds_ms(b, s, h, kv, d, causal, dtype=None, peak=None):
     """Least times of B2 and B3 for the work this input needs: B2 does
     S = Q.K^T, dP = dO.V^T and dS.K (6 operations per (q, k) pair and
-    head dim), B3 S^T, dP^T, P^T.dO and dS^T.Q (8), at the bf16
-    tensor-core peak; against q, k, v, dO (bf16) and lse, Delta (f32) read
-    once and dq (B2) or dk, dv (B3) written once, at the HBM rate."""
+    head dim), B3 S^T, dP^T, P^T.dO and dS^T.Q (8), at the dtype's peak
+    (bf16 by default; ``peak`` overrides it); against q, k, v, dO and lse,
+    Delta (f32) read once and dq (B2) or dk, dv (B3) written once, at the
+    HBM rate."""
+    elem, rate = dtype_peak(dtype)
     pairs = s * (s + 1) // 2 if causal else s * s
-    q_bytes, kv_bytes, stat_bytes = 2 * b * s * h * d, 2 * b * s * kv * d, \
-        4 * b * h * s
+    q_bytes, kv_bytes, stat_bytes = elem * b * s * h * d, \
+        elem * b * s * kv * d, 4 * b * h * s
     reads = 2 * q_bytes + 2 * kv_bytes + 2 * stat_bytes
     out = {}
     for name, ops, writes in (("dq", 6, q_bytes), ("dkv", 8, 2 * kv_bytes)):
-        t_ops = ops * b * h * d * pairs / PEAK_BF16_FLOPS * 1e3
+        t_ops = ops * b * h * d * pairs / (peak or rate) * 1e3
         t_bytes = (reads + writes) / PEAK_BYTES_S * 1e3
         out[name] = (max(t_ops, t_bytes),
                      "operations" if t_ops >= t_bytes else "bytes")
@@ -781,12 +864,16 @@ def sdpa_bwd_call(q, k, v, dout, causal, scale=None):
                                        retain_graph=True)
 
 
-def check_flash_bwd(dev):
-    """Phase 4: B2 and B3 against their plain versions."""
+def check_flash_bwd(dev, dtype=None, cases=None):
+    """Phase 4: B2 and B3 against their plain versions, in bf16 (and, in
+    phase ``attention_kernels_f16_f32``, at ``cases`` in ``dtype``)."""
     import torch
     from ray_tpu_torch.ops import flash_attention as fa
 
-    cases = [  # (B, S, H, KV, D, causal, timed, strided)
+    dtype = dtype or torch.bfloat16
+    tag = dtype_tag(dtype)
+    grad_rtol = DTYPE_ATOL[tag][2]
+    cases = cases or [  # (B, S, H, KV, D, causal, timed, strided)
         (8, 2048, 16, 8, 128, True, True, False),    # llama_1b training batch
         (8, 1024, 32, 8, 128, True, True, False),    # serving shape, reps 4
         (8, 2048, 32, 8, 128, True, False, False),   # Mixtral training batch
@@ -808,13 +895,13 @@ def check_flash_bwd(dev):
     for b, s, h, kv, d, causal, timed, strided in cases:
         if strided:
             qkv = torch.randn((b, s, h + 2 * kv, d), generator=gen,
-                              device=dev, dtype=torch.bfloat16)
+                              device=dev, dtype=dtype)
             q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
             dout = torch.randn((b, h, s, d), generator=gen, device=dev,
-                               dtype=torch.bfloat16).transpose(1, 2)
+                               dtype=dtype).transpose(1, 2)
         else:
             q, k, v, dout = (torch.randn(shape, generator=gen, device=dev,
-                                         dtype=torch.bfloat16)
+                                         dtype=dtype)
                              for shape in ((b, s, h, d), (b, s, kv, d),
                                            (b, s, kv, d), (b, s, h, d)))
         out, lse = fa._flash_fwd(q, k, v, causal)
@@ -833,8 +920,8 @@ def check_flash_bwd(dev):
         args = fa._bwd_reference_args(q, k, v, dout, lse, delta, causal)
         want = fa.flash_attention_bwd_reference(q, k, v, out, lse, dout,
                                                 causal)
-        bounds = attention_bwd_bounds_ms(b, s, h, kv, d, causal)
-        row = {"shape": [b, s, h, kv, d], "causal": causal,
+        bounds = attention_bwd_bounds_ms(b, s, h, kv, d, causal, dtype)
+        row = {"dtype": tag, "shape": [b, s, h, kv, d], "causal": causal,
                "strided": strided, "bitwise_repeatable": same_bits}
         for name, a, w in zip(("dq", "dk", "dv"), got, want):
             diff = (a.float() - w.float()).abs().max().item()
@@ -845,6 +932,11 @@ def check_flash_bwd(dev):
                                      row["dv_max_abs_err"])
         for name in ("dq", "dkv"):
             row[f"{name}_bound_ms"], row[f"{name}_bound_by"] = bounds[name]
+        if tag == "f32":
+            tf32 = attention_bwd_bounds_ms(b, s, h, kv, d, causal, dtype,
+                                           PEAK_3XTF32_FLOPS)
+            for name in ("dq", "dkv"):
+                row[f"{name}_bound_3xtf32_ms"] = tf32[name][0]
         if timed:
             row["dq_ms"] = time_ms(lambda: fa.flash_attention_bwd_dq(
                 q, k, v, dout, lse, delta, causal), 10)
@@ -859,12 +951,12 @@ def check_flash_bwd(dev):
                 sdpa_bwd_call(q, k, v, dout, causal), 10)
         log("flash_attention_bwd " + json.dumps(row))
         bad = [n for n in ("dq", "dk", "dv")
-               if not (row[f"{n}_finite"] and row[f"{n}_rel_err"] <= GRAD_RTOL)]
+               if not (row[f"{n}_finite"] and row[f"{n}_rel_err"] <= grad_rtol)]
         if bad or not same_bits:
             raise AssertionError(
-                f"backward kernels at {row['shape']} causal={causal} "
+                f"backward kernels ({tag}) at {row['shape']} causal={causal} "
                 f"strided={strided}: "
-                f"{bad} exceed {GRAD_RTOL} of the plain version's largest "
+                f"{bad} exceed {grad_rtol} of the plain version's largest "
                 f"magnitude (or are not finite); bitwise repeatable: "
                 f"{same_bits}")
         results.append(row)
@@ -873,35 +965,43 @@ def check_flash_bwd(dev):
     return results
 
 
-def splash_bounds_ms(b, s, h, kv, d, causal, softcap, clock_hz):
-    """B4's least times (forward, dq, dk/dv): flash's tensor-core and HBM
-    terms, and the special-function units' term: an exp per kept (q, k)
-    score and head, and a tanh with the softcap, at 16 per clock per SM.
-    -> {pass: (ms, bound_by, {term: ms})}"""
+def splash_bounds_ms(b, s, h, kv, d, causal, softcap, clock_hz, dtype=None,
+                     peak=None):
+    """B4's least times (forward, dq, dk/dv): flash's product and HBM
+    terms (at the dtype's peak, or ``peak``), and the special-function
+    units' term: an exp per kept (q, k) score and head, and a tanh with the
+    softcap, at 16 per clock per SM.  -> {pass: (ms, bound_by, {term:
+    ms})}"""
     pairs = s * (s + 1) // 2 if causal else s * s
     special_ms = ((2 if softcap else 1) * b * h * pairs
                   / (SFU_PER_CLOCK * clock_hz) * 1e3)
-    fwd = attention_bound_ms(b, s, h, kv, d, causal)
-    bwd = attention_bwd_bounds_ms(b, s, h, kv, d, causal)
+    fwd = attention_bound_ms(b, s, h, kv, d, causal, dtype, peak)
+    bwd = attention_bwd_bounds_ms(b, s, h, kv, d, causal, dtype, peak)
     out = {}
     for name, (ms, by) in (("fwd", fwd), ("dq", bwd["dq"]),
                            ("dkv", bwd["dkv"])):
-        terms = {"tensor_cores" if by == "operations" else "hbm": ms,
+        units = "cuda_cores" if dtype_peak(dtype)[0] == 4 else "tensor_cores"
+        terms = {units if by == "operations" else "hbm": ms,
                  "special_functions": special_ms}
         out[name] = ((special_ms, "operations") if special_ms > ms
                      else (ms, by)) + (terms,)
     return out
 
 
-def check_splash(dev, clock_hz):
+def check_splash(dev, clock_hz, dtype=None, cases=None):
     """Phase 7: kernel B4 (forward, dq, dk/dv) against its plain versions
-    on a q scaled by D^-0.5 in bf16, as ``splash_mha`` scales it, and with
-    a softcap c by c · CAP_SCORE_STD besides."""
+    on a q scaled by D^-0.5 in its dtype (bf16; in phase
+    ``attention_kernels_f16_f32``, ``dtype`` at ``cases``), as
+    ``splash_mha`` scales it, and with a softcap c by c · CAP_SCORE_STD
+    besides."""
     import torch
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops import splash_attention as sa
 
-    cases = [  # (B, S, H, KV, D, causal, softcap, timed)
+    dtype = dtype or torch.bfloat16
+    tag = dtype_tag(dtype)
+    out_atol, lse_atol, grad_rtol = DTYPE_ATOL[tag]
+    cases = cases or [  # (B, S, H, KV, D, causal, softcap, timed)
         (8, 2048, 16, 8, 128, True, 0.0, True),    # llama_1b training batch
         (8, 2048, 16, 8, 128, True, SPLASH_SOFTCAP, True),
         (1, 1024, 8, 2, 256, True, SPLASH_SOFTCAP, False),
@@ -912,7 +1012,7 @@ def check_splash(dev, clock_hz):
     results = []
     for b, s, h, kv, d, causal, cap, timed in cases:
         q, k, v, dout = (torch.randn(shape, generator=gen, device=dev,
-                                     dtype=torch.bfloat16)
+                                     dtype=dtype)
                          for shape in ((b, s, h, d), (b, s, kv, d),
                                        (b, s, kv, d), (b, s, h, d)))
         qs = q * (d ** -0.5 * (cap * CAP_SCORE_STD if cap else 1.0))
@@ -934,7 +1034,8 @@ def check_splash(dev, clock_hz):
                                                         blk, cap, 1.0)
         want = fa.flash_attention_bwd_reference(qs, k, v, out, lse, dout,
                                                 causal, blk, blk, cap, 1.0)
-        row = {"shape": [b, s, h, kv, d], "causal": causal, "softcap": cap,
+        row = {"dtype": tag, "shape": [b, s, h, kv, d], "causal": causal,
+               "softcap": cap,
                "max_abs_err": (out.float() - ref_out.float()).abs().max()
                .item(),
                "lse_max_abs_err": (lse - ref_lse).abs().max().item(),
@@ -944,10 +1045,16 @@ def check_splash(dev, clock_hz):
             row[f"{name}_max_abs_err"] = diff
             row[f"{name}_rel_err"] = diff / w.float().abs().max().item()
             row[f"{name}_finite"] = bool(torch.isfinite(a).all())
-        bounds = splash_bounds_ms(b, s, h, kv, d, causal, cap, clock_hz)
+        bounds = splash_bounds_ms(b, s, h, kv, d, causal, cap, clock_hz,
+                                  dtype)
         for name, (ms, by, terms) in bounds.items():
             row[f"{name}_bound_ms"], row[f"{name}_bound_by"] = ms, by
             row[f"{name}_bound_terms_ms"] = terms
+        if tag == "f32":
+            for name, (ms, _, _) in splash_bounds_ms(
+                    b, s, h, kv, d, causal, cap, clock_hz, dtype,
+                    PEAK_3XTF32_FLOPS).items():
+                row[f"{name}_bound_3xtf32_ms"] = ms
         if timed:
             args = fa._bwd_reference_args(qs, k, v, dout, lse, delta, causal,
                                           blk, blk, cap, 1.0)
@@ -970,19 +1077,57 @@ def check_splash(dev, clock_hz):
                 sdpa_bwd_call(qs, k, v, dout, causal, scale=1.0), 10)
         log("splash_attention " + json.dumps(row))
         bad = [n for n in ("dq", "dk", "dv")
-               if not (row[f"{n}_finite"] and row[f"{n}_rel_err"] <= GRAD_RTOL)]
-        if (bad or not same_bits or row["max_abs_err"] > OUT_ATOL
-                or row["lse_max_abs_err"] > LSE_ATOL):
+               if not (row[f"{n}_finite"] and row[f"{n}_rel_err"] <= grad_rtol)]
+        if (bad or not same_bits or row["max_abs_err"] > out_atol
+                or row["lse_max_abs_err"] > lse_atol):
             raise AssertionError(
-                f"splash kernel at {row['shape']} causal={causal} softcap="
-                f"{cap}: out {row['max_abs_err']} (atol {OUT_ATOL}), lse "
-                f"{row['lse_max_abs_err']} (atol {LSE_ATOL}), {bad} exceed "
-                f"{GRAD_RTOL} of the plain version's largest magnitude (or "
+                f"splash kernel ({tag}) at {row['shape']} causal={causal} "
+                f"softcap={cap}: out {row['max_abs_err']} (atol {out_atol}), "
+                f"lse {row['lse_max_abs_err']} (atol {lse_atol}), {bad} "
+                f"exceed {grad_rtol} of the plain version's largest magnitude (or "
                 f"are not finite); bitwise repeatable: {same_bits}")
         results.append(row)
         del q, k, v, dout, qs, out, lse, delta, got, again, want
     torch.cuda.empty_cache()
     return results
+
+
+def check_kernel_dtypes(dev, clock_hz):
+    """Phase attention_kernels_f16_f32: B1-B4 in f16 and in f32, each
+    against its plain version in the same type (DTYPE_ATOL), at the main
+    shapes (timed: ms beside the bound at the type's peak, f32 also beside
+    the 3xTF32 bound, the plain version's and SDPA's ms in the same type)
+    and at the edges.  -> {tag: (B1 rows, B2/B3 rows, B4 rows)}"""
+    import torch
+    return {dtype_tag(dt): (check_flash(dev, dt, DTYPE_FWD_CASES),
+                            check_flash_bwd(dev, dt, DTYPE_BWD_CASES),
+                            check_splash(dev, clock_hz, dt,
+                                         DTYPE_SPLASH_CASES))
+            for dt in (torch.float16, torch.float32)}
+
+
+def zero_launches(counters):
+    """Every wrapper's launch counts to 0, over all types and per type."""
+    for c in counters:
+        c.launches = 0
+        c.launches_by_dtype = dict.fromkeys(c.launches_by_dtype, 0)
+
+
+def launches_by_dtype(counters):
+    """-> {kernel name: {type: launches}} of ``attention_counters()``'s
+    wrappers, the kernels and types that launched only."""
+    out = {}
+    for name, c in counters.items():
+        got = {t: n for t, n in c.launches_by_dtype.items() if n}
+        if got:
+            out[name] = got
+    return out
+
+
+def cast_tree(tree, dtype):
+    """A copy of a parameter tree with every leaf in ``dtype``."""
+    return {k: cast_tree(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items()}
 
 
 @contextlib.contextmanager
@@ -1178,6 +1323,93 @@ def serve_llama(dev, cfg, params):
     log("serve " + json.dumps(stats))
     check_prefill_logits(eng, cfg, prompts, dev)
     return stats, launches, outs
+
+
+def serve_llama_f16(dev, cfg, params, bf16_stats):
+    """Phase serve_llama3_8b_f16: the dense phase's 8 requests through
+    ``LLMEngine(compute_dtype=torch.float16)`` on Llama-3-8B at full size,
+    its weights the dense phase's random bf16 ones cast once to f16 (16 GB,
+    freed after the phase); only the buckets the requests use warmed, no
+    trace.  B1 launches in f16, once per layer for every prefill batch at
+    bucket >= 1024, and in no other type; one 8 x 2048 prefill batch's
+    last-token logits (every one finite) through B1 f16 against the same
+    batch through B1's plain version in f16, within the prefill limits;
+    TTFT p50, decode tok/s and one 8 x 2048 prefill's ms beside the bf16
+    dense phase's (its prefill timed here on the bf16 weights).  -> B1's
+    f16 launches."""
+    import torch
+    from ray_tpu_torch.models import decode as dec
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    f16 = torch.float16
+    t0 = time.perf_counter()
+    params16 = cast_tree(params, f16)
+    torch.cuda.synchronize()
+    log(f"llama3_8b params cast to f16: {time.perf_counter() - t0:.1f} s")
+    counters = attention_counters()
+    eng = LLMEngine(cfg, params16, device="cuda", num_slots=8,
+                    max_len=SERVE_MAX_LEN, compute_dtype=f16)
+    prompts = serving_prompts(cfg)
+    try:
+        warm(eng, cfg, (LONG_PROMPTS[0], SHORT_PROMPTS[0]))
+        batches_before = dict(eng.admit_batches_by_bucket)
+        torch.cuda.synchronize()
+        zero_launches(counters.values())
+        outs, reqs, stats = run_requests(eng, cfg, prompts)
+        launches = launches_by_dtype(counters)
+        long_batches = long_batches_since(eng, batches_before)
+    finally:
+        eng.shutdown()
+    want = {"flash_attention_fwd": {"f16": cfg.num_layers * long_batches}}
+    if long_batches < 1 or launches != want:
+        raise AssertionError(
+            f"f16 serving: launches {launches} for {long_batches} prefill "
+            f"batches at bucket >= 1024 ({cfg.num_layers} layers), want "
+            f"{want}")
+
+    def timed_prefill(tree, cache, dtype):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dec.prefill(tree, cache, toks, lengths, slots, cfg,
+                    compute_dtype=dtype)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    toks, lengths, slots = _prefill_batch(cfg, prompts, 8, dev)
+    with torch.inference_mode():
+        cache = dec.init_kv_cache(cfg, 8, SERVE_MAX_LEN, f16, dev)
+        _, kern = dec.prefill(params16, cache, toks, lengths, slots, cfg,
+                              compute_dtype=f16)
+        with patched(attention, "mha",
+                     lambda q, k, v, causal=True, logit_softcap=0.0:
+                     fa.flash_attention_reference(q, k, v, causal)[0]):
+            _, ref = dec.prefill(params16, cache, toks, lengths, slots, cfg,
+                                 compute_dtype=f16)
+        prefill_ms = {"f16": timed_prefill(params16, cache, f16)}
+        del cache
+        cache = dec.init_kv_cache(cfg, 8, SERVE_MAX_LEN, torch.bfloat16, dev)
+        timed_prefill(params, cache, torch.bfloat16)
+        prefill_ms["bf16"] = timed_prefill(params, cache, torch.bfloat16)
+        del cache
+    check = logits_check("f16 prefill 8 x 2048: B1 f16 against its plain "
+                         "version in f16", kern, ref)
+    row = {"compute_dtype": "f16", "long_prefill_batches": long_batches,
+           "launches_by_dtype": launches,
+           "ttft_ms_p50": {"f16": stats["ttft_ms_p50"],
+                           "bf16": bf16_stats["ttft_ms_p50"]},
+           "decode_tok_s": {"f16": stats["decode_tok_s"],
+                            "bf16": bf16_stats["decode_tok_s"]},
+           "prefill_8x2048_ms": prefill_ms,
+           "logits_finite": check["finite"],
+           "logits_max_abs_diff_share_of_std": check["max_abs_diff"]
+           / check["std"]}
+    log("serve_f16 " + json.dumps(row))
+    del params16, kern, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["flash_attention_fwd"]["f16"]
 
 
 def serving_replica():
@@ -1491,11 +1723,12 @@ def serve_llama_deployment(dev, cfg, prompts, in_stats, in_outs, runtime):
     return row
 
 
-def _prefill_batch(cfg, prompts, batch, dev, cycle=len(LONG_PROMPTS)):
-    """A bucket-2048 batch of the first ``cycle`` prompts, repeated."""
+def _prefill_batch(cfg, prompts, batch, dev, cycle=len(LONG_PROMPTS),
+                   bucket=2048):
+    """A batch at ``bucket`` of the first ``cycle`` prompts (all with
+    ``cycle`` 0), repeated."""
     import numpy as np
     import torch
-    bucket = 2048
     toks = np.zeros((batch, bucket), np.int32)
     lens = []
     for i in range(batch):
@@ -1868,7 +2101,10 @@ def spec_exact_f32(dev):
     width (f32 weights from seed 0, damped past the first block, f32
     compute), 4 greedy requests through the paged engine with and without
     speculative decoding.  The streams must be equal token for token, and
-    the spec engine's pages must pass ``rollback_kv_diff``."""
+    the spec engine's pages must pass ``rollback_kv_diff``.  Its line
+    carries each run's launches by kernel and type: the paged engine's
+    prefill attends with f32 einsums over the pages (as the reference's),
+    so only a dense prefill (the spec engine's draft's) can reach B1."""
     import numpy as np
     import torch
     from ray_tpu_torch.models import config as mcfg
@@ -1885,14 +2121,17 @@ def spec_exact_f32(dev):
                for n in EXACT_PROMPTS]
     kw = dict(device="cuda", num_slots=len(prompts), max_len=SERVE_MAX_LEN,
               paged=True, page_size=PAGE_SIZE, compute_dtype=torch.float32)
-    runs = {}
+    runs, launches = {}, {}
+    counters = attention_counters()
     for name, extra in (("vanilla", {}),
                         ("spec", dict(spec_decode_enabled=True, spec_k=4,
                                       spec_draft_layers=1))):
         eng = LLMEngine(cfg, params, **kw, **extra)
         try:
+            zero_launches(counters.values())
             runs[name] = (eng, *run_requests(eng, cfg, prompts,
                                              EXACT_MAX_TOKENS))
+            launches[name] = launches_by_dtype(counters)
         finally:
             eng.shutdown()
     eng, outs, reqs, _ = runs["spec"]
@@ -1904,7 +2143,8 @@ def spec_exact_f32(dev):
            "tokens_agreeing_before_divergence": [
                next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
                     len(x)) for x, y in zip(outs, outs_v)],
-           "decode_tok_s": {k: runs[k][3]["decode_tok_s"] for k in runs}}
+           "decode_tok_s": {k: runs[k][3]["decode_tok_s"] for k in runs},
+           "launches_by_dtype": launches}
     log("spec_exact_f32 " + json.dumps(row))
     if not (row["streams_equal"] and lens_ok and worst <= SPEC_KV_RTOL
             and sp["draft_errors"] == 0):
@@ -2039,11 +2279,20 @@ def tp_exact_f32(dev, devices):
     streams must equal tp=1's token for token (on a difference, the top-2
     logit gap of tp=1 at the first differing token is printed), and each
     shard's K/V at every request's positions must equal tp=1's at that
-    shard's KV heads within SPEC_KV_RTOL of the largest magnitude."""
+    shard's KV heads within SPEC_KV_RTOL of the largest magnitude.  The
+    dense engine's prefills at bucket 1024 run B1 in f32 (once per layer
+    and batch at tp=1, on both shards at tp=2), the paged engine's none
+    (its prefill attends with f32 einsums over the pages, as the
+    reference's); then one bucket-1024 prefill of the 4 prompts: its
+    last-token logits through B1 f32 against plain attention on the same
+    cut, within SPEC_KV_RTOL of the largest magnitude.  -> B1's f32
+    launches by run."""
     import numpy as np
     import torch
     from ray_tpu_torch.models import config as mcfg
+    from ray_tpu_torch.models import decode as dec
     from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.ops import attention
     from ray_tpu_torch.serve.llm import LLMEngine
 
     cfg = dataclasses.replace(mcfg.llama3_8b(), num_layers=2)
@@ -2052,6 +2301,8 @@ def tp_exact_f32(dev, devices):
     rng = np.random.default_rng(2)
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
                for n in EXACT_PROMPTS]
+    counters = attention_counters()
+    b1_f32 = {}
     for mode, kw in (("dense", {}),
                      ("paged", dict(paged=True, page_size=PAGE_SIZE))):
         runs = []
@@ -2061,16 +2312,32 @@ def tp_exact_f32(dev, devices):
                             compute_dtype=torch.float32, **kw,
                             **engine_kw(place))
             try:
+                zero_launches(counters.values())
                 outs, reqs, stats = run_requests(eng, cfg, prompts,
                                                  EXACT_MAX_TOKENS)
+                launches = launches_by_dtype(counters)
             finally:
                 eng.shutdown()
+            long_batches = long_batches_since(eng, {})
+            shards = 1 if place is None else len(devices)
+            want = ({"flash_attention_fwd": {
+                "f32": shards * cfg.num_layers * long_batches}}
+                if mode == "dense" and long_batches else {})
+            if launches != want:
+                raise AssertionError(
+                    f"f32 {mode} engine at tp={shards}: launches {launches} "
+                    f"for {long_batches} prefill batches at bucket >= 1024, "
+                    f"want {want}")
+            b1_f32[f"{mode}_tp{shards}"] = launches.get(
+                "flash_attention_fwd", {}).get("f32", 0)
             runs.append((eng, outs, reqs, stats))
         (one, outs_1, reqs_1, stats_1), (two, outs_2, reqs_2, stats_2) = runs
         row = {"mode": mode, "streams_equal": outs_2 == outs_1,
                "slots_equal": ([r.slot for r in reqs_1]
                                == [r.slot for r in reqs_2]),
                "kv_max_rel_diff_by_shard": tp_kv_diffs(one, two, reqs_1, dev),
+               "b1_f32_launches": {"tp1": b1_f32[f"{mode}_tp1"],
+                                   "tp2": b1_f32[f"{mode}_tp2"]},
                "decode_tok_s": {"tp1": stats_1["decode_tok_s"],
                                 "tp2": stats_2["decode_tok_s"]}}
         if not row["streams_equal"]:
@@ -2085,6 +2352,35 @@ def tp_exact_f32(dev, devices):
                 and max(row["kv_max_rel_diff_by_shard"]) <= SPEC_KV_RTOL):
             raise AssertionError(f"f32 tp=2 against tp=1: {row}")
         del runs, one, two
+    if not b1_f32["dense_tp1"]:
+        raise AssertionError(f"no f32 dense prefill reached B1: {b1_f32}")
+
+    toks, lengths, slots = _prefill_batch(cfg, prompts, len(prompts), dev,
+                                          cycle=0, bucket=1024)
+    with torch.inference_mode():
+        cache = dec.init_kv_cache(cfg, len(prompts), 1024, torch.float32,
+                                  dev)
+        zero_launches(counters.values())
+        _, kern = dec.prefill(params, cache, toks, lengths, slots, cfg,
+                              compute_dtype=torch.float32)
+        launches = launches_by_dtype(counters)
+        with patched(attention, "mha",
+                     lambda q, k, v, causal=True, logit_softcap=0.0:
+                     attention.attend(q, k, v, causal=causal)):
+            _, plain = dec.prefill(params, cache, toks, lengths, slots, cfg,
+                                   compute_dtype=torch.float32)
+    row = {"check": "f32 prefill 4 x 1024: B1 f32 against plain attention",
+           "launches_by_dtype": launches,
+           "max_abs_diff": (kern - plain).abs().max().item(),
+           "largest_magnitude": plain.abs().max().item(),
+           "finite": bool(torch.isfinite(kern).all())}
+    row["max_rel_diff"] = row["max_abs_diff"] / row["largest_magnitude"]
+    log("tp_exact_f32_prefill " + json.dumps(row))
+    if not (row["finite"] and row["max_rel_diff"] <= SPEC_KV_RTOL
+            and launches == {"flash_attention_fwd":
+                             {"f32": cfg.num_layers}}):
+        raise AssertionError(f"f32 prefill through B1: {row}")
+    return b1_f32
 
 
 def tp_kv_diffs(one, two, reqs, dev):
@@ -3733,23 +4029,103 @@ def train_llama_mesh(dev):
     return out
 
 
+def f32_step_vs_plain(cfg, batch, dev):
+    """One ``mesh=None`` f32 step from seed 0 (full remat) with attention
+    through B1-B3 in f32, against the same step with attention through
+    their plain versions (``plain_attention()``): loss, grad norm, and
+    every leaf of params, mu and nu after it (step 0's learning rate is 0,
+    so mu and nu carry the first gradient) within MESH_F32_RTOL
+    relative."""
+    import torch
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.parallel import (init_sharded_state, make_optimizer,
+                                        make_train_step)
+    counters = attention_counters()
+    runs = {}
+    for name, ctx in (("kernels", contextlib.nullcontext()),
+                      ("plain", patched(transformer, "mha",
+                                        plain_attention()))):
+        opt = make_optimizer(warmup_steps=2, total_steps=100)
+        state, _ = init_sharded_state(cfg, None, opt, seed=0)
+        step = make_train_step(cfg, None, opt, None,
+                               compute_dtype=torch.float32, remat=True)
+        zero_launches(counters.values())
+        with ctx:
+            state, m = step(state, batch)
+        runs[name] = (m["loss"].item(), m["grad_norm"].item(),
+                      {t: host_tree(tree, dev) for t, tree in (
+                          ("params", state.params),
+                          ("mu", state.opt_state["mu"]),
+                          ("nu", state.opt_state["nu"]))},
+                      launches_by_dtype(counters))
+        del state, step
+    (loss_k, norm_k, trees_k, launches), (loss_p, norm_p, trees_p, plain) = (
+        runs["kernels"], runs["plain"])
+    rel = {f"{t}.{path}": r for t in trees_k
+           for path, r in leaf_rel_l2(trees_k[t], trees_p[t], dev).items()}
+    want = {k: {"f32": n * cfg.num_layers}
+            for k, n in FLASH_PER_LAYER.items()}
+    row = {"check": "mesh=None f32 step: B1-B3 f32 against their plain "
+                    "versions", "layers": cfg.num_layers,
+           "loss": {"kernels": loss_k, "plain": loss_p},
+           "rel_loss_diff": abs(loss_k - loss_p) / abs(loss_p),
+           "rel_grad_norm_diff": abs(norm_k - norm_p) / norm_p,
+           "max_leaf_rel_l2": max(rel.values()),
+           "worst_leaf": max(rel, key=rel.get), "leaves": len(rel),
+           "launches_by_dtype": launches}
+    log("train_f32_step_vs_plain " + json.dumps(row))
+    if not (max(row["rel_loss_diff"], row["rel_grad_norm_diff"],
+                row["max_leaf_rel_l2"]) <= MESH_F32_RTOL
+            and launches == want and not plain):
+        raise AssertionError(f"f32 step through the kernels against the "
+                             f"plain versions (launches want {want}, plain "
+                             f"run {plain}): {row}")
+    return launches
+
+
 def mesh_f32_exactness(dev):
     """Phase train_f32_mesh_exactness: llama_1b's width in f32 compute
-    (plain attention; the ring's recurrence under sp), cut to
+    (B1-B3 in f32 on every shard and in ``mesh=None``; the ring's
+    recurrence under sp, whose kernel route takes bf16 only), cut to
     MESH_F32_LAYERS layers for the mesh step on dp=2,fsdp=2,tp=2 and to
     SP_PP_F32_LAYERS and SP_PP_F32_ROWS rows for each run of SP_PP_RUNS
     (the sp step and the pipeline), against ``mesh=None`` on the same
     cut and rows over MESH_F32_STEPS
     steps: loss and grad norm per step, and every leaf of params, mu and
-    nu (merged from stages), within MESH_F32_RTOL relative."""
+    nu (merged from stages), within MESH_F32_RTOL relative; first, one
+    ``mesh=None`` step through the kernels against the same step through
+    their plain versions (``f32_step_vs_plain``).  -> B1-B3's f32 launches
+    by run."""
     import torch
     from ray_tpu_torch.models import config as mcfg
+
+    counters = attention_counters()
+    f32_launches = {}
 
     def reference(layers, rows=TRAIN_BATCH):
         cfg = dataclasses.replace(mcfg.llama_1b(), num_layers=layers)
         batch = {k: v[:rows] for k, v in training_batch(cfg).items()}
-        return (cfg, batch, *one_device_reference(
+        zero_launches(counters.values())
+        out = (cfg, batch, *one_device_reference(
             cfg, batch, MESH_F32_STEPS, torch.float32, True, final=True))
+        launches = launches_by_dtype(counters)
+        want = {k: {"f32": n * layers * MESH_F32_STEPS}
+                for k, n in FLASH_PER_LAYER.items()}
+        log(f"train_f32 mesh=None reference ({layers} layers, {rows} rows) "
+            f"launches {json.dumps(launches)}")
+        if launches != want:
+            raise AssertionError(f"mesh=None f32 launches {launches}, want "
+                                 f"{want}")
+        f32_launches[f"mesh=None[{layers} layers]"] = {
+            k: v["f32"] for k, v in launches.items()}
+        return out
+
+    def f32_only(label, launches):
+        f32_launches[label] = {k: n for k, n in launches.items() if n}
+        got = launches_by_dtype(counters)
+        if any(set(d) - {"f32"} for d in got.values()):
+            raise AssertionError(f"{label}: a kernel in another type than "
+                                 f"f32: {got}")
 
     def check(label, stats, state, virtual):
         rel = {}
@@ -3774,22 +4150,31 @@ def mesh_f32_exactness(dev):
             raise AssertionError(f"f32 step against mesh=None: {row}")
 
     cfg, batch, ref_rows, ref_mu0, ref_last = reference(MESH_F32_LAYERS)
+    f32_launches["mesh=None step vs plain"] = {
+        k: v["f32"] for k, v in f32_step_vs_plain(cfg, batch, dev).items()}
     spec = LLAMA_MESHES[-1]
-    stats, _, state, _ = mesh_training(
-        cfg, spec, True, batch, MESH_F32_STEPS, torch.float32, {}, ref_rows,
-        ref_mu0)
+    stats, launches, state, _ = mesh_training(
+        cfg, spec, True, batch, MESH_F32_STEPS, torch.float32,
+        FLASH_PER_LAYER, ref_rows, ref_mu0)
+    f32_only(f"mesh[{mesh_label(spec)}]", launches)
     check(mesh_label(spec), stats, state, None)
     del state
     cfg, batch, ref_rows, ref_mu0, ref_last = reference(SP_PP_F32_LAYERS,
                                                         SP_PP_F32_ROWS)
     for label, spec, virtual in SP_PP_RUNS:
-        stats, _, state, _, _ = sp_pp_training(
+        # the ring's kernel route takes bf16 only: f32 under sp keeps the
+        # recurrence, as the reference's ring runs no kernel
+        per_layer = {} if virtual is None else SP_PP_PER_LAYER[label]
+        stats, launches, state, _, _ = sp_pp_training(
             cfg, label, spec, virtual, batch, MESH_F32_STEPS, torch.float32,
-            {}, ref_rows, ref_mu0)
+            per_layer, ref_rows, ref_mu0)
+        f32_only(f"sp_pp[{label}]", launches)
         check(label, stats, state, virtual)
         del state
         gc.collect()
         torch.cuda.empty_cache()
+    log("train_f32_launches " + json.dumps(f32_launches))
+    return f32_launches
 
 
 def train_mixtral_mesh(dev):
@@ -4231,7 +4616,8 @@ def dp_f32_exactness(devices):
     """An f32 cut of llama_1b to DP_F32_LAYERS layers at full width on
     dp=2: ZeRO against the default step over DP_F32_STEPS steps (warmup 2,
     so the params move): each step's loss, every param leaf, and the flat
-    mu and nu within DP_F32_RTOL relative."""
+    mu and nu within DP_F32_RTOL relative; each arm launches B1-B3 in f32,
+    2/1/1 per layer, step and replica.  -> each arm's launches."""
     import torch
     from ray_tpu_torch.models import config as mcfg
     from ray_tpu_torch.parallel import OptimizerSpec
@@ -4241,10 +4627,18 @@ def dp_f32_exactness(devices):
     mesh = MeshSpec(dp=DP, fsdp=1).build(devices)
     spec = OptimizerSpec(warmup_steps=2, total_steps=100)
     batch = training_batch(cfg)
-    runs = {}
+    runs, f32_launches = {}, {}
+    counters = attention_counters()
     for name, zero in (("off", False), ("zero", True)):
-        stats, _, state, _, _ = dp_arm(cfg, mesh, spec, False, zero, batch,
-                                       DP_F32_STEPS, torch.float32)
+        zero_launches(counters.values())
+        stats, launches, state, _, _ = dp_arm(
+            cfg, mesh, spec, False, zero, batch, DP_F32_STEPS, torch.float32)
+        want = {k: {"f32": n * cfg.num_layers * DP * DP_F32_STEPS}
+                for k, n in FLASH_PER_LAYER.items()}
+        if launches_by_dtype(counters) != want:
+            raise AssertionError(f"f32 dp arm {name}: launches "
+                                 f"{launches_by_dtype(counters)}, want {want}")
+        f32_launches[f"dp[{name}]"] = {k: n for k, n in launches.items() if n}
         moments = {}
         for k in ("mu", "nu"):
             m = state.opt_state[k]
@@ -4263,11 +4657,13 @@ def dp_f32_exactness(devices):
                                for a, b in zip(l_zero, l_off)),
            "max_leaf_rel_l2": max(rel.values()),
            "worst_leaf": max(rel, key=rel.get), "leaves": len(rel)}
+    row["launches"] = f32_launches
     log("train_f32_dp_exactness " + json.dumps(row))
     if not (row["max_rel_loss"] <= DP_F32_RTOL
             and row["max_leaf_rel_l2"] <= DP_F32_RTOL):
         raise AssertionError(f"f32 ZeRO step against the default step: "
                              f"{row}")
+    return f32_launches
 
 
 def train_llama_dp(dev):
@@ -4287,7 +4683,8 @@ def train_llama_dp(dev):
     per layer, step and replica.  The resident state after init against
     the arithmetic (ZeRO holds 2 n 4 (dp - 1) bytes fewer); one step
     profiled per arm; quantization on the card against the host; then the
-    f32 2-layer cut (``dp_f32_exactness``)."""
+    f32 2-layer cut (``dp_f32_exactness``).  -> ({arm: (stats, launches)},
+    the f32 cut's launches by arm)."""
     import numpy as np
     import torch
     from ray_tpu_torch.models import config as mcfg
@@ -4396,8 +4793,7 @@ def train_llama_dp(dev):
            for s in saved.values()):
         raise AssertionError(f"ZeRO's resident state against the "
                              f"arithmetic: {saved}, expect {expect}")
-    dp_f32_exactness(devices)
-    return out
+    return out, dp_f32_exactness(devices)
 
 
 # ---------------------------------------------------------------------------
@@ -5455,6 +5851,78 @@ def rllib_learner_actors(dev):
         raise AssertionError("rllib_learner_actors: " + "; ".join(failures))
 
 
+def dtype_kernel_rows(dtype_rows, f16_launches, tp_f32, mesh_f32):
+    """The ``kernels`` line's rows of B1-B4 in f16 and f32: each kernel's
+    numbers at its main shape in phase ``attention_kernels_f16_f32`` (f32
+    with the 3xTF32 bound beside its own), and its launches by path: B1
+    f16 in ``serve_llama3_8b_f16``; B1 f32 in ``serve_f32_tp_exactness``'s
+    dense runs, B1-B3 f32 in ``train_f32_mesh_exactness``'s runs.  B2/B3
+    in f16 and B4 in f16 and f32 run on no path of the script: the kernel
+    phase alone holds them."""
+    def paths(kernel, tag):
+        if tag == "f16":
+            return ({"serve_f16": f16_launches}
+                    if kernel == "flash_attention_fwd" else {})
+        out = ({f"serve_f32_tp:{run}": n for run, n in tp_f32.items() if n}
+               if kernel == "flash_attention_fwd" else {})
+        out.update({f"train_f32:{run}": ls[kernel]
+                    for run, ls in mesh_f32.items() if ls.get(kernel)})
+        return out
+
+    rows = []
+    for tag, (fwd_rows, bwd_rows, splash_rows) in dtype_rows.items():
+        main_fwd, main_bwd = fwd_rows[0], bwd_rows[0]
+        plain_row, cap_row = splash_rows[0], splash_rows[1]
+        specs = [("flash_attention_fwd", "fwd", "flash_attention.py:42",
+                  main_fwd, "", "library_ms",
+                  [r["max_abs_err"] for r in fwd_rows]),
+                 ("flash_attention_bwd_dq", "bwd", "flash_attention.py:201",
+                  main_bwd, "dq_", "sdpa_bwd_ms",
+                  [r["dq_max_abs_err"] for r in bwd_rows]),
+                 ("flash_attention_bwd_dkv", "bwd_dkv",
+                  "flash_attention.py:248", main_bwd, "dkv_", "sdpa_bwd_ms",
+                  [r["dkv_max_abs_err"] for r in bwd_rows])]
+        for name, key, source in (("fwd", "fwd", "fwd"),
+                                  ("bwd_dq", "dq", "bwd"),
+                                  ("bwd_dkv", "dkv", "bwd_dkv")):
+            errs = [r[e] for r in splash_rows for e in (
+                ("max_abs_err",) if key == "fwd" else
+                ("dq_max_abs_err",) if key == "dq" else
+                ("dk_max_abs_err", "dv_max_abs_err"))]
+            specs.append((f"splash_attention_{name}", source,
+                          "splash_attention.py:87", plain_row, f"{key}_",
+                          "sdpa_fwd_ms" if key == "fwd" else "sdpa_bwd_ms",
+                          errs))
+        for name, source, replaces, row, pre, library, errs in specs:
+            by_path = paths(name, tag)
+            out = {"name": f"{name}_{tag}", "dtype": tag, "route": "cuda",
+                   "source": f"ray_tpu_torch/csrc/flash_attention_{source}.cu",
+                   "replaces": f"ray_tpu/ops/{replaces}",
+                   "design": HOPPER_DESIGN if tag == "f16" else "simt-ffma",
+                   "launches": sum(by_path.values()),
+                   "launches_by_path": by_path,
+                   "max_abs_err": max(errs),
+                   "ms": row[f"{pre}ms"], "plain_ms": row[f"{pre}plain_ms"],
+                   "bound_ms": row[f"{pre}bound_ms"],
+                   "bound_by": row[f"{pre}bound_by"],
+                   "library_ms": row[library], "shape": row["shape"]}
+            if tag == "f32":
+                out["bound_3xtf32_ms"] = row[f"{pre}bound_3xtf32_ms"]
+            if not by_path:
+                out["path"] = "kernel phase only"
+            if name.startswith("splash"):
+                cap = {"ms": cap_row[f"{pre}ms"],
+                       "plain_ms": cap_row[f"{pre}plain_ms"],
+                       "bound_ms": cap_row[f"{pre}bound_ms"],
+                       "bound_by": cap_row[f"{pre}bound_by"],
+                       "library_ms": None}
+                if tag == "f32":
+                    cap["bound_3xtf32_ms"] = cap_row[f"{pre}bound_3xtf32_ms"]
+                out["softcap_50"] = cap
+            rows.append(out)
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5507,6 +5975,8 @@ def main() -> int:
         flash_rows = check_flash(dev)
     with phase("flash_backward_kernels"):
         bwd_rows = check_flash_bwd(dev)
+    with phase("attention_kernels_f16_f32"):
+        dtype_rows = check_kernel_dtypes(dev, clock_hz)
     from ray_tpu_torch.models import config as mcfg
     serve_cfg = mcfg.llama3_8b()
     serve_params = serving_params("llama3_8b", serve_cfg, dev)
@@ -5525,6 +5995,9 @@ def main() -> int:
     with phase("serve_llama3_8b_paged_spec"):
         _, spec_launches = serve_llama_paged_spec(dev, serve_cfg,
                                                   serve_params)
+    with phase("serve_llama3_8b_f16"):
+        f16_launches = serve_llama_f16(dev, serve_cfg, serve_params,
+                                       serve_stats)
     tp_devices = tp_placement()
     tp_cfg, tp_params = layer_cut(serve_cfg, serve_params, TP_SERVE_LAYERS)
     with phase("serve_llama3_8b_tp2"):
@@ -5537,7 +6010,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     with phase("serve_f32_tp_exactness"):
-        tp_exact_f32(dev, tp_devices)
+        tp_f32 = tp_exact_f32(dev, tp_devices)
     gc.collect()
     torch.cuda.empty_cache()
     with phase("moe_layer"):
@@ -5587,7 +6060,7 @@ def main() -> int:
     # exactness phase runs, which times no kernel
     tuner_runtime = start_tuner_runtime()
     with phase("train_f32_mesh_exactness"):
-        mesh_f32_exactness(dev)
+        mesh_f32 = mesh_f32_exactness(dev)
     with phase("tuner_runtime_warm"):
         tuner_runtime = (tuner_runtime, rl_warm_wait())
     with phase("train_llama_1b_tuner"):
@@ -5608,7 +6081,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     with phase("train_llama_1b_dp"):
-        llama_dp = train_llama_dp(dev)
+        llama_dp, dp_f32 = train_llama_dp(dev)
     gc.collect()
     torch.cuda.empty_cache()
     with phase("train_llama_1b_sp_pp"):
@@ -5648,6 +6121,7 @@ def main() -> int:
             ("max_abs_err", f"{name}_max_abs_err")]
     kernels = [{
         "name": "flash_attention_fwd",
+        "dtype": "bf16",
         "route": "cuda",
         "source": "ray_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:42",
@@ -5689,6 +6163,7 @@ def main() -> int:
                              "library_ms", "max_abs_err")]),
     }, {
         "name": "flash_attention_bwd_dq",
+        "dtype": "bf16",
         "route": "cuda",
         "source": "ray_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:201",
@@ -5712,6 +6187,7 @@ def main() -> int:
         "mesh_shard_shapes": shard_rows(bwd_rows, bwd_keys("dq")),
     }, {
         "name": "flash_attention_bwd_dkv",
+        "dtype": "bf16",
         "route": "cuda",
         "source": "ray_tpu_torch/csrc/flash_attention_bwd_dkv.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:248",
@@ -5746,6 +6222,7 @@ def main() -> int:
         library = "sdpa_fwd_ms" if key == "fwd" else "sdpa_bwd_ms"
         kernels.append({
             "name": f"splash_attention_{name}",
+            "dtype": "bf16",
             "route": "cuda",
             "source": f"ray_tpu_torch/csrc/flash_attention_{source}.cu",
             "replaces": "ray_tpu/ops/splash_attention.py:87",
@@ -5764,6 +6241,8 @@ def main() -> int:
                            "bound_by": cap_row[f"{key}_bound_by"],
                            "library_ms": None},
         })
+    kernels += dtype_kernel_rows(dtype_rows, f16_launches, tp_f32,
+                                 {**mesh_f32, **dp_f32})
     log(f"card: {card}")
     log("phases " + json.dumps({"seconds": PHASE_S,
                                 "total_s": time.perf_counter() - T_START}))

@@ -1,6 +1,8 @@
 // Flash-attention backward, dq, for Hopper (sm_90a): kernel B2 and the dq of
-// the splash kernel B4; bf16 in, bf16 out, f32 accumulation.  (dk and dv,
-// kernel B3 and B4's dk/dv, are flash_attention_bwd_dkv.cu.)
+// the splash kernel B4; dq in the input type, f32 accumulation; bf16 and
+// f16 through the wgmma body below (templated on the 16-bit type T), f32
+// through a body of its own on the CUDA cores at the end of this file.
+// (dk and dv, kernel B3 and B4's dk/dv, are flash_attention_bwd_dkv.cu.)
 //
 // B2 replaces the Pallas TPU kernel `_bwd_dq_kernel` driven by
 // `_flash_bwd_pallas` in ray_tpu/ops/flash_attention.py.  It computes the
@@ -9,7 +11,7 @@
 // P = exp(-1e30 - lse) = 0), P = exp(S - lse) recomputed from the forward's
 // natural-log lse, dP = dO V^T, Delta = rowsum(dO * O) (computed by the
 // caller in f32) and dS = P * (dP - Delta) * scale: dq = dS K.  dS is cast
-// to bf16 before dS K, as the TPU kernel casts it to the input dtype; every
+// to T before dS K, as the TPU kernel casts it to the input dtype; every
 // sum is f32.
 //
 // B4's dq replaces `_flash_attention_dq_kernel` of jax's
@@ -52,7 +54,7 @@
 // * all three products are `wgmma`, each warpgroup on its 64 q rows:
 //   S = Q.K^T and dP = dO.V^T (m64n64k16, both operands K-major in
 //   128-byte-swizzled shared memory) and dQ += dS.K (m64nDk16, A from
-//   registers: the S accumulators turned into dS and packed to bf16 are the
+//   registers: the S accumulators turned into dS and packed to T are the
 //   A fragment, the forward's P trick; B the same K stage read MN-major,
 //   transpose bit set).  K is read twice from one shared tile, with no
 //   transposed copy anywhere;
@@ -77,7 +79,7 @@
 //   the q heads of a GQA group next to each other so that the K/V stages
 //   they share hit L2; a tile's first K/V stages load while the previous
 //   tile's epilogue runs;
-// * the epilogue writes dq in bf16 into the warpgroup's own Q rows of
+// * the epilogue writes dq in T into the warpgroup's own Q rows of
 //   shared memory, in the swizzled layout, and TMA stores copy it out (rows
 //   past S are dropped by the map).
 // One block owns each dq tile and sums in a fixed order (the K/V stages),
@@ -95,6 +97,7 @@
 // nonzero multiple of 8 elements, every base pointer 16-byte aligned); lse
 // and Delta are contiguous [B, H, S] f32.
 
+#include "attention_f32.cuh"
 #include "hopper_common.cuh"
 
 namespace {
@@ -188,11 +191,11 @@ __device__ __forceinline__ int run_stages(const Params& p, const Tile& tile,
 // one tile into the next: a tile's first stages go out before its Q and dO,
 // whose buffers free only when the consumers have stored the previous
 // tile's dq from them.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void produce(
     const Params& p, const CUtensorMap* tq, const CUtensorMap* tk,
-    const CUtensorMap* tv, const CUtensorMap* tg, __nv_bfloat16* sQ,
-    __nv_bfloat16* sG, __nv_bfloat16* sK, __nv_bfloat16* sV, Barriers& bar) {
+    const CUtensorMap* tv, const CUtensorMap* tg, T* sQ,
+    T* sG, T* sK, T* sV, Barriers& bar) {
   using C = Cfg<D>;
   const int reps = p.heads / p.kv_heads;
   int it = 0;  // K/V stage uses so far
@@ -268,11 +271,11 @@ __device__ __forceinline__ void grads_tile(float (&s)[32],
 // software-pipelined: iteration j issues S_j and dP_j and then
 // dQ += dS_{j-1}.K_{j-1}, computes dS_j while the tensor cores work on
 // that product, and packs dS_j once it has landed, releasing stage j - 1.
-template <int D, bool kCap>
+template <typename T, int D, bool kCap>
 __device__ __forceinline__ void consume(
-    const Params& p, const CUtensorMap* tdq, __nv_bfloat16* sQ,
-    const __nv_bfloat16* sG, const __nv_bfloat16* sK,
-    const __nv_bfloat16* sV, Barriers& bar, int wg) {
+    const Params& p, const CUtensorMap* tdq, T* sQ,
+    const T* sG, const T* sK,
+    const T* sV, Barriers& bar, int wg) {
   using C = Cfg<D>;
   constexpr int kM = C::kBlockM;
   constexpr int DN = C::kCols;
@@ -298,14 +301,14 @@ __device__ __forceinline__ void consume(
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t col = (kk % 4) * 32;
-      wgmma_ss<64>(s, sw128_desc(q_base + (kk / 4) * kM * 128 + col, 16, 1024),
+      wgmma_ss<T, 64>(s, sw128_desc(q_base + (kk / 4) * kM * 128 + col, 16, 1024),
                    sw128_desc(k_base + (kk / 4) * kBlockN * 128 + col, 16, 1024),
                    kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t col = (kk % 4) * 32;
-      wgmma_ss<64>(dp, sw128_desc(g_base + (kk / 4) * kM * 128 + col, 16, 1024),
+      wgmma_ss<T, 64>(dp, sw128_desc(g_base + (kk / 4) * kM * 128 + col, 16, 1024),
                    sw128_desc(v_base + (kk / 4) * kBlockN * 128 + col, 16, 1024),
                    kk > 0);
     }
@@ -318,19 +321,19 @@ __device__ __forceinline__ void consume(
         smem_u32(sK + st * C::kKVElems) + (dc / 64) * kBlockN * 128;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      wgmma_rs<DN>(acc, pa[kk],
+      wgmma_rs<T, DN>(acc, pa[kk],
                    sw128_desc(k_cols + kk * 16 * 128, kBlockN * 128, 1024));
     }
     wgmma_commit();
   };
-  // the dS values of kv columns [16kk, 16kk + 16), packed to bf16, are the
+  // the dS values of kv columns [16kk, 16kk + 16), packed to T, are the
   // A fragment of k-step kk
   auto pack_ds = [&]() {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+        pa[kk][i] = pack2<T>(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
       }
     }
   };
@@ -410,7 +413,7 @@ __device__ __forceinline__ void consume(
     }
     it += tile.n_kv;
 
-    // Epilogue: dq in bf16 into this warpgroup's Q rows, read no more, in
+    // Epilogue: dq in T into this warpgroup's Q rows, read no more, in
     // the layout the dq map's 128-byte swizzle expects (16-byte group n % 8
     // of a row at (n % 8) ^ (row % 8), row % 8 == g); at D = 256 the other
     // warpgroup reads the same rows until it is done.
@@ -425,7 +428,7 @@ __device__ __forceinline__ void consume(
           const int off = ((dc + 8 * c) / 64) * kM * 128 + (trow + 8 * r) * 128 +
                           (((c % 8) ^ g) << 4) + tig * 4;
           *reinterpret_cast<uint32_t*>(q_bytes + off) =
-              pack_bf16(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
+              pack2<T>(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
         }
       }
     }
@@ -446,7 +449,7 @@ __device__ __forceinline__ void consume(
 }
 
 // The body of both kernels; kCap applies the logit softcap.
-template <int D, bool kCap>
+template <typename T, int D, bool kCap>
 __device__ __forceinline__ void dq_body(const Params& p,
                                         const CUtensorMap* tq,
                                         const CUtensorMap* tk,
@@ -457,11 +460,11 @@ __device__ __forceinline__ void dq_body(const Params& p,
   extern __shared__ unsigned char smem_raw[];
   __shared__ Barriers bar;
   // 128-byte swizzled tiles start on 1024-byte boundaries
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(
+  T* sQ = reinterpret_cast<T*>(
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
-  __nv_bfloat16* sG = sQ + C::kQElems;
-  __nv_bfloat16* sK = sG + C::kQElems;
-  __nv_bfloat16* sV = sK + C::kStages * C::kKVElems;
+  T* sG = sQ + C::kQElems;
+  T* sK = sG + C::kQElems;
+  T* sV = sK + C::kStages * C::kKVElems;
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -483,11 +486,11 @@ __device__ __forceinline__ void dq_body(const Params& p,
   if (wg == kConsumers / kWarpgroupThreads) {
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == kConsumers) {
-      produce<D>(p, tq, tk, tv, tg, sQ, sG, sK, sV, bar);
+      produce<T, D>(p, tq, tk, tv, tg, sQ, sG, sK, sV, bar);
     }
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    consume<D, kCap>(p, tdq, sQ, sG, sK, sV, bar, wg);
+    consume<T, D, kCap>(p, tdq, sQ, sG, sK, sV, bar, wg);
   }
 }
 
@@ -499,16 +502,16 @@ __device__ __forceinline__ void dq_body(const Params& p,
       const __grid_constant__ CUtensorMap tdq
 
 // B2 and B4's dq: the same body under their own names.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel(const Params p, DQ_MAPS) {
-  dq_body<D, false>(p, &tq, &tk, &tv, &tg, &tdq);
+  dq_body<T, D, false>(p, &tq, &tk, &tv, &tg, &tdq);
 }
 
-template <int D, bool kCap>
+template <typename T, int D, bool kCap>
 __global__ void __launch_bounds__(kThreads, 1)
     splash_bwd_dq_kernel(const Params p, DQ_MAPS) {
-  dq_body<D, kCap>(p, &tq, &tk, &tv, &tg, &tdq);
+  dq_body<T, D, kCap>(p, &tq, &tk, &tv, &tg, &tdq);
 }
 
 #undef DQ_MAPS
@@ -524,7 +527,7 @@ struct Tensors {
   long long qs[3], ks[3], vs[3], gs[3], dqs[3];
 };
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch(Kernel kernel, Params p, const Tensors& x, int batch,
                    cudaStream_t stream) {
   using C = Cfg<D>;
@@ -533,15 +536,15 @@ cudaError_t launch(Kernel kernel, Params p, const Tensors& x, int batch,
   CUtensorMap tq, tk, tv, tg, tdq;
   const int s = p.seq;
   cudaError_t err;
-  if ((err = make_bshd_map(&tq, x.q, batch, s, p.heads, D, x.qs[0], x.qs[1],
+  if ((err = make_bshd_map<T>(&tq, x.q, batch, s, p.heads, D, x.qs[0], x.qs[1],
                            x.qs[2], C::kBlockM)) != cudaSuccess ||
-      (err = make_bshd_map(&tg, x.g, batch, s, p.heads, D, x.gs[0], x.gs[1],
+      (err = make_bshd_map<T>(&tg, x.g, batch, s, p.heads, D, x.gs[0], x.gs[1],
                            x.gs[2], C::kBlockM)) != cudaSuccess ||
-      (err = make_bshd_map(&tk, x.k, batch, s, p.kv_heads, D, x.ks[0],
+      (err = make_bshd_map<T>(&tk, x.k, batch, s, p.kv_heads, D, x.ks[0],
                            x.ks[1], x.ks[2], kBlockN)) != cudaSuccess ||
-      (err = make_bshd_map(&tv, x.v, batch, s, p.kv_heads, D, x.vs[0],
+      (err = make_bshd_map<T>(&tv, x.v, batch, s, p.kv_heads, D, x.vs[0],
                            x.vs[1], x.vs[2], kBlockN)) != cudaSuccess ||
-      (err = make_bshd_map(&tdq, x.dq, batch, s, p.heads, D, x.dqs[0],
+      (err = make_bshd_map<T>(&tdq, x.dq, batch, s, p.heads, D, x.dqs[0],
                            x.dqs[1], x.dqs[2], 64)) != cudaSuccess) {
     return err;
   }
@@ -594,48 +597,166 @@ Tensors make_tensors(const void* q, const void* k, const void* v,
   return x;
 }
 
-}  // namespace
+// ------------------------------------------------------------------ f32
 
-extern "C" {
-
-// Every entry point returns a cudaError_t as int: 0 when the launch was
-// accepted.  Strides are element strides (batch, sequence, head).
-
-// B2.
-int flash_attention_bwd_dq_bf16(
-    int device, const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, int batch, int seq,
-    int heads, int kv_heads, int head_dim, long long q_sb, long long q_ss,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh, long long g_sb,
-    long long g_ss, long long g_sh, long long dq_sb, long long dq_ss,
-    long long dq_sh, int causal, float scale, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long qs[3] = {q_sb, q_ss, q_sh}, ks[3] = {k_sb, k_ss, k_sh};
-  const long long vs[3] = {v_sb, v_ss, v_sh}, gs[3] = {g_sb, g_ss, g_sh};
-  const long long dqs[3] = {dq_sb, dq_ss, dq_sh};
-  const Params p = make_params(lse, delta, seq, heads, kv_heads, causal,
-                               scale, 0.f);
-  const Tensors x = make_tensors(q, k, v, dout, dq, qs, ks, vs, gs, dqs);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 64: return static_cast<int>(launch<64>(flash_bwd_dq_kernel<64>, p, x, batch, s));
-    case 128: return static_cast<int>(launch<128>(flash_bwd_dq_kernel<128>, p, x, batch, s));
-    case 256: return static_cast<int>(launch<256>(flash_bwd_dq_kernel<256>, p, x, batch, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// The f32 body of B2 and of B4's dq (attention_f32.cuh): block
+// (h + heads * b, y) takes q tile n_qt - 1 - y of (head h, batch b) with
+// its Q and dO, and walks the K/V tiles up to its diagonal: S = Q.K^T and
+// dP = dO.V^T as register micro-tiles, P = exp(S - lse) (0 where masked or
+// past S), dS = P (dP - Delta) (times 1 - t^2 with the cap) times scale
+// through shared memory into dq += dS.K, as the reference computes them.
+template <int D, bool kCap>
+__device__ __forceinline__ void dq_f32_body(const Params& p,
+                                            const Tensors& x) {
+  using C = simt::Tiles<D>;
+  constexpr int kT = C::kT, R = C::kRI, G = C::kG;
+  extern __shared__ float4 smem_f4[];
+  float* sQ = reinterpret_cast<float*>(smem_f4);
+  float* sG = sQ + C::kTile;
+  float* sK = sG + C::kTile;
+  float* sV = sK + C::kTile;
+  float* sS = sV + C::kTile;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int h = blockIdx.x % p.heads, b = blockIdx.x / p.heads;
+  const int kvh = h / (p.heads / p.kv_heads);
+  const int n_qt = (p.seq + kT - 1) / kT;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.y);
+  const int q0 = qt * kT;
+  simt::load_tile<D>(sQ, static_cast<const float*>(x.q), x.qs, b, h, q0,
+                     p.seq);
+  simt::load_tile<D>(sG, static_cast<const float*>(x.g), x.gs, b, h, q0,
+                     p.seq);
+  // lse and Delta of this thread's rows; rows past S read nothing (their Q
+  // and dO rows are zeros, so their dS is 0, and they are not stored)
+  float lse[R], dlt[R], acc[R][G][4];
+  const long long stat0 = (static_cast<long long>(b) * p.heads + h) * p.seq;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ty + 16 * i;
+    lse[i] = row < p.seq ? p.lse[stat0 + row] : 0.f;
+    dlt[i] = row < p.seq ? p.delta[stat0 + row] : 0.f;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.f;
+    }
   }
+  const int n_kv = p.causal ? qt + 1 : n_qt;
+  for (int j = 0; j < n_kv; ++j) {
+    const int k0 = j * kT;
+    __syncthreads();  // the previous tile's K and dS are read no more
+    simt::load_tile<D>(sK, static_cast<const float*>(x.k), x.ks, b, kvh, k0,
+                       p.seq);
+    simt::load_tile<D>(sV, static_cast<const float*>(x.v), x.vs, b, kvh, k0,
+                       p.seq);
+    __syncthreads();
+    float s[R][R], dp[R][R];
+    simt::products_abt<D>(s, sQ, sK, ty, tx);
+    simt::products_abt<D>(dp, sG, sV, ty, tx);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = q0 + ty + 16 * i;
+#pragma unroll
+      for (int c = 0; c < R; ++c) {
+        const int kpos = k0 + tx + 16 * c;
+        float dcap;
+        float z = simt::capped<kCap>(s[i][c] * p.scale, p.softcap, dcap);
+        if (p.causal && row < kpos) z = kNegInf;
+        float pr = expf(z - lse[i]);
+        if (kpos >= p.seq) pr = 0.f;  // past the ragged edge: no column
+        float ds = pr * (dp[i][c] - dlt[i]);
+        if constexpr (kCap) ds *= dcap;
+        sS[(ty + 16 * i) * C::kLDP + tx + 16 * c] = ds * p.scale;
+      }
+    }
+    __syncthreads();
+    simt::products_pb<D>(acc, sS, sK, ty, tx);
+  }
+  simt::store_rows<D>(static_cast<float*>(x.dq), x.dqs, acc, b, h, q0,
+                      p.seq, ty, tx);
 }
 
-// B4 (splash) dq: B2's arguments plus the softcap (0 turns the cap off).
-int splash_attention_bwd_dq_bf16(
-    int device, const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, int batch, int seq,
-    int heads, int kv_heads, int head_dim, long long q_sb, long long q_ss,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh, long long g_sb,
-    long long g_ss, long long g_sh, long long dq_sb, long long dq_ss,
-    long long dq_sh, int causal, float scale, float softcap, void* stream) {
+template <int D>
+__global__ void __launch_bounds__(simt::kThreads)
+    flash_bwd_dq_f32_kernel(const Params p, const Tensors x) {
+  dq_f32_body<D, false>(p, x);
+}
+
+template <int D, bool kCap>
+__global__ void __launch_bounds__(simt::kThreads)
+    splash_bwd_dq_f32_kernel(const Params p, const Tensors x) {
+  dq_f32_body<D, kCap>(p, x);
+}
+
+using F32Kernel = void (*)(const Params, const Tensors);
+
+template <int D>
+cudaError_t launch_f32(F32Kernel kernel, Params p, const Tensors& x,
+                       int batch, cudaStream_t stream) {
+  using C = simt::Tiles<D>;
+  p.batch = batch;
+  const int smem = static_cast<int>((4 * C::kTile + C::kSquare) *
+                                    sizeof(float));
+  cudaError_t err = simt::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.heads * batch, (p.seq + C::kT - 1) / C::kT);
+  kernel<<<grid, simt::kThreads, smem, stream>>>(p, x);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------- dispatch
+
+// B2 (flash's kernel names) or B4's dq (splash's) in element type T:
+// __nv_bfloat16 or __half run the wgmma body, float the f32 one.
+template <typename T>
+cudaError_t backward_dq(const Params& p, const Tensors& x, int batch,
+                        int head_dim, bool splash, cudaStream_t s) {
+  const bool cap = p.softcap > 0.f;
+  if constexpr (std::is_same<T, float>::value) {
+    switch (head_dim) {
+      case 64:
+        if (!splash) return launch_f32<64>(flash_bwd_dq_f32_kernel<64>, p, x, batch, s);
+        break;
+      case 128:
+        return launch_f32<128>(!splash ? flash_bwd_dq_f32_kernel<128>
+                               : cap ? splash_bwd_dq_f32_kernel<128, true>
+                                     : splash_bwd_dq_f32_kernel<128, false>,
+                               p, x, batch, s);
+      case 256:
+        return launch_f32<256>(!splash ? flash_bwd_dq_f32_kernel<256>
+                               : cap ? splash_bwd_dq_f32_kernel<256, true>
+                                     : splash_bwd_dq_f32_kernel<256, false>,
+                               p, x, batch, s);
+    }
+  } else {
+    switch (head_dim) {
+      case 64:
+        if (!splash) return launch<T, 64>(flash_bwd_dq_kernel<T, 64>, p, x, batch, s);
+        break;
+      case 128:
+        return launch<T, 128>(!splash ? flash_bwd_dq_kernel<T, 128>
+                              : cap ? splash_bwd_dq_kernel<T, 128, true>
+                                    : splash_bwd_dq_kernel<T, 128, false>,
+                              p, x, batch, s);
+      case 256:
+        return launch<T, 256>(!splash ? flash_bwd_dq_kernel<T, 256>
+                              : cap ? splash_bwd_dq_kernel<T, 256, true>
+                                    : splash_bwd_dq_kernel<T, 256, false>,
+                              p, x, batch, s);
+    }
+  }
+  return cudaErrorInvalidValue;  // no instantiation for this head dim
+}
+
+template <typename T>
+int entry(int device, const void* q, const void* k, const void* v,
+          const void* dout, const void* lse, const void* delta, void* dq,
+          int batch, int seq, int heads, int kv_heads, int head_dim,
+          long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+          long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+          long long v_sh, long long g_sb, long long g_ss, long long g_sh,
+          long long dq_sb, long long dq_ss, long long dq_sh, int causal,
+          float scale, float softcap, bool splash, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long qs[3] = {q_sb, q_ss, q_sh}, ks[3] = {k_sb, k_ss, k_sh};
@@ -644,20 +765,49 @@ int splash_attention_bwd_dq_bf16(
   const Params p = make_params(lse, delta, seq, heads, kv_heads, causal,
                                scale, softcap);
   const Tensors x = make_tensors(q, k, v, dout, dq, qs, ks, vs, gs, dqs);
-  const bool cap = softcap > 0.f;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 128:
-      return static_cast<int>(
-          cap ? launch<128>(splash_bwd_dq_kernel<128, true>, p, x, batch, s)
-              : launch<128>(splash_bwd_dq_kernel<128, false>, p, x, batch, s));
-    case 256:
-      return static_cast<int>(
-          cap ? launch<256>(splash_bwd_dq_kernel<256, true>, p, x, batch, s)
-              : launch<256>(splash_bwd_dq_kernel<256, false>, p, x, batch, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(backward_dq<T>(p, x, batch, head_dim, splash,
+                                         static_cast<cudaStream_t>(stream)));
 }
+
+}  // namespace
+
+extern "C" {
+
+// Every entry point returns a cudaError_t as int: 0 when the launch was
+// accepted.  Strides are element strides (batch, sequence, head).  The
+// suffix names the element type of q, k, v, dO and dq: bf16, f16 or f32.
+
+#define DQ_ARGS                                                             \
+  int device, const void *q, const void *k, const void *v,                 \
+      const void *dout, const void *lse, const void *delta, void *dq,      \
+      int batch, int seq, int heads, int kv_heads, int head_dim,           \
+      long long q_sb, long long q_ss, long long q_sh, long long k_sb,      \
+      long long k_ss, long long k_sh, long long v_sb, long long v_ss,      \
+      long long v_sh, long long g_sb, long long g_ss, long long g_sh,      \
+      long long dq_sb, long long dq_ss, long long dq_sh, int causal,       \
+      float scale
+#define DQ_PASS                                                             \
+  device, q, k, v, dout, lse, delta, dq, batch, seq, heads, kv_heads,      \
+      head_dim, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,      \
+      g_sb, g_ss, g_sh, dq_sb, dq_ss, dq_sh, causal, scale
+
+// B2, and B4's dq: B2's arguments plus the softcap (0 turns the cap off).
+#define DQ_ENTRIES(SUFFIX, T)                                               \
+  int flash_attention_bwd_dq_##SUFFIX(DQ_ARGS, void* stream) {             \
+    return entry<T>(DQ_PASS, 0.f, false, stream);                           \
+  }                                                                         \
+  int splash_attention_bwd_dq_##SUFFIX(DQ_ARGS, float softcap,              \
+                                       void* stream) {                      \
+    return entry<T>(DQ_PASS, softcap, true, stream);                        \
+  }
+
+DQ_ENTRIES(bf16, __nv_bfloat16)
+DQ_ENTRIES(f16, __half)
+DQ_ENTRIES(f32, float)
+
+#undef DQ_ENTRIES
+#undef DQ_PASS
+#undef DQ_ARGS
 
 const char* flash_attention_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

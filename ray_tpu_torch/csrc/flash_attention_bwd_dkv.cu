@@ -1,5 +1,8 @@
 // Flash-attention backward, dk and dv, for Hopper (sm_90a): kernel B3 and
-// the dk/dv of the splash kernel B4; bf16 in, bf16 out, f32 accumulation.
+// the dk/dv of the splash kernel B4; dk and dv in the input type, f32
+// accumulation; bf16 and f16 through the wgmma body below (templated on the
+// 16-bit type T), f32 through a body of its own on the CUDA cores at the
+// end of this file.
 //
 // B3 replaces the Pallas TPU kernel `_bwd_dkv_kernel` driven by
 // `_flash_bwd_pallas` in ray_tpu/ops/flash_attention.py.  It computes the
@@ -10,7 +13,7 @@
 // dS^T = P^T (dP^T - Delta) * scale:
 //   dv = P^T dO and dk = dS^T Q, summed over the q tiles and over the
 //   `reps` q heads of the GQA group that shares one kv head.
-// P^T and dS^T are cast to bf16 before the products that consume them, as
+// P^T and dS^T are cast to T before the products that consume them, as
 // the TPU kernel casts them to the input dtype; every sum is f32.  q rows
 // past S (their lse and Delta are not defined) get P = 0.
 //
@@ -56,7 +59,7 @@
 //   S^T = K.Q^T and dP^T = V.dO^T (m64n64k16, both operands K-major in
 //   128-byte-swizzled shared memory), dV += P^T.dO and dK += dS^T.Q
 //   (m64nDk16, A from registers: the S^T and dP^T accumulators turned into
-//   P^T and dS^T and packed to bf16 are the A fragments, the forward's P
+//   P^T and dS^T and packed to T are the A fragments, the forward's P
 //   trick; B the same Q or dO stage read MN-major, transpose bit set).  So
 //   each stage in shared memory serves 128 kv rows and is read once per
 //   product, with no transposed copy anywhere;
@@ -77,7 +80,7 @@
 //   loop over the most q stages) to the shortest, every other round in
 //   reverse ("snake"), and a tile's first Q/dO stages load while the
 //   previous tile's epilogue runs;
-// * the epilogue writes dK and dV in bf16 into the warpgroup's own K and V
+// * the epilogue writes dK and dV in T into the warpgroup's own K and V
 //   rows of shared memory, in the swizzled layout, and TMA stores copy them
 //   out (rows past S are dropped by the map).
 // One block owns each dk/dv tile and sums in a fixed order (the group's q
@@ -98,6 +101,7 @@
 // nonzero multiple of 8 elements, every base pointer 16-byte aligned); lse
 // and Delta are contiguous [B, H, S] f32.
 
+#include "attention_f32.cuh"
 #include "hopper_common.cuh"
 
 namespace {
@@ -184,11 +188,11 @@ __device__ __forceinline__ Tile tile_at(const Params& p, int i) {
 // into the next: a tile's first stages go out before its K and V, whose
 // buffers free only when the consumers have stored the previous tile's dK
 // and dV from them.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void produce(
     const Params& p, const CUtensorMap* tq, const CUtensorMap* tk,
-    const CUtensorMap* tv, const CUtensorMap* tg, __nv_bfloat16* sK,
-    __nv_bfloat16* sV, __nv_bfloat16* sQ, __nv_bfloat16* sG, float* sL,
+    const CUtensorMap* tv, const CUtensorMap* tg, T* sK,
+    T* sV, T* sQ, T* sG, float* sL,
     float* sDl, Barriers& bar, int lane) {
   using C = Cfg<D>;
   const int reps = p.heads / p.kv_heads;
@@ -240,12 +244,12 @@ __device__ __forceinline__ void produce(
 }
 
 // P^T and dS^T of one stage from the S^T and dP^T accumulators, packed to
-// bf16 as the A fragments of the dV and dK products (k-step kk takes q
+// T as the A fragments of the dV and dK products (k-step kk takes q
 // columns [16kk, 16kk + 16)).  A thread holds q columns 8j + 2tig + {0, 1}
 // (j < 8) of kv rows `row` (s[4j], s[4j + 1]) and row + 8 (s[4j + 2],
 // s[4j + 3]); lse2 (lse * log2 e) and Delta are per column.  kMask applies
 // the causal and ragged-edge compares.
-template <bool kCap, bool kMask>
+template <typename T, bool kCap, bool kMask>
 __device__ __forceinline__ void grads_tile(
     const float (&s)[32], const float (&dp)[32], uint32_t (&pa)[4][4],
     uint32_t (&da)[4][4], const Params& p, const float* lse2,
@@ -277,8 +281,8 @@ __device__ __forceinline__ void grads_tile(
         if constexpr (kCap) d *= dcap;
         ds[e] = d * p.scale;
       }
-      pa[kk][i] = pack_bf16(pr[0], pr[1]);
-      da[kk][i] = pack_bf16(ds[0], ds[1]);
+      pa[kk][i] = pack2<T>(pr[0], pr[1]);
+      da[kk][i] = pack2<T>(ds[0], ds[1]);
     }
   }
 }
@@ -288,11 +292,11 @@ __device__ __forceinline__ void grads_tile(
 // j's dV and dK products stay in flight while it waits for stage j + 1 and
 // issues that stage's S^T; dP^T goes out once they have landed, and stage j
 // is released then.
-template <int D, bool kCap>
+template <typename T, int D, bool kCap>
 __device__ __forceinline__ void consume(
     const Params& p, const CUtensorMap* tdk, const CUtensorMap* tdv,
-    __nv_bfloat16* sK, __nv_bfloat16* sV, const __nv_bfloat16* sQ,
-    const __nv_bfloat16* sG, const float* sL, const float* sDl,
+    T* sK, T* sV, const T* sQ,
+    const T* sG, const float* sL, const float* sDl,
     Barriers& bar, int wg) {
   using C = Cfg<D>;
   constexpr int kN = C::kBlockN;
@@ -350,7 +354,7 @@ __device__ __forceinline__ void consume(
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t col = (kk % 4) * 32;
-        wgmma_ss<64>(s, sw128_desc(k_base + (kk / 4) * kN * 128 + col, 16, 1024),
+        wgmma_ss<T, 64>(s, sw128_desc(k_base + (kk / 4) * kN * 128 + col, 16, 1024),
                      sw128_desc(q_st + (kk / 4) * kBlockQ * 128 + col, 16, 1024),
                      kk > 0);
       }
@@ -363,7 +367,7 @@ __device__ __forceinline__ void consume(
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t col = (kk % 4) * 32;
-        wgmma_ss<64>(dp, sw128_desc(v_base + (kk / 4) * kN * 128 + col, 16, 1024),
+        wgmma_ss<T, 64>(dp, sw128_desc(v_base + (kk / 4) * kN * 128 + col, 16, 1024),
                      sw128_desc(g_st + (kk / 4) * kBlockQ * 128 + col, 16, 1024),
                      kk > 0);
       }
@@ -375,9 +379,9 @@ __device__ __forceinline__ void consume(
       const float* lse2 = sL + st * kBlockQ;
       const float* dlt = sDl + st * kBlockQ;
       if ((p.causal && q0 == kv_row0) || q0 + kBlockQ > p.seq) {
-        grads_tile<kCap, true>(s, dp, pa, da, p, lse2, dlt, q0, row, tig);
+        grads_tile<T, kCap, true>(s, dp, pa, da, p, lse2, dlt, q0, row, tig);
       } else {
-        grads_tile<kCap, false>(s, dp, pa, da, p, lse2, dlt, q0, row, tig);
+        grads_tile<T, kCap, false>(s, dp, pa, da, p, lse2, dlt, q0, row, tig);
       }
       // dV += P^T dO and dK += dS^T Q: 4 k-steps of 16 q rows, dO and Q
       // read MN-major (the next 64 columns one chunk further)
@@ -385,12 +389,12 @@ __device__ __forceinline__ void consume(
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        wgmma_rs<DN>(dv, pa[kk],
+        wgmma_rs<T, DN>(dv, pa[kk],
                      sw128_desc(g_st + chunk0 + kk * 16 * 128, kBlockQ * 128, 1024));
       }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        wgmma_rs<DN>(dk, da[kk],
+        wgmma_rs<T, DN>(dk, da[kk],
                      sw128_desc(q_st + chunk0 + kk * 16 * 128, kBlockQ * 128, 1024));
       }
       wgmma_commit();
@@ -398,7 +402,7 @@ __device__ __forceinline__ void consume(
     }
     retire();
 
-    // Epilogue: dK and dV in bf16 into this warpgroup's K and V rows, read
+    // Epilogue: dK and dV in T into this warpgroup's K and V rows, read
     // no more, in the layout the dk/dv maps' 128-byte swizzle expects
     // (16-byte group n % 8 of a row at (n % 8) ^ (row % 8), row % 8 == g);
     // at D = 256 the other warpgroup reads the same rows until it is done.
@@ -414,9 +418,9 @@ __device__ __forceinline__ void consume(
           const int off = ((dc + 8 * c) / 64) * kN * 128 + (trow + 8 * r) * 128 +
                           (((c % 8) ^ g) << 4) + tig * 4;
           *reinterpret_cast<uint32_t*>(k_bytes + off) =
-              pack_bf16(dk[4 * c + 2 * r], dk[4 * c + 2 * r + 1]);
+              pack2<T>(dk[4 * c + 2 * r], dk[4 * c + 2 * r + 1]);
           *reinterpret_cast<uint32_t*>(v_bytes + off) =
-              pack_bf16(dv[4 * c + 2 * r], dv[4 * c + 2 * r + 1]);
+              pack2<T>(dv[4 * c + 2 * r], dv[4 * c + 2 * r + 1]);
         }
       }
     }
@@ -439,7 +443,7 @@ __device__ __forceinline__ void consume(
 }
 
 // The body of both kernels; kCap applies the logit softcap.
-template <int D, bool kCap>
+template <typename T, int D, bool kCap>
 __device__ __forceinline__ void dkv_body(
     const Params& p, const CUtensorMap* tq, const CUtensorMap* tk,
     const CUtensorMap* tv, const CUtensorMap* tg, const CUtensorMap* tdk,
@@ -448,11 +452,11 @@ __device__ __forceinline__ void dkv_body(
   extern __shared__ unsigned char smem_raw[];
   __shared__ Barriers bar;
   // 128-byte swizzled tiles start on 1024-byte boundaries
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(
+  T* sK = reinterpret_cast<T*>(
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
-  __nv_bfloat16* sV = sK + C::kKVElems;
-  __nv_bfloat16* sQ = sV + C::kKVElems;
-  __nv_bfloat16* sG = sQ + C::kStages * C::kStageElems;
+  T* sV = sK + C::kKVElems;
+  T* sQ = sV + C::kKVElems;
+  T* sG = sQ + C::kStages * C::kStageElems;
   float* sL = reinterpret_cast<float*>(sG + C::kStages * C::kStageElems);
   float* sDl = sL + C::kStages * kBlockQ;
 
@@ -476,12 +480,12 @@ __device__ __forceinline__ void dkv_body(
   if (wg == kConsumers / kWarpgroupThreads) {
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x / 32 == kConsumers / 32) {
-      produce<D>(p, tq, tk, tv, tg, sK, sV, sQ, sG, sL, sDl, bar,
+      produce<T, D>(p, tq, tk, tv, tg, sK, sV, sQ, sG, sL, sDl, bar,
                  threadIdx.x % 32);
     }
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    consume<D, kCap>(p, tdk, tdv, sK, sV, sQ, sG, sL, sDl, bar, wg);
+    consume<T, D, kCap>(p, tdk, tdv, sK, sV, sQ, sG, sL, sDl, bar, wg);
   }
 }
 
@@ -493,16 +497,16 @@ __device__ __forceinline__ void dkv_body(
       const __grid_constant__ CUtensorMap tdk,                              \
       const __grid_constant__ CUtensorMap tdv
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel(const Params p, DKV_MAPS) {
-  dkv_body<D, false>(p, &tq, &tk, &tv, &tg, &tdk, &tdv);
+  dkv_body<T, D, false>(p, &tq, &tk, &tv, &tg, &tdk, &tdv);
 }
 
-template <int D, bool kCap>
+template <typename T, int D, bool kCap>
 __global__ void __launch_bounds__(kThreads, 1)
     splash_bwd_dkv_kernel(const Params p, DKV_MAPS) {
-  dkv_body<D, kCap>(p, &tq, &tk, &tv, &tg, &tdk, &tdv);
+  dkv_body<T, D, kCap>(p, &tq, &tk, &tv, &tg, &tdk, &tdv);
 }
 
 #undef DKV_MAPS
@@ -518,7 +522,7 @@ struct Tensors {
   long long qs[3], ks[3], vs[3], gs[3], dks[3], dvs[3];
 };
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch(Kernel kernel, Params p, const Tensors& x, int batch,
                    cudaStream_t stream) {
   using C = Cfg<D>;
@@ -527,17 +531,17 @@ cudaError_t launch(Kernel kernel, Params p, const Tensors& x, int batch,
   CUtensorMap tq, tk, tv, tg, tdk, tdv;
   const int s = p.seq;
   cudaError_t err;
-  if ((err = make_bshd_map(&tq, x.q, batch, s, p.heads, D, x.qs[0], x.qs[1],
+  if ((err = make_bshd_map<T>(&tq, x.q, batch, s, p.heads, D, x.qs[0], x.qs[1],
                            x.qs[2], kBlockQ)) != cudaSuccess ||
-      (err = make_bshd_map(&tg, x.g, batch, s, p.heads, D, x.gs[0], x.gs[1],
+      (err = make_bshd_map<T>(&tg, x.g, batch, s, p.heads, D, x.gs[0], x.gs[1],
                            x.gs[2], kBlockQ)) != cudaSuccess ||
-      (err = make_bshd_map(&tk, x.k, batch, s, p.kv_heads, D, x.ks[0],
+      (err = make_bshd_map<T>(&tk, x.k, batch, s, p.kv_heads, D, x.ks[0],
                            x.ks[1], x.ks[2], C::kBlockN)) != cudaSuccess ||
-      (err = make_bshd_map(&tv, x.v, batch, s, p.kv_heads, D, x.vs[0],
+      (err = make_bshd_map<T>(&tv, x.v, batch, s, p.kv_heads, D, x.vs[0],
                            x.vs[1], x.vs[2], C::kBlockN)) != cudaSuccess ||
-      (err = make_bshd_map(&tdk, x.dk, batch, s, p.kv_heads, D, x.dks[0],
+      (err = make_bshd_map<T>(&tdk, x.dk, batch, s, p.kv_heads, D, x.dks[0],
                            x.dks[1], x.dks[2], 64)) != cudaSuccess ||
-      (err = make_bshd_map(&tdv, x.dv, batch, s, p.kv_heads, D, x.dvs[0],
+      (err = make_bshd_map<T>(&tdv, x.dv, batch, s, p.kv_heads, D, x.dvs[0],
                            x.dvs[1], x.dvs[2], 64)) != cudaSuccess) {
     return err;
   }
@@ -592,52 +596,181 @@ Tensors make_tensors(const void* q, const void* k, const void* v,
   return x;
 }
 
-}  // namespace
+// ------------------------------------------------------------------ f32
 
-extern "C" {
+// The f32 body of B3 and of B4's dk/dv (attention_f32.cuh): block
+// (hk + kv_heads * b, y) takes kv tile y of (kv head hk, batch b) with its
+// K and V (the tiles nearest the start of S, which see the most q tiles
+// under the causal mask, first), and walks the group's q heads and, for
+// each, the q tiles from its diagonal on: S^T = K.Q^T and dP^T = V.dO^T as
+// register micro-tiles, P^T = exp(S^T - lse) (0 where masked or past S),
+// dS^T = P^T (dP^T - Delta) (times 1 - t^2 with the cap) times scale, both
+// through shared memory into dv += P^T.dO and dk += dS^T.Q, summed in the
+// reference's order (q heads, then q tiles).
+template <int D, bool kCap>
+__device__ __forceinline__ void dkv_f32_body(const Params& p,
+                                             const Tensors& x) {
+  using C = simt::Tiles<D>;
+  constexpr int kT = C::kT, R = C::kRI, G = C::kG;
+  extern __shared__ float4 smem_f4[];
+  float* sK = reinterpret_cast<float*>(smem_f4);
+  float* sV = sK + C::kTile;
+  float* sQ = sV + C::kTile;
+  float* sG = sQ + C::kTile;
+  float* sP = sG + C::kTile;
+  float* sS = sP + C::kSquare;
+  float* sL = sS + C::kSquare;  // lse and Delta of the q tile's rows
+  float* sDl = sL + kT;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int hk = blockIdx.x % p.kv_heads, b = blockIdx.x / p.kv_heads;
+  const int reps = p.heads / p.kv_heads;
+  const int kt = blockIdx.y, kv0 = kt * kT;
+  const int n_qt = (p.seq + kT - 1) / kT;
+  simt::load_tile<D>(sK, static_cast<const float*>(x.k), x.ks, b, hk, kv0,
+                     p.seq);
+  simt::load_tile<D>(sV, static_cast<const float*>(x.v), x.vs, b, hk, kv0,
+                     p.seq);
 
-// Both entry points return a cudaError_t as int: 0 when the launch was
-// accepted.  Strides are element strides (batch, sequence, head).
-
-// B3.
-int flash_attention_bwd_dkv_bf16(
-    int device, const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int batch,
-    int seq, int heads, int kv_heads, int head_dim, long long q_sb,
-    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long g_sb, long long g_ss, long long g_sh, long long dk_sb,
-    long long dk_ss, long long dk_sh, long long dv_sb, long long dv_ss,
-    long long dv_sh, int causal, float scale, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long qs[3] = {q_sb, q_ss, q_sh}, ks[3] = {k_sb, k_ss, k_sh};
-  const long long vs[3] = {v_sb, v_ss, v_sh}, gs[3] = {g_sb, g_ss, g_sh};
-  const long long dks[3] = {dk_sb, dk_ss, dk_sh};
-  const long long dvs[3] = {dv_sb, dv_ss, dv_sh};
-  const Params p = make_params(lse, delta, seq, heads, kv_heads, causal,
-                               scale, 0.f);
-  const Tensors x = make_tensors(q, k, v, dout, dk, dv, qs, ks, vs, gs, dks,
-                                 dvs);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 64: return static_cast<int>(launch<64>(flash_bwd_dkv_kernel<64>, p, x, batch, s));
-    case 128: return static_cast<int>(launch<128>(flash_bwd_dkv_kernel<128>, p, x, batch, s));
-    case 256: return static_cast<int>(launch<256>(flash_bwd_dkv_kernel<256>, p, x, batch, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  float dk[R][G][4], dv[R][G][4];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[i][g][e] = dv[i][g][e] = 0.f;
+    }
   }
+  for (int r = 0; r < reps; ++r) {
+    const int h = hk * reps + r;
+    const long long stat0 =
+        (static_cast<long long>(b) * p.heads + h) * p.seq;
+    for (int qt = p.causal ? kt : 0; qt < n_qt; ++qt) {
+      const int q0 = qt * kT;
+      __syncthreads();  // the previous tile's Q, dO, P^T and dS^T are read
+      simt::load_tile<D>(sQ, static_cast<const float*>(x.q), x.qs, b, h, q0,
+                         p.seq);
+      simt::load_tile<D>(sG, static_cast<const float*>(x.g), x.gs, b, h, q0,
+                         p.seq);
+      if (threadIdx.x < kT) {
+        const int row = q0 + threadIdx.x;
+        sL[threadIdx.x] = row < p.seq ? p.lse[stat0 + row] : 0.f;
+        sDl[threadIdx.x] = row < p.seq ? p.delta[stat0 + row] : 0.f;
+      }
+      __syncthreads();
+      float s[R][R], dp[R][R];
+      simt::products_abt<D>(s, sK, sQ, ty, tx);
+      simt::products_abt<D>(dp, sV, sG, ty, tx);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int kv_row = kv0 + ty + 16 * i;
+#pragma unroll
+        for (int c = 0; c < R; ++c) {
+          const int col = tx + 16 * c;
+          const int qpos = q0 + col;
+          float dcap;
+          float z = simt::capped<kCap>(s[i][c] * p.scale, p.softcap, dcap);
+          if (p.causal && qpos < kv_row) z = kNegInf;
+          float pr = expf(z - sL[col]);
+          if (qpos >= p.seq) pr = 0.f;  // past the ragged edge: no row
+          float ds = pr * (dp[i][c] - sDl[col]);
+          if constexpr (kCap) ds *= dcap;
+          sP[(ty + 16 * i) * C::kLDP + col] = pr;
+          sS[(ty + 16 * i) * C::kLDP + col] = ds * p.scale;
+        }
+      }
+      __syncthreads();
+      simt::products_pb<D>(dv, sP, sG, ty, tx);
+      simt::products_pb<D>(dk, sS, sQ, ty, tx);
+    }
+  }
+  simt::store_rows<D>(static_cast<float*>(x.dk), x.dks, dk, b, hk, kv0,
+                      p.seq, ty, tx);
+  simt::store_rows<D>(static_cast<float*>(x.dv), x.dvs, dv, b, hk, kv0,
+                      p.seq, ty, tx);
 }
 
-// B4 (splash) dk/dv: B3's arguments plus the softcap (0 turns the cap off).
-int splash_attention_bwd_dkv_bf16(
-    int device, const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int batch,
-    int seq, int heads, int kv_heads, int head_dim, long long q_sb,
-    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long g_sb, long long g_ss, long long g_sh, long long dk_sb,
-    long long dk_ss, long long dk_sh, long long dv_sb, long long dv_ss,
-    long long dv_sh, int causal, float scale, float softcap, void* stream) {
+template <int D>
+__global__ void __launch_bounds__(simt::kThreads)
+    flash_bwd_dkv_f32_kernel(const Params p, const Tensors x) {
+  dkv_f32_body<D, false>(p, x);
+}
+
+template <int D, bool kCap>
+__global__ void __launch_bounds__(simt::kThreads)
+    splash_bwd_dkv_f32_kernel(const Params p, const Tensors x) {
+  dkv_f32_body<D, kCap>(p, x);
+}
+
+using F32Kernel = void (*)(const Params, const Tensors);
+
+template <int D>
+cudaError_t launch_f32(F32Kernel kernel, Params p, const Tensors& x,
+                       int batch, cudaStream_t stream) {
+  using C = simt::Tiles<D>;
+  p.batch = batch;
+  const int smem = static_cast<int>(
+      (4 * C::kTile + 2 * C::kSquare + 2 * C::kT) * sizeof(float));
+  cudaError_t err = simt::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.kv_heads * batch, (p.seq + C::kT - 1) / C::kT);
+  kernel<<<grid, simt::kThreads, smem, stream>>>(p, x);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------- dispatch
+
+// B3 (flash's kernel names) or B4's dk/dv (splash's) in element type T:
+// __nv_bfloat16 or __half run the wgmma body, float the f32 one.
+template <typename T>
+cudaError_t backward_dkv(const Params& p, const Tensors& x, int batch,
+                         int head_dim, bool splash, cudaStream_t s) {
+  const bool cap = p.softcap > 0.f;
+  if constexpr (std::is_same<T, float>::value) {
+    switch (head_dim) {
+      case 64:
+        if (!splash) return launch_f32<64>(flash_bwd_dkv_f32_kernel<64>, p, x, batch, s);
+        break;
+      case 128:
+        return launch_f32<128>(!splash ? flash_bwd_dkv_f32_kernel<128>
+                               : cap ? splash_bwd_dkv_f32_kernel<128, true>
+                                     : splash_bwd_dkv_f32_kernel<128, false>,
+                               p, x, batch, s);
+      case 256:
+        return launch_f32<256>(!splash ? flash_bwd_dkv_f32_kernel<256>
+                               : cap ? splash_bwd_dkv_f32_kernel<256, true>
+                                     : splash_bwd_dkv_f32_kernel<256, false>,
+                               p, x, batch, s);
+    }
+  } else {
+    switch (head_dim) {
+      case 64:
+        if (!splash) return launch<T, 64>(flash_bwd_dkv_kernel<T, 64>, p, x, batch, s);
+        break;
+      case 128:
+        return launch<T, 128>(!splash ? flash_bwd_dkv_kernel<T, 128>
+                              : cap ? splash_bwd_dkv_kernel<T, 128, true>
+                                    : splash_bwd_dkv_kernel<T, 128, false>,
+                              p, x, batch, s);
+      case 256:
+        return launch<T, 256>(!splash ? flash_bwd_dkv_kernel<T, 256>
+                              : cap ? splash_bwd_dkv_kernel<T, 256, true>
+                                    : splash_bwd_dkv_kernel<T, 256, false>,
+                              p, x, batch, s);
+    }
+  }
+  return cudaErrorInvalidValue;  // no instantiation for this head dim
+}
+
+template <typename T>
+int entry(int device, const void* q, const void* k, const void* v,
+          const void* dout, const void* lse, const void* delta, void* dk,
+          void* dv, int batch, int seq, int heads, int kv_heads,
+          int head_dim, long long q_sb, long long q_ss, long long q_sh,
+          long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+          long long v_ss, long long v_sh, long long g_sb, long long g_ss,
+          long long g_sh, long long dk_sb, long long dk_ss, long long dk_sh,
+          long long dv_sb, long long dv_ss, long long dv_sh, int causal,
+          float scale, float softcap, bool splash, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long qs[3] = {q_sb, q_ss, q_sh}, ks[3] = {k_sb, k_ss, k_sh};
@@ -648,20 +781,52 @@ int splash_attention_bwd_dkv_bf16(
                                scale, softcap);
   const Tensors x = make_tensors(q, k, v, dout, dk, dv, qs, ks, vs, gs, dks,
                                  dvs);
-  const bool cap = softcap > 0.f;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 128:
-      return static_cast<int>(
-          cap ? launch<128>(splash_bwd_dkv_kernel<128, true>, p, x, batch, s)
-              : launch<128>(splash_bwd_dkv_kernel<128, false>, p, x, batch, s));
-    case 256:
-      return static_cast<int>(
-          cap ? launch<256>(splash_bwd_dkv_kernel<256, true>, p, x, batch, s)
-              : launch<256>(splash_bwd_dkv_kernel<256, false>, p, x, batch, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(backward_dkv<T>(p, x, batch, head_dim, splash,
+                                          static_cast<cudaStream_t>(stream)));
 }
+
+}  // namespace
+
+extern "C" {
+
+// Every entry point returns a cudaError_t as int: 0 when the launch was
+// accepted.  Strides are element strides (batch, sequence, head).  The
+// suffix names the element type of q, k, v, dO, dk and dv: bf16, f16 or
+// f32.
+
+#define DKV_ARGS                                                            \
+  int device, const void *q, const void *k, const void *v,                 \
+      const void *dout, const void *lse, const void *delta, void *dk,      \
+      void *dv, int batch, int seq, int heads, int kv_heads, int head_dim, \
+      long long q_sb, long long q_ss, long long q_sh, long long k_sb,      \
+      long long k_ss, long long k_sh, long long v_sb, long long v_ss,      \
+      long long v_sh, long long g_sb, long long g_ss, long long g_sh,      \
+      long long dk_sb, long long dk_ss, long long dk_sh, long long dv_sb,  \
+      long long dv_ss, long long dv_sh, int causal, float scale
+#define DKV_PASS                                                            \
+  device, q, k, v, dout, lse, delta, dk, dv, batch, seq, heads, kv_heads,  \
+      head_dim, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,      \
+      g_sb, g_ss, g_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh, causal,  \
+      scale
+
+// B3, and B4's dk/dv: B3's arguments plus the softcap (0 turns the cap
+// off).
+#define DKV_ENTRIES(SUFFIX, T)                                              \
+  int flash_attention_bwd_dkv_##SUFFIX(DKV_ARGS, void* stream) {           \
+    return entry<T>(DKV_PASS, 0.f, false, stream);                          \
+  }                                                                         \
+  int splash_attention_bwd_dkv_##SUFFIX(DKV_ARGS, float softcap,            \
+                                        void* stream) {                     \
+    return entry<T>(DKV_PASS, softcap, true, stream);                       \
+  }
+
+DKV_ENTRIES(bf16, __nv_bfloat16)
+DKV_ENTRIES(f16, __half)
+DKV_ENTRIES(f32, float)
+
+#undef DKV_ENTRIES
+#undef DKV_PASS
+#undef DKV_ARGS
 
 const char* flash_attention_bwd_dkv_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,12 +1,16 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in, bf16 out + f32 lse:
-// kernel B1 (flash) and the forward of kernel B4 (splash).
+// Flash-attention forward for Hopper (sm_90a), out in the input type + f32
+// lse: kernel B1 (flash) and the forward of kernel B4 (splash), in bf16 and
+// f16 (the wgmma body below, templated on the 16-bit type T) and in f32
+// (a body of its own on the CUDA cores, at the end of this file: the
+// tensor cores take no f32 operands).  The reference's kernels are generic
+// in the element type, and its model code runs them in every float type.
 //
 // B1 replaces the Pallas TPU kernel `_fwd_kernel` driven by `_flash_fwd` in
 // ray_tpu/ops/flash_attention.py.  It computes the same function: causal or
 // full attention with an online softmax (running max m, denominator l and
 // numerator acc in f32), GQA K/V read in place through kv head h / (H / KV),
 // scores scaled by D^-0.5 and masked with -1e30 (not -inf, so no row gives a
-// NaN), P cast to bf16 for the P.V product, l clamped at 1e-30, and
+// NaN), P cast to the input type for the P.V product, l clamped at 1e-30, and
 // lse = m + log(l) written as [B, H, S].
 //
 // B4 replaces the forward of the splash kernel that ray_tpu/ops/splash_attention.py
@@ -48,7 +52,7 @@
 // * both products are `wgmma`: S = Q.K^T (m64n{128|64}k16) with Q and K
 //   read by descriptor from 128-byte-swizzled shared memory, and
 //   O += P.V (m64n{D}k16) with P from registers (the score accumulators
-//   packed to bf16 are the A fragment) and V read MN-major (transpose bit);
+//   packed to T are the A fragment) and V read MN-major (transpose bit);
 // * the products hide the softmax: inside a warpgroup, the softmax of K/V
 //   tile j runs while the tensor cores work on P.V of tile j - 1, and the
 //   two warpgroups take turns issuing their products (named barriers), so
@@ -64,7 +68,7 @@
 //   from the longest causal rows down (alternate rounds in reverse, so the
 //   blocks' totals even out), and the next tile's K/V and Q land while the
 //   current one finishes, in place of a new block's start-up per tile;
-// * the epilogue writes out = acc / l in bf16 into the warpgroup's own Q rows
+// * the epilogue writes out = acc / l in T into the warpgroup's own Q rows
 //   of shared memory, in the swizzled layout, and one TMA store per 64
 //   columns copies it out (rows past S are dropped by the map); lse is
 //   written for rows < S only.
@@ -77,6 +81,7 @@
 // multiple of 8 elements, every base pointer 16-byte aligned); lse is a
 // contiguous [B, H, S] f32 array.
 
+#include "attention_f32.cuh"
 #include "hopper_common.cuh"
 
 namespace {
@@ -176,13 +181,13 @@ __device__ __forceinline__ int run_tiles(const Params& p, const Tile& tile,
 // tile.  K/V stage uses are counted across tiles, so the ring runs on from
 // one tile into the next; a tile's first K/V stages go out before its Q,
 // whose buffer frees only when the consumers have stored an earlier tile.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void produce(const Params& p,
                                         const CUtensorMap* tq,
                                         const CUtensorMap* tk,
                                         const CUtensorMap* tv,
-                                        __nv_bfloat16* sQ, __nv_bfloat16* sK,
-                                        __nv_bfloat16* sV, Barriers& bar) {
+                                        T* sQ, T* sK,
+                                        T* sV, Barriers& bar) {
   using C = Cfg<D>;
   constexpr int kN = C::kBlockN;
   int it = 0;  // K/V stage uses so far
@@ -279,11 +284,11 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kN / 2],
 // iteration j issues S_j = Q.K_j^T and then acc += P_{j-1}.V_{j-1}, and
 // runs the softmax of S_j while the tensor cores work on P_{j-1}.V_{j-1};
 // the accumulator is rescaled once that product has landed.
-template <int D, bool kCap>
+template <typename T, int D, bool kCap>
 __device__ __forceinline__ void consume(const Params& p, const CUtensorMap* to,
-                                        __nv_bfloat16* sQ,
-                                        const __nv_bfloat16* sK,
-                                        const __nv_bfloat16* sV,
+                                        T* sQ,
+                                        const T* sK,
+                                        const T* sV,
                                         Barriers& bar, int wg,
                                         const Tile& tile, int buf,
                                         uint32_t q_phase, int it0) {
@@ -322,7 +327,7 @@ __device__ __forceinline__ void consume(const Params& p, const CUtensorMap* to,
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t col = (kk % 4) * 32;
-      wgmma_ss<kN>(
+      wgmma_ss<T, kN>(
           s, sw128_desc(q_base + (kk / 4) * kBlockM * 128 + col, 16, 1024),
           sw128_desc(k_base + (kk / 4) * kN * 128 + col, 16, 1024), kk > 0);
     }
@@ -333,7 +338,7 @@ __device__ __forceinline__ void consume(const Params& p, const CUtensorMap* to,
     const uint32_t v_base = smem_u32(sV + st * C::kKVElems);
 #pragma unroll
     for (int kk = 0; kk < kN / 16; ++kk) {
-      wgmma_rs<D>(acc, pa[kk],
+      wgmma_rs<T, D>(acc, pa[kk],
                   sw128_desc(v_base + kk * 16 * 128, kN * 128, 1024));
     }
     wgmma_commit();
@@ -346,14 +351,14 @@ __device__ __forceinline__ void consume(const Params& p, const CUtensorMap* to,
       softmax_tile<kN, kCap, false>(s, m, l, alpha, p, k0, row0, tig);
     }
   };
-  // the score accumulators of columns [16kk, 16kk + 16), packed to bf16,
+  // the score accumulators of columns [16kk, 16kk + 16), packed to T,
   // are the A fragment of k-step kk
   auto pack_p = [&]() {
 #pragma unroll
     for (int kk = 0; kk < kN / 16; ++kk) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+        pa[kk][i] = pack2<T>(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
       }
     }
   };
@@ -418,7 +423,7 @@ __device__ __forceinline__ void consume(const Params& p, const CUtensorMap* to,
   }
 
   // Epilogue: the row sums over the 4 threads of each row group, then
-  // out = acc / max(l, 1e-30) in bf16 and lse = m + log(l).
+  // out = acc / max(l, 1e-30) in T and lse = m + log(l).
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -443,7 +448,7 @@ __device__ __forceinline__ void consume(const Params& p, const CUtensorMap* to,
                            (trow + 8 * r) * 128 + (((n % 8) ^ g) << 4) +
                            tig * 4;
       *reinterpret_cast<uint32_t*>(dst) =
-          pack_bf16(acc[4 * n + 2 * r] * inv_l[r],
+          pack2<T>(acc[4 * n + 2 * r] * inv_l[r],
                     acc[4 * n + 2 * r + 1] * inv_l[r]);
     }
   }
@@ -474,7 +479,7 @@ __device__ __forceinline__ void consume(const Params& p, const CUtensorMap* to,
 // persistent, one block per SM walking its tiles (snake_tile), so one
 // tile's loads run under the previous tile's products and epilogue instead
 // of after a new block's start-up.
-template <int D, bool kCap>
+template <typename T, int D, bool kCap>
 __device__ __forceinline__ void fwd_body(const Params& p,
                                          const CUtensorMap* tq,
                                          const CUtensorMap* tk,
@@ -484,10 +489,10 @@ __device__ __forceinline__ void fwd_body(const Params& p,
   extern __shared__ unsigned char smem_raw[];
   __shared__ Barriers bar;
   // 128-byte swizzled tiles start on 1024-byte boundaries
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(
+  T* sQ = reinterpret_cast<T*>(
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
-  __nv_bfloat16* sK = sQ + C::kQBufs * C::kQElems;
-  __nv_bfloat16* sV = sK + kStages * C::kKVElems;
+  T* sK = sQ + C::kQBufs * C::kQElems;
+  T* sV = sK + kStages * C::kKVElems;
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -513,7 +518,7 @@ __device__ __forceinline__ void fwd_body(const Params& p,
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kWarpgroupThreads, 0);
   if (wg == kConsumers / kWarpgroupThreads) {
     setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x == kConsumers) produce<D>(p, tq, tk, tv, sQ, sK, sV, bar);
+    if (threadIdx.x == kConsumers) produce<T, D>(p, tq, tk, tv, sQ, sK, sV, bar);
   } else {
     setmaxnreg_inc<kConsumerRegs>();
     // warpgroup 0 takes the first turn; so the turns balance, warpgroup 0
@@ -522,7 +527,7 @@ __device__ __forceinline__ void fwd_body(const Params& p,
     int it = 0;  // K/V stage uses so far, as the producer counts them
     for (int n = 0, i; (i = snake_tile(n)) < p.n_tiles; ++n) {
       const Tile tile = tile_at<D>(p, i);
-      consume<D, kCap>(p, to, sQ, sK, sV, bar, wg, tile, n % C::kQBufs,
+      consume<T, D, kCap>(p, to, sQ, sK, sV, bar, wg, tile, n % C::kQBufs,
                        (n / C::kQBufs) & 1, it);
       it += tile.n_kv;
     }
@@ -530,22 +535,22 @@ __device__ __forceinline__ void fwd_body(const Params& p,
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
                      const __grid_constant__ CUtensorMap to) {
-  fwd_body<D, false>(p, &tq, &tk, &tv, &to);
+  fwd_body<T, D, false>(p, &tq, &tk, &tv, &to);
 }
 
-template <int D, bool kCap>
+template <typename T, int D, bool kCap>
 __global__ void __launch_bounds__(kThreads, 1)
     splash_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
                       const __grid_constant__ CUtensorMap to) {
-  fwd_body<D, kCap>(p, &tq, &tk, &tv, &to);
+  fwd_body<T, D, kCap>(p, &tq, &tk, &tv, &to);
 }
 
 using Kernel = void (*)(const Params, const CUtensorMap, const CUtensorMap,
@@ -557,7 +562,7 @@ struct Tensors {
   long long qs[3], ks[3], vs[3], os[3];  // element strides: batch, seq, head
 };
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch(Kernel kernel, Params p, const Tensors& x, int batch,
                    cudaStream_t stream) {
   using C = Cfg<D>;
@@ -565,13 +570,13 @@ cudaError_t launch(Kernel kernel, Params p, const Tensors& x, int batch,
   p.n_tiles = (p.seq + kBlockM - 1) / kBlockM * p.heads * batch;
   CUtensorMap tq, tk, tv, to;
   cudaError_t err;
-  if ((err = make_bshd_map(&tq, x.q, batch, p.seq, p.heads, D, x.qs[0],
+  if ((err = make_bshd_map<T>(&tq, x.q, batch, p.seq, p.heads, D, x.qs[0],
                            x.qs[1], x.qs[2], kBlockM)) != cudaSuccess ||
-      (err = make_bshd_map(&tk, x.k, batch, p.seq, p.kv_heads, D, x.ks[0],
+      (err = make_bshd_map<T>(&tk, x.k, batch, p.seq, p.kv_heads, D, x.ks[0],
                            x.ks[1], x.ks[2], C::kBlockN)) != cudaSuccess ||
-      (err = make_bshd_map(&tv, x.v, batch, p.seq, p.kv_heads, D, x.vs[0],
+      (err = make_bshd_map<T>(&tv, x.v, batch, p.seq, p.kv_heads, D, x.vs[0],
                            x.vs[1], x.vs[2], C::kBlockN)) != cudaSuccess ||
-      (err = make_bshd_map(&to, x.out, batch, p.seq, p.heads, D, x.os[0],
+      (err = make_bshd_map<T>(&to, x.out, batch, p.seq, p.heads, D, x.os[0],
                            x.os[1], x.os[2], 64)) != cudaSuccess) {
     return err;
   }
@@ -616,66 +621,236 @@ Tensors make_tensors(const void* q, const void* k, const void* v, void* out,
                  {v_sb, v_ss, v_sh}, {o_sb, o_ss, o_sh}};
 }
 
-}  // namespace
+// ------------------------------------------------------------------ f32
 
-extern "C" {
+// The f32 body of B1 and of B4's forward (attention_f32.cuh): block
+// (h + heads * b, y) takes q tile n_qt - 1 - y of (head h, batch b), the
+// longest causal rows first, and walks the K/V tiles up to its diagonal
+// with the online softmax in f32: scores scaled (and capped) before the
+// causal mask (-1e30) and the ragged edge (-inf), P through shared memory
+// into P.V, out = acc / max(l, 1e-30) and lse = m + log(l), as the
+// reference computes them.
+template <int D, bool kCap>
+__device__ __forceinline__ void fwd_f32_body(const Params& p,
+                                             const Tensors& x) {
+  using C = simt::Tiles<D>;
+  constexpr int kT = C::kT, R = C::kRI, G = C::kG;
+  extern __shared__ float4 smem_f4[];
+  float* sQ = reinterpret_cast<float*>(smem_f4);
+  float* sK = sQ + C::kTile;
+  float* sV = sK + C::kTile;
+  float* sP = sV + C::kTile;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int h = blockIdx.x % p.heads, b = blockIdx.x / p.heads;
+  const int kvh = h / (p.heads / p.kv_heads);
+  const int n_qt = (p.seq + kT - 1) / kT;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.y);
+  const int q0 = qt * kT;
+  simt::load_tile<D>(sQ, static_cast<const float*>(x.q), x.qs, b, h, q0,
+                     p.seq);
 
-// Both entry points return a cudaError_t as int: 0 when the launch was
-// accepted.  Strides are element strides (batch, sequence, head).
-
-// B1.
-int flash_attention_fwd_bf16(int device, const void* q, const void* k,
-                             const void* v, void* out, void* lse, int batch,
-                             int seq, int heads, int kv_heads, int head_dim,
-                             long long q_sb, long long q_ss, long long q_sh,
-                             long long k_sb, long long k_ss, long long k_sh,
-                             long long v_sb, long long v_ss, long long v_sh,
-                             long long o_sb, long long o_ss, long long o_sh,
-                             int causal, float scale, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Params p = make_params(lse, seq, heads, kv_heads, causal, scale, 0.f);
-  const Tensors x = make_tensors(q, k, v, out, q_sb, q_ss, q_sh, k_sb, k_ss,
-                                 k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 64: return static_cast<int>(launch<64>(flash_fwd_kernel<64>, p, x, batch, s));
-    case 128: return static_cast<int>(launch<128>(flash_fwd_kernel<128>, p, x, batch, s));
-    case 256: return static_cast<int>(launch<256>(flash_fwd_kernel<256>, p, x, batch, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  float m[R], l[R], acc[R][G][4];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;  // this thread's share of the row sum
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.f;
+    }
   }
+  const int n_kv = p.causal ? qt + 1 : n_qt;
+  for (int j = 0; j < n_kv; ++j) {
+    const int k0 = j * kT;
+    __syncthreads();  // the previous tile's K, V and P are read no more
+    simt::load_tile<D>(sK, static_cast<const float*>(x.k), x.ks, b, kvh, k0,
+                       p.seq);
+    simt::load_tile<D>(sV, static_cast<const float*>(x.v), x.vs, b, kvh, k0,
+                       p.seq);
+    __syncthreads();
+    float s[R][R];
+    simt::products_abt<D>(s, sQ, sK, ty, tx);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = q0 + ty + 16 * i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < R; ++c) {
+        const int kpos = k0 + tx + 16 * c;
+        float dcap;
+        float z = simt::capped<kCap>(s[i][c] * p.scale, p.softcap, dcap);
+        if (p.causal && row < kpos) z = kNegInf;
+        if (kpos >= p.seq) z = -INFINITY;  // past the ragged edge
+        s[i][c] = z;
+        mx = fmaxf(mx, z);
+      }
+      const float m_new = fmaxf(m[i], simt::row_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < R; ++c) {
+        const float pr = expf(s[i][c] - m_new);
+        sum += pr;
+        sP[(ty + 16 * i) * C::kLDP + tx + 16 * c] = pr;
+      }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][g][e] *= alpha;
+      }
+    }
+    __syncthreads();
+    simt::products_pb<D>(acc, sP, sV, ty, tx);
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    l[i] = fmaxf(simt::row_sum(l[i]), 1e-30f);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][g][e] /= l[i];
+    }
+    const int row = q0 + ty + 16 * i;
+    if (tx == 0 && row < p.seq) {
+      p.lse[(static_cast<long long>(b) * p.heads + h) * p.seq + row] =
+          m[i] + logf(l[i]);
+    }
+  }
+  simt::store_rows<D>(static_cast<float*>(x.out), x.os, acc, b, h, q0,
+                      p.seq, ty, tx);
 }
 
-// B4 (splash) forward: softcap 0 turns the cap off.
-int splash_attention_fwd_bf16(int device, const void* q, const void* k,
-                              const void* v, void* out, void* lse, int batch,
-                              int seq, int heads, int kv_heads, int head_dim,
-                              long long q_sb, long long q_ss, long long q_sh,
-                              long long k_sb, long long k_ss, long long k_sh,
-                              long long v_sb, long long v_ss, long long v_sh,
-                              long long o_sb, long long o_ss, long long o_sh,
-                              int causal, float scale, float softcap,
-                              void* stream) {
+template <int D>
+__global__ void __launch_bounds__(simt::kThreads)
+    flash_fwd_f32_kernel(const Params p, const Tensors x) {
+  fwd_f32_body<D, false>(p, x);
+}
+
+template <int D, bool kCap>
+__global__ void __launch_bounds__(simt::kThreads)
+    splash_fwd_f32_kernel(const Params p, const Tensors x) {
+  fwd_f32_body<D, kCap>(p, x);
+}
+
+using F32Kernel = void (*)(const Params, const Tensors);
+
+template <int D>
+cudaError_t launch_f32(F32Kernel kernel, Params p, const Tensors& x,
+                       int batch, cudaStream_t stream) {
+  using C = simt::Tiles<D>;
+  p.batch = batch;
+  const int smem = static_cast<int>((3 * C::kTile + C::kSquare) *
+                                    sizeof(float));
+  cudaError_t err = simt::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.heads * batch, (p.seq + C::kT - 1) / C::kT);
+  kernel<<<grid, simt::kThreads, smem, stream>>>(p, x);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------- dispatch
+
+// B1 (cap false, flash's kernel names) or B4's forward (splash's names) in
+// element type T: __nv_bfloat16 or __half run the wgmma body, float the
+// f32 one.
+template <typename T>
+cudaError_t forward(const Params& p, const Tensors& x, int batch,
+                    int head_dim, bool splash, cudaStream_t s) {
+  const bool cap = p.softcap > 0.f;
+  if constexpr (std::is_same<T, float>::value) {
+    switch (head_dim) {
+      case 64:
+        if (!splash) return launch_f32<64>(flash_fwd_f32_kernel<64>, p, x, batch, s);
+        break;
+      case 128:
+        return launch_f32<128>(!splash ? flash_fwd_f32_kernel<128>
+                               : cap ? splash_fwd_f32_kernel<128, true>
+                                     : splash_fwd_f32_kernel<128, false>,
+                               p, x, batch, s);
+      case 256:
+        return launch_f32<256>(!splash ? flash_fwd_f32_kernel<256>
+                               : cap ? splash_fwd_f32_kernel<256, true>
+                                     : splash_fwd_f32_kernel<256, false>,
+                               p, x, batch, s);
+    }
+  } else {
+    switch (head_dim) {
+      case 64:
+        if (!splash) return launch<T, 64>(flash_fwd_kernel<T, 64>, p, x, batch, s);
+        break;
+      case 128:
+        return launch<T, 128>(!splash ? flash_fwd_kernel<T, 128>
+                              : cap ? splash_fwd_kernel<T, 128, true>
+                                    : splash_fwd_kernel<T, 128, false>,
+                              p, x, batch, s);
+      case 256:
+        return launch<T, 256>(!splash ? flash_fwd_kernel<T, 256>
+                              : cap ? splash_fwd_kernel<T, 256, true>
+                                    : splash_fwd_kernel<T, 256, false>,
+                              p, x, batch, s);
+    }
+  }
+  return cudaErrorInvalidValue;  // no instantiation for this head dim
+}
+
+template <typename T>
+int entry(int device, const void* q, const void* k, const void* v, void* out,
+          void* lse, int batch, int seq, int heads, int kv_heads,
+          int head_dim, long long q_sb, long long q_ss, long long q_sh,
+          long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+          long long v_ss, long long v_sh, long long o_sb, long long o_ss,
+          long long o_sh, int causal, float scale, float softcap,
+          bool splash, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Params p = make_params(lse, seq, heads, kv_heads, causal, scale,
                                softcap);
   const Tensors x = make_tensors(q, k, v, out, q_sb, q_ss, q_sh, k_sb, k_ss,
                                  k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh);
-  const bool cap = softcap > 0.f;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 128:
-      return static_cast<int>(
-          cap ? launch<128>(splash_fwd_kernel<128, true>, p, x, batch, s)
-              : launch<128>(splash_fwd_kernel<128, false>, p, x, batch, s));
-    case 256:
-      return static_cast<int>(
-          cap ? launch<256>(splash_fwd_kernel<256, true>, p, x, batch, s)
-              : launch<256>(splash_fwd_kernel<256, false>, p, x, batch, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(forward<T>(p, x, batch, head_dim, splash,
+                                     static_cast<cudaStream_t>(stream)));
 }
+
+}  // namespace
+
+extern "C" {
+
+// Every entry point returns a cudaError_t as int: 0 when the launch was
+// accepted.  Strides are element strides (batch, sequence, head).  The
+// suffix names the element type of q, k, v and out: bf16, f16 or f32.
+
+#define FWD_ARGS                                                            \
+  int device, const void *q, const void *k, const void *v, void *out,      \
+      void *lse, int batch, int seq, int heads, int kv_heads, int head_dim, \
+      long long q_sb, long long q_ss, long long q_sh, long long k_sb,       \
+      long long k_ss, long long k_sh, long long v_sb, long long v_ss,       \
+      long long v_sh, long long o_sb, long long o_ss, long long o_sh,       \
+      int causal, float scale
+#define FWD_PASS                                                            \
+  device, q, k, v, out, lse, batch, seq, heads, kv_heads, head_dim, q_sb,   \
+      q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,     \
+      causal, scale
+
+// B1, and B4's forward (softcap 0 turns the cap off).
+#define FWD_ENTRIES(SUFFIX, T)                                              \
+  int flash_attention_fwd_##SUFFIX(FWD_ARGS, void* stream) {               \
+    return entry<T>(FWD_PASS, 0.f, false, stream);                          \
+  }                                                                         \
+  int splash_attention_fwd_##SUFFIX(FWD_ARGS, float softcap,                \
+                                    void* stream) {                         \
+    return entry<T>(FWD_PASS, softcap, true, stream);                       \
+  }
+
+FWD_ENTRIES(bf16, __nv_bfloat16)
+FWD_ENTRIES(f16, __half)
+FWD_ENTRIES(f32, float)
+
+#undef FWD_ENTRIES
+#undef FWD_PASS
+#undef FWD_ARGS
 
 const char* flash_attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -27,17 +27,20 @@
 // warpgroup owns rows 16w..16w+15 of the 64-row tile, and lane = 4g + t.
 // * Accumulator of m64nNk16 (f32): d[4j + 2i + e] is row 16w + g + 8i,
 //   column 8j + 2t + e (j < N / 8).
-// * A from registers (bf16, m64k16): a[0] rows 16w + g, columns 2t..2t+1;
+// * A from registers (16-bit, m64k16): a[0] rows 16w + g, columns 2t..2t+1;
 //   a[1] row + 8, same columns; a[2] and a[3] the same rows, columns + 8.
 // So the accumulators of columns 16kk..16kk+15 (j = 2kk, 2kk + 1), packed to
-// bf16 pairs, are the A operand of k16 step kk of the next product.
+// 16-bit pairs, are the A operand of k16 step kk of the next product.
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; no driver call is linked
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -47,11 +50,22 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Two f32 values as one register of two bf16, lo in the low half: the
-// element order of a wgmma A fragment.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+template <typename T>
+constexpr bool kIsHalf = std::is_same<T, __half>::value;
+
+// Two f32 values as one register of two T (round to nearest), lo in the low
+// half: the element order of a wgmma A fragment.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  static_assert(kIsHalf<T> || std::is_same<T, __nv_bfloat16>::value,
+                "16-bit element types: bf16 and f16");
+  if constexpr (kIsHalf<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
 // ---------------------------------------------------------------- mbarrier
@@ -198,112 +212,148 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// The products used by the port's kernels (bf16 in, f32 accumulators).
+// The products used by the port's kernels (T in, f32 accumulators); TY is
+// the instruction's name of T ("bf16" or "f16").
 
 // d (+)= A . B for one k16 step, A (64 x 16) and B (16 x 64) both K-major in
 // shared memory; scale_d = 0 overwrites d instead of adding to it.
+#define HOPPER_WGMMA_SS_M64N64(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n" \
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24) \
+      : "l"(a), "l"(b), "r"(scale_d))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t a,
                                                 uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
-      : "l"(a), "l"(b), "r"(scale_d));
+  if constexpr (kIsHalf<T>) HOPPER_WGMMA_SS_M64N64("f16");
+  else HOPPER_WGMMA_SS_M64N64("bf16");
 }
+
+#undef HOPPER_WGMMA_SS_M64N64
 
 // d (+)= A . B for one k16 step, A (64 x 16) and B (16 x 128) both K-major in
 // shared memory; scale_d = 0 overwrites d instead of adding to it.
+#define HOPPER_WGMMA_SS_M64N128(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, " \
+      "%64, %65, p, 1, 1, 0, 0;\n}\n" \
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24), HOPPER_D8(32), HOPPER_D8(40), \
+        HOPPER_D8(48), HOPPER_D8(56) \
+      : "l"(a), "l"(b), "r"(scale_d))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t a,
                                                 uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24), HOPPER_D8(32), HOPPER_D8(40),
-        HOPPER_D8(48), HOPPER_D8(56)
-      : "l"(a), "l"(b), "r"(scale_d));
+  if constexpr (kIsHalf<T>) HOPPER_WGMMA_SS_M64N128("f16");
+  else HOPPER_WGMMA_SS_M64N128("bf16");
 }
 
-// d += A . B for one k16 step, A (64 x 16 bf16) from registers in the
+#undef HOPPER_WGMMA_SS_M64N128
+
+// d += A . B for one k16 step, A (64 x 16 T) from registers in the
 // accumulator layout, B (16 x 64) MN-major in shared memory (transpose bit).
+#define HOPPER_WGMMA_RS_M64N64(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
                                                 const uint32_t (&a)[4],
                                                 uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (kIsHalf<T>) HOPPER_WGMMA_RS_M64N64("f16");
+  else HOPPER_WGMMA_RS_M64N64("bf16");
 }
 
-// d += A . B for one k16 step, A (64 x 16 bf16) from registers in the
+#undef HOPPER_WGMMA_RS_M64N64
+
+// d += A . B for one k16 step, A (64 x 16 T) from registers in the
 // accumulator layout, B (16 x 128) MN-major in shared memory (transpose bit).
+#define HOPPER_WGMMA_RS_M64N128(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, " \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24), HOPPER_D8(32), HOPPER_D8(40), \
+        HOPPER_D8(48), HOPPER_D8(56) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
                                                 const uint32_t (&a)[4],
                                                 uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24), HOPPER_D8(32), HOPPER_D8(40),
-        HOPPER_D8(48), HOPPER_D8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (kIsHalf<T>) HOPPER_WGMMA_RS_M64N128("f16");
+  else HOPPER_WGMMA_RS_M64N128("bf16");
 }
 
-// d += A . B for one k16 step, A (64 x 16 bf16) from registers in the
+#undef HOPPER_WGMMA_RS_M64N128
+
+// d += A . B for one k16 step, A (64 x 16 T) from registers in the
 // accumulator layout, B (16 x 256) MN-major in shared memory (transpose bit).
+#define HOPPER_WGMMA_RS_M64N256(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, " \
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n" \
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24), HOPPER_D8(32), HOPPER_D8(40), \
+        HOPPER_D8(48), HOPPER_D8(56), HOPPER_D8(64), HOPPER_D8(72), HOPPER_D8(80), HOPPER_D8(88), \
+        HOPPER_D8(96), HOPPER_D8(104), HOPPER_D8(112), HOPPER_D8(120) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_m64n256(float (&d)[128],
                                                 const uint32_t (&a)[4],
                                                 uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24), HOPPER_D8(32), HOPPER_D8(40),
-        HOPPER_D8(48), HOPPER_D8(56), HOPPER_D8(64), HOPPER_D8(72), HOPPER_D8(80), HOPPER_D8(88),
-        HOPPER_D8(96), HOPPER_D8(104), HOPPER_D8(112), HOPPER_D8(120)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (kIsHalf<T>) HOPPER_WGMMA_RS_M64N256("f16");
+  else HOPPER_WGMMA_RS_M64N256("bf16");
 }
+
+#undef HOPPER_WGMMA_RS_M64N256
 
 #undef HOPPER_D8
 
-template <int N>
+template <typename T, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int scale_d) {
   static_assert(N == 64 || N == 128, "no such instantiation");
-  if constexpr (N == 64) wgmma_ss_m64n64(d, a, b, scale_d);
-  else wgmma_ss_m64n128(d, a, b, scale_d);
+  if constexpr (N == 64) wgmma_ss_m64n64<T>(d, a, b, scale_d);
+  else wgmma_ss_m64n128<T>(d, a, b, scale_d);
 }
 
-template <int N>
+template <typename T, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
   static_assert(N == 64 || N == 128 || N == 256, "no such instantiation");
-  if constexpr (N == 64) wgmma_rs_m64n64(d, a, b);
-  else if constexpr (N == 128) wgmma_rs_m64n128(d, a, b);
-  else wgmma_rs_m64n256(d, a, b);
+  if constexpr (N == 64) wgmma_rs_m64n64<T>(d, a, b);
+  else if constexpr (N == 128) wgmma_rs_m64n128<T>(d, a, b);
+  else wgmma_rs_m64n256<T>(d, a, b);
 }
 
 // --------------------------------------------------------- persistent grid
@@ -349,11 +399,12 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 4-D map over a bf16 [B, S, heads, D] tensor with element strides
+// A 4-D map over a 16-bit [B, S, heads, D] tensor of element type T with element strides
 // (sb, ss, sh) and a contiguous last dimension; dimensions innermost first:
 // (D, heads, S, B).  A box is 64 columns x 1 head x `rows` rows x 1 batch,
 // 128-byte swizzled; rows past S load as zeros and are not stored.  A
 // dimension of size 1 gets a packed stride, which no coordinate reads.
+template <typename T>
 inline cudaError_t make_bshd_map(CUtensorMap* map, const void* base,
                                  int batch, int seq, int heads, int d,
                                  long long sb, long long ss, long long sh,
@@ -375,7 +426,10 @@ inline cudaError_t make_bshd_map(CUtensorMap* map, const void* base,
   const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      map,
+      kIsHalf<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(base), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

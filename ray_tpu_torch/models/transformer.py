@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import moe as moe_ops
-from ..ops.attention import attend, flash_kernel_takes, mha
+from ..ops.attention import FLASH_DTYPES, attend, flash_kernel_takes, mha
 from . import remat as rm
 from .config import TransformerConfig
 
@@ -217,10 +217,11 @@ def _attention_fn(cfg: TransformerConfig, seq: int, is_cuda: bool,
     if impl == "plain":
         return (lambda q, k, v: attend(q, k, v, causal=causal,
                                        logit_softcap=cap)), None
-    # the flash kernel takes bf16 only; on CPU tensors flash_attention runs
-    # its plain version, which takes any dtype
+    # the flash kernel takes bf16, f16 and f32 (and raises on any other
+    # dtype); on CPU tensors flash_attention runs its plain version, which
+    # takes any dtype
     if impl == "flash" and cap == 0.0 and (
-            not is_cuda or dtype == torch.bfloat16):
+            not is_cuda or dtype in FLASH_DTYPES):
         from ..ops.flash_attention import flash_attention
         return (lambda q, k, v: flash_attention(q, k, v, causal=causal),
                 FLASH_RESIDUALS)

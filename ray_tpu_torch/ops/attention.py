@@ -35,7 +35,9 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Logits stay in the input dtype, the softmax runs in f32 and the
     probabilities return to the input dtype for the PV product, as in the
     JAX package.  Masked logits take ``NEG_INF`` (not -inf), so a fully
-    masked row gives no NaN.
+    masked row gives no NaN, cast to the logits' dtype as the JAX package's
+    ``jnp.where`` casts it: in f16, whose range ends at 65504, that is -inf
+    (a causal row always keeps its own position).
     """
     num_heads = q.shape[2]
     k = repeat_kv(k, num_heads)
@@ -48,25 +50,31 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_pos = q_offset + torch.arange(q.shape[1], device=q.device)
         k_pos = kv_offset + torch.arange(k.shape[1], device=q.device)
         mask = q_pos[:, None] >= k_pos[None, :]
-        logits = logits.masked_fill(~mask[None, None], NEG_INF)
+        logits = logits.masked_fill(
+            ~mask[None, None], float(torch.tensor(NEG_INF, dtype=logits.dtype)))
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(q.dtype))
 
 
+#: the dtypes the flash kernels take (``flash_attention.KERNEL_DTYPES``)
+FLASH_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+
+
 def flash_kernel_takes(is_cuda: bool, seq: int, head_dim: int,
                        logit_softcap: float, dtype: torch.dtype) -> bool:
-    """Whether ``mha`` sends this call to the flash kernel: bf16 CUDA
-    tensors, long sequences, a head dim the kernel has, no softcap.  Every
-    other call takes plain attention, which computes them all: the kernel
-    is built for bf16 only and has no softcap."""
-    return (is_cuda and dtype == torch.bfloat16 and seq >= 1024
+    """Whether ``mha`` sends this call to the flash kernel: CUDA tensors
+    of bf16, f16 or f32, long sequences, a head dim the kernel has, no
+    softcap: the reference's conditions for its Pallas kernel, with "TPU"
+    read as "CUDA".  Every other call takes plain attention, which computes
+    them all: the kernel has no softcap."""
+    return (is_cuda and dtype in FLASH_DTYPES and seq >= 1024
             and head_dim in (64, 128, 256) and logit_softcap == 0.0)
 
 
 def mha(q, k, v, causal: bool = True, logit_softcap: float = 0.0,
         use_flash: Optional[bool] = None):
-    """Dispatch between the flash kernel (bf16 CUDA tensors, long seq) and
-    plain attention."""
+    """Dispatch between the flash kernel (bf16, f16 or f32 CUDA tensors,
+    long seq) and plain attention."""
     if use_flash is None:
         use_flash = flash_kernel_takes(q.is_cuda, q.shape[1], q.shape[-1],
                                        logit_softcap, q.dtype)

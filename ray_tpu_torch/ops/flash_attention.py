@@ -20,6 +20,14 @@ the kernels' arithmetic tile by tile), a CUDA tensor launches the kernels or
 raises on what they do not take.  There is no fallback from one to the
 other.
 
+Like the reference's, the kernels take every float type it trains and
+serves in (``KERNEL_DTYPES``): bf16 and f16 run the ``wgmma`` bodies (one
+body templated on the 16-bit type), f32 its own body on the CUDA cores
+(``csrc/attention_f32.cuh``).  Each kernel has one entry point per type
+(``*_bf16``, ``*_f16``, ``*_f32``), chosen here by q's dtype; any other
+dtype on the card raises.  Every wrapper counts its launches in
+``launches`` and, per type, in ``launches_by_dtype``.
+
 The same sources hold the splash kernel B4 (``ops/splash_attention.py``):
 B1-B3's device code with a logit softcap, behind entry points of its own.
 The plain versions here take ``softcap`` and ``scale`` for it; at their
@@ -34,23 +42,53 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .attention import NEG_INF
+from .attention import FLASH_DTYPES, NEG_INF
 
 KERNEL_HEAD_DIMS = (64, 128, 256)
+#: the element types the kernels take, by the suffix of their entry points
+KERNEL_DTYPES = dict(zip(FLASH_DTYPES, ("bf16", "f16", "f32")))
+
+
+def _counters(fn) -> None:
+    """A wrapper's launch counts: ``launches`` over every type, and
+    ``launches_by_dtype`` per entry-point suffix."""
+    fn.launches = 0
+    fn.launches_by_dtype = dict.fromkeys(KERNEL_DTYPES.values(), 0)
+
+
+def _count(fn, dtype: torch.dtype) -> None:
+    fn.launches += 1
+    fn.launches_by_dtype[KERNEL_DTYPES[dtype]] += 1
+
+
+def entry_name(kernel: str, dtype: torch.dtype) -> str:
+    """The C entry point of ``kernel`` (e.g. ``flash_attention_fwd``) for
+    inputs of ``dtype``; raises for a type the kernels do not take."""
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the flash kernels take {_dtype_names()}, not "
+                         f"{dtype}")
+    return f"{kernel}_{KERNEL_DTYPES[dtype]}"
+
+
+def _dtype_names() -> str:
+    return ", ".join(KERNEL_DTYPES.values())
 
 
 def _bind_entries(lib: ctypes.CDLL, flash: str, splash: str, head) -> None:
     """argtypes of one flash entry point (``head`` then causal, scale and
-    the stream) and of its splash twin (the softcap before the stream)."""
-    getattr(lib, flash).argtypes = head + [ctypes.c_int, ctypes.c_float,
-                                           ctypes.c_void_p]
-    getattr(lib, splash).argtypes = head + [ctypes.c_int, ctypes.c_float,
-                                            ctypes.c_float, ctypes.c_void_p]
-    getattr(lib, flash).restype = getattr(lib, splash).restype = ctypes.c_int
+    the stream) and of its splash twin (the softcap before the stream), in
+    every element type."""
+    for suffix in KERNEL_DTYPES.values():
+        f, s = getattr(lib, f"{flash}_{suffix}"), getattr(lib,
+                                                          f"{splash}_{suffix}")
+        f.argtypes = head + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        s.argtypes = head + [ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                             ctypes.c_void_p]
+        f.restype = s.restype = ctypes.c_int
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    _bind_entries(lib, "flash_attention_fwd_bf16", "splash_attention_fwd_bf16",
+    _bind_entries(lib, "flash_attention_fwd", "splash_attention_fwd",
                   [ctypes.c_int] + [ctypes.c_void_p] * 5
                   + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12)
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
@@ -58,8 +96,7 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 def _bind_bwd_dq(lib: ctypes.CDLL) -> None:
-    _bind_entries(lib, "flash_attention_bwd_dq_bf16",
-                  "splash_attention_bwd_dq_bf16",
+    _bind_entries(lib, "flash_attention_bwd_dq", "splash_attention_bwd_dq",
                   [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                   + [ctypes.c_longlong] * 15)
     lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
@@ -67,8 +104,7 @@ def _bind_bwd_dq(lib: ctypes.CDLL) -> None:
 
 
 def _bind_bwd_dkv(lib: ctypes.CDLL) -> None:
-    _bind_entries(lib, "flash_attention_bwd_dkv_bf16",
-                  "splash_attention_bwd_dkv_bf16",
+    _bind_entries(lib, "flash_attention_bwd_dkv", "splash_attention_bwd_dkv",
                   [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                   + [ctypes.c_longlong] * 18)
     lib.flash_attention_bwd_dkv_error_string.argtypes = [ctypes.c_int]
@@ -102,14 +138,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     versions' tiles; the CUDA kernels fix their own (the forward 128 q rows
     against 128 K/V rows, 64 at D=256; dq 128 q rows, 64 at D=256, against
     64 K/V rows; dk/dv 128 kv rows, 64 at D=256, against 64 q rows), sizes
-    their shared-memory and register budgets set.  ``launches`` counts B1's launches
-    (``flash_attention_bwd_dq.launches`` and
-    ``flash_attention_bwd_dkv.launches`` count B2's and B3's).
+    their shared-memory and register budgets set; the f32 kernels take
+    tiles of 64 rows, 32 at D=256.  q, k and v share one dtype of
+    ``KERNEL_DTYPES``.  ``launches`` counts B1's launches and
+    ``launches_by_dtype`` them per type (``flash_attention_bwd_dq`` and
+    ``flash_attention_bwd_dkv`` count B2's and B3's).
     """
     return _FlashAttention.apply(q, k, v, causal, block_q, block_kv)
 
 
-flash_attention.launches = 0
+_counters(flash_attention)
 
 
 def _flash_fwd(q, k, v, causal: bool = True, block_q: int = 512,
@@ -126,15 +164,17 @@ def _check_kernel_inputs(q, k, v, head_dims=KERNEL_HEAD_DIMS) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"the flash kernel takes bf16; {name} is {t.dtype}")
+        if t.dtype not in KERNEL_DTYPES or t.dtype != q.dtype:
+            raise ValueError(f"the flash kernels take q, k and v of one "
+                             f"dtype of {_dtype_names()}; {name} is "
+                             f"{t.dtype}, q {q.dtype}")
         if t.dim() != 4:
             raise ValueError(f"{name} must be [B, S, heads, D], got "
                              f"{tuple(t.shape)}")
-        if (t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:3])
-                or t.data_ptr() % 16):
+        if not _aligned(t):
             raise ValueError(f"{name} needs a contiguous last dim, strides "
-                             f"that are multiples of 8 and 16-byte alignment")
+                             f"that are multiples of 16 bytes and 16-byte "
+                             f"alignment")
         if not _tma_strides(t):
             raise ValueError(f"{name} has a stride the kernel's TMA maps "
                              f"cannot take (0, a broadcast, or 2**40 bytes "
@@ -152,11 +192,20 @@ def _check_kernel_inputs(q, k, v, head_dims=KERNEL_HEAD_DIMS) -> None:
         raise ValueError(f"the kernel takes D in {head_dims}, got {d}")
 
 
+def _aligned(t: torch.Tensor) -> bool:
+    """A contiguous last dim, [B, S, heads] strides that are multiples of
+    16 bytes, and a 16-byte-aligned start: what TMA and 16-byte loads
+    need."""
+    step = 16 // t.element_size()
+    return (t.stride(-1) == 1 and not any(st % step for st in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
+
+
 def _tma_strides(t: torch.Tensor) -> bool:
     """Whether the kernels' TMA maps can step over ``t``'s [B, S, heads]
     dimensions: byte strides nonzero (no broadcast) and below 2**40; a
     dimension of size 1 is never stepped over."""
-    return all(n <= 1 or 0 < 2 * st < 1 << 40
+    return all(n <= 1 or 0 < t.element_size() * st < 1 << 40
                for n, st in zip(t.shape[:3], t.stride()[:3]))
 
 
@@ -166,17 +215,19 @@ def _device_index(t: torch.Tensor) -> int:
 
 
 def _flash_fwd_cuda(q, k, v, causal: bool):
-    out, lse = _fwd_launch("flash_attention_fwd_bf16", q, k, v, causal,
+    out, lse = _fwd_launch("flash_attention_fwd", q, k, v, causal,
                            q.shape[-1] ** -0.5)
-    flash_attention.launches += 1
+    _count(flash_attention, q.dtype)
     return out, lse
 
 
-def _fwd_launch(entry: str, q, k, v, causal: bool, scale: float, *softcap,
+def _fwd_launch(kernel: str, q, k, v, causal: bool, scale: float, *softcap,
                 head_dims=KERNEL_HEAD_DIMS):
-    """Launch forward entry point ``entry`` (B1's, or B4's with its
-    ``softcap``) on the card -> (out, lse); raises when it is refused."""
+    """Launch forward kernel ``kernel`` (B1's, or B4's with its
+    ``softcap``) in q's dtype on the card -> (out, lse); raises when it is
+    refused."""
     _check_kernel_inputs(q, k, v, head_dims)
+    entry = entry_name(kernel, q.dtype)
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -304,8 +355,7 @@ def _kernel_strides(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when the kernels can read it through its strides, else a
     contiguous copy (autograd may hand over a dO of any layout: the gradient
     of ``out.sum()`` is an expanded tensor, stride 0 everywhere)."""
-    if (t.stride(-1) == 1 and not any(st % 8 for st in t.stride()[:3])
-            and t.data_ptr() % 16 == 0 and _tma_strides(t)):
+    if _aligned(t) and _tma_strides(t):
         return t
     return t.contiguous()
 
@@ -320,8 +370,8 @@ def _check_bwd_inputs(q, k, v, dout, lse, delta,
                          f"{tuple(q.shape)} on {q.device}")
     if _kernel_strides(dout) is not dout:
         raise ValueError("dout needs a contiguous last dim, nonzero strides "
-                         "that are multiples of 8 and below 2**40 bytes, and "
-                         "16-byte alignment")
+                         "that are multiples of 16 bytes and below 2**40 "
+                         "bytes, and 16-byte alignment")
     b, s, h, _ = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
         if (t.device != q.device or t.dtype != torch.float32
@@ -331,12 +381,13 @@ def _check_bwd_inputs(q, k, v, dout, lse, delta,
                              f"{tuple(t.shape)} on {t.device}")
 
 
-def _dq_launch(entry: str, q, k, v, dout, lse, delta, causal: bool,
+def _dq_launch(kernel: str, q, k, v, dout, lse, delta, causal: bool,
                scale: float, *softcap,
                head_dims=KERNEL_HEAD_DIMS) -> torch.Tensor:
-    """Launch dq entry point ``entry`` (B2's, or B4's with its
-    ``softcap``) on the card; raises when it is refused."""
+    """Launch dq kernel ``kernel`` (B2's, or B4's with its ``softcap``) in
+    q's dtype on the card; raises when it is refused."""
     _check_bwd_inputs(q, k, v, dout, lse, delta, head_dims)
+    entry = entry_name(kernel, q.dtype)
     b, s, h, d = q.shape
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     if b * s == 0:
@@ -354,12 +405,13 @@ def _dq_launch(entry: str, q, k, v, dout, lse, delta, causal: bool,
     return dq
 
 
-def _dkv_launch(entry: str, q, k, v, dout, lse, delta, causal: bool,
+def _dkv_launch(kernel: str, q, k, v, dout, lse, delta, causal: bool,
                 scale: float, *softcap, head_dims=KERNEL_HEAD_DIMS
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch dk/dv entry point ``entry`` (B3's, or B4's with its
-    ``softcap``) on the card; raises when it is refused."""
+    """Launch dk/dv kernel ``kernel`` (B3's, or B4's with its
+    ``softcap``) in q's dtype on the card; raises when it is refused."""
     _check_bwd_inputs(q, k, v, dout, lse, delta, head_dims)
+    entry = entry_name(kernel, q.dtype)
     b, s, h, d = q.shape
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
@@ -386,28 +438,30 @@ def _bwd_check(entry: str, error_string, err: int) -> None:
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta,
                            causal: bool = True) -> torch.Tensor:
-    """Kernel B2 on the card: dq [B, S, H, D] from q, k, v, dO (all bf16),
-    lse and Δ ([B, H, S] f32).  ``launches`` counts its launches."""
-    dq = _dq_launch("flash_attention_bwd_dq_bf16", q, k, v, dout, lse, delta,
+    """Kernel B2 on the card: dq [B, S, H, D] from q, k, v, dO (all of one
+    dtype of ``KERNEL_DTYPES``), lse and Δ ([B, H, S] f32).  ``launches``
+    counts its launches, ``launches_by_dtype`` them per type."""
+    dq = _dq_launch("flash_attention_bwd_dq", q, k, v, dout, lse, delta,
                     causal, q.shape[-1] ** -0.5)
-    flash_attention_bwd_dq.launches += 1
+    _count(flash_attention_bwd_dq, q.dtype)
     return dq
 
 
-flash_attention_bwd_dq.launches = 0
+_counters(flash_attention_bwd_dq)
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel B3 on the card: (dk, dv) [B, S, KV, D], each summed over the
-    q heads of its GQA group.  ``launches`` counts its launches."""
-    dk, dv = _dkv_launch("flash_attention_bwd_dkv_bf16", q, k, v, dout, lse,
+    q heads of its GQA group.  ``launches`` counts its launches,
+    ``launches_by_dtype`` them per type."""
+    dk, dv = _dkv_launch("flash_attention_bwd_dkv", q, k, v, dout, lse,
                          delta, causal, q.shape[-1] ** -0.5)
-    flash_attention_bwd_dkv.launches += 1
+    _count(flash_attention_bwd_dkv, q.dtype)
     return dk, dv
 
 
-flash_attention_bwd_dkv.launches = 0
+_counters(flash_attention_bwd_dkv)
 
 
 def flash_attention_bwd_reference(q, k, v, out, lse, dout,

@@ -51,7 +51,9 @@ def ring_kernel_takes(is_cuda: bool, head_dim: int, logit_softcap: float,
                       dtype: torch.dtype) -> bool:
     """Whether the ring runs its hops through the kernels B1-B3 (their
     plain versions for CPU tensors): bf16 on the card, a head dim the
-    kernels have, no softcap."""
+    kernels have, no softcap.  The kernels take f16 and f32 too, but the
+    reference's ring runs no kernel at all (``attend_blockwise``), so those
+    types keep the recurrence here, as there."""
     return ((not is_cuda or dtype == torch.bfloat16)
             and head_dim in KERNEL_HEAD_DIMS and logit_softcap == 0.0)
 

@@ -19,9 +19,11 @@ dtype first.
 Dispatch contract (``splash_mha``): the attention output, or **None** after
 one RuntimeWarning per process when the shape does not tile for splash
 (head dim or sequence not a multiple of 128, heads not a multiple of kv
-heads) or, on CUDA tensors, when B4 does not take them (a dtype other than
-bf16, a head dim it has no instantiation for: 384, say); the caller then
-falls back to ``mha``.  That is decided up front
+heads) or, on CUDA tensors, when B4 has no instantiation for the head dim
+(384, say); the caller then falls back to ``mha``.  Like the reference's,
+B4 takes every float type it trains in: bf16, f16 and f32
+(``flash_attention.KERNEL_DTYPES``, one entry point per type); any other
+dtype on the card raises.  That is decided up front
 (``splash_kernel_declines``).  The kernel wrappers themselves raise on
 what they do not take, and a kernel that does not build or launch raises:
 nothing gives way to the plain version after a failure.
@@ -84,13 +86,14 @@ def splash_supported(seq_q: int, seq_kv: int, num_heads: int,
 def splash_kernel_declines(is_cuda: bool, dtype: torch.dtype,
                            head_dim: int) -> Optional[str]:
     """None when ``splash_mha`` can run inputs of this device, dtype and
-    head dim, else the reason it declines: B4 takes bf16 CUDA tensors at
-    the head dims it is instantiated for (``KERNEL_HEAD_DIMS``).  CPU
-    tensors take the plain versions, which take any."""
+    head dim, else the reason it declines: B4 has no instantiation for the
+    head dim (``KERNEL_HEAD_DIMS``).  It declines no dtype, as the
+    reference's splash declines none: the kernel takes bf16, f16 and f32,
+    and its wrappers raise on any other.  CPU tensors take the plain
+    versions, which take any."""
+    del dtype
     if not is_cuda:
         return None
-    if dtype != torch.bfloat16:
-        return f"the splash kernel takes bf16, not {dtype}"
     if head_dim not in KERNEL_HEAD_DIMS:
         return (f"the splash kernel has no head_dim={head_dim} (it has "
                 f"{KERNEL_HEAD_DIMS})")
@@ -126,15 +129,15 @@ def splash_attention(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``blocks`` = (block_q, block_kv, block_q_bwd, block_kv_bwd) tile the
     plain versions (CPU tensors); the CUDA kernels fix their own tiles
     (``flash_attention``'s), sizes their shared-memory and register budgets
-    set.  ``launches`` counts B4's forward launches
-    (``splash_attention_bwd_dq.launches`` and
-    ``splash_attention_bwd_dkv.launches`` its backward's).
+    set.  ``launches`` counts B4's forward launches and
+    ``launches_by_dtype`` them per type (``splash_attention_bwd_dq`` and
+    ``splash_attention_bwd_dkv`` count its backward's).
     """
     return _SplashAttention.apply(qs, k, v, causal, float(softcap),
                                   tuple(blocks))
 
 
-splash_attention.launches = 0
+fa._counters(splash_attention)
 
 
 def _splash_fwd(qs, k, v, causal: bool, softcap: float, block_q: int,
@@ -146,9 +149,9 @@ def _splash_fwd(qs, k, v, causal: bool, softcap: float, block_q: int,
     if qs.device.type != "cuda":
         raise ValueError(f"splash attention runs on cpu or cuda, not "
                          f"{qs.device}")
-    out, lse = fa._fwd_launch("splash_attention_fwd_bf16", qs, k, v, causal,
+    out, lse = fa._fwd_launch("splash_attention_fwd", qs, k, v, causal,
                               1.0, softcap, head_dims=KERNEL_HEAD_DIMS)
-    splash_attention.launches += 1
+    fa._count(splash_attention, qs.dtype)
     return out, lse
 
 
@@ -172,31 +175,34 @@ def _splash_bwd(qs, k, v, out, lse, dout, causal: bool, softcap: float,
 
 def splash_attention_bwd_dq(qs, k, v, dout, lse, delta, causal: bool = True,
                             softcap: float = 0.0) -> torch.Tensor:
-    """B4's dq on the card from a pre-scaled qs, k, v, dO (bf16), lse and Δ
-    ([B, H, S] f32).  ``launches`` counts its launches."""
-    dq = fa._dq_launch("splash_attention_bwd_dq_bf16", qs, k, v, dout, lse,
+    """B4's dq on the card from a pre-scaled qs, k, v, dO (one dtype of
+    ``flash_attention.KERNEL_DTYPES``), lse and Δ ([B, H, S] f32).
+    ``launches`` counts its launches, ``launches_by_dtype`` them per
+    type."""
+    dq = fa._dq_launch("splash_attention_bwd_dq", qs, k, v, dout, lse,
                        delta, causal, 1.0, softcap,
                        head_dims=KERNEL_HEAD_DIMS)
-    splash_attention_bwd_dq.launches += 1
+    fa._count(splash_attention_bwd_dq, qs.dtype)
     return dq
 
 
-splash_attention_bwd_dq.launches = 0
+fa._counters(splash_attention_bwd_dq)
 
 
 def splash_attention_bwd_dkv(qs, k, v, dout, lse, delta, causal: bool = True,
                              softcap: float = 0.0
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B4's dk and dv on the card, each summed over the q heads of its GQA
-    group.  ``launches`` counts its launches."""
-    dk, dv = fa._dkv_launch("splash_attention_bwd_dkv_bf16", qs, k, v, dout,
+    group.  ``launches`` counts its launches, ``launches_by_dtype`` them
+    per type."""
+    dk, dv = fa._dkv_launch("splash_attention_bwd_dkv", qs, k, v, dout,
                             lse, delta, causal, 1.0, softcap,
                             head_dims=KERNEL_HEAD_DIMS)
-    splash_attention_bwd_dkv.launches += 1
+    fa._count(splash_attention_bwd_dkv, qs.dtype)
     return dk, dv
 
 
-splash_attention_bwd_dkv.launches = 0
+fa._counters(splash_attention_bwd_dkv)
 
 
 def splash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -132,7 +132,7 @@ def test_mha_use_flash_reaches_flash(monkeypatch):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(dtype=torch.float32), "bf16"),
+    (dict(dtype=torch.float64), "bf16"),
     (dict(D=96), "D in"),
     (dict(skv=64), "Sq == Skv"),
     (dict(kv=3), "do not group"),

@@ -1,12 +1,13 @@
 """Which attention path a call takes: the flash kernel B1-B3 and the splash
-kernel B4 are built for bf16 only, so every other dtype takes plain
-attention up front, as a softcap does, while the kernel wrappers keep
-raising on what they do not take.
+kernel B4 take bf16, f16 and f32, so any other dtype takes plain attention
+up front, as a softcap does, while the kernel wrappers keep raising on what
+they do not take.  (tests/test_torch_attention_dtypes.py holds the f16 and
+f32 routes to the kernels.)
 
 The CPU tests check the dispatch predicates and the residual names the
 model's attention step carries; they need no card.  The ``cuda`` tests run
 an f32 engine and an f32 training step on the card through long sequences
-and show that no kernel launches:
+and show that they launch the f32 kernels:
 
     python -m pytest --noconftest -m cuda tests/test_torch_dispatch.py
 """
@@ -26,7 +27,7 @@ from ray_tpu_torch.ops import splash_attention as tsplash
 
 
 @pytest.mark.parametrize("dtype,takes", [
-    (torch.bfloat16, True), (torch.float32, False), (torch.float16, False)])
+    (torch.bfloat16, True), (torch.float64, False), (torch.int32, False)])
 def test_flash_kernel_takes_bf16_only(dtype, takes):
     assert tattn.flash_kernel_takes(True, 1024, 128, 0.0, dtype) is takes
 
@@ -51,13 +52,13 @@ def _cfg(impl, softcap=0.0):
 # when the step's residuals carry flash's names
 _ROUTES = [
     ("auto", True, torch.bfloat16, 1024, True),
-    ("auto", True, torch.float32, 1024, False),
-    ("auto", True, torch.float16, 2048, False),
+    ("auto", True, torch.float64, 1024, False),
+    ("auto", True, torch.float64, 2048, False),
     ("auto", True, torch.bfloat16, 512, False),
     ("auto", False, torch.bfloat16, 1024, False),
     ("flash", True, torch.bfloat16, 1024, True),
-    ("flash", True, torch.float32, 1024, False),
-    ("flash", True, torch.float16, 128, False),
+    ("flash", True, torch.float64, 1024, False),
+    ("flash", True, torch.float64, 128, False),
     ("flash", False, torch.float32, 1024, True),
     ("splash", True, torch.bfloat16, 1024, False),
     ("plain", True, torch.bfloat16, 1024, False),
@@ -68,9 +69,10 @@ _ROUTES = [
 def test_attention_step_names_follow_the_route(monkeypatch, impl, is_cuda,
                                                dtype, seq, flash):
     """``_attention_fn`` names flash's residuals exactly where
-    flash_attention runs: "flash" on a CUDA tensor that is not bf16 takes
-    "auto"'s route (plain attention), as a softcap does.  The step is run on
-    small CPU tensors of the same dtype with flash_attention spied on."""
+    flash_attention runs: "flash" on a CUDA tensor of a dtype the kernel
+    does not take (f64) takes "auto"'s route (plain attention), as a
+    softcap does.  The step is run on small CPU tensors of the same dtype
+    with flash_attention spied on."""
     calls = []
     real = tflash.flash_attention
     monkeypatch.setattr(tsplash, "_warned", True)  # splash declines S=8
@@ -95,9 +97,9 @@ def test_attention_step_names_for_a_softcap():
 
 
 def test_mha_sends_no_f32_call_to_the_kernel(monkeypatch):
-    """mha reads the dtype off q: an f32 call it would have sent to the
-    kernel on the card goes to plain attention (checked with ``is_cuda``
-    forced, so no card is needed)."""
+    """mha reads the device and dtype off q and hands them to
+    ``flash_kernel_takes``: an f32 call on CPU tensors goes to plain
+    attention."""
     seen = []
     monkeypatch.setattr(tattn, "flash_kernel_takes",
                         lambda *a: seen.append(a) or False)
@@ -109,8 +111,8 @@ def test_mha_sends_no_f32_call_to_the_kernel(monkeypatch):
 @pytest.mark.parametrize("is_cuda,dtype,head_dim,reason", [
     (True, torch.bfloat16, 128, None),
     (True, torch.bfloat16, 256, None),
-    (True, torch.float32, 128, "bf16"),
-    (True, torch.float16, 256, "bf16"),
+    (True, torch.float32, 128, None),
+    (True, torch.float16, 256, None),
     (True, torch.bfloat16, 384, "head_dim=384"),
     (True, torch.bfloat16, 512, "head_dim=512"),
     (False, torch.float32, 384, None),
@@ -159,11 +161,12 @@ def _launches():
 @pytest.mark.cuda
 def test_f32_engine_prefills_a_long_bucket_on_card(cuda_device):
     """LLMEngine(compute_dtype=torch.float32) with a prompt in bucket 2048:
-    the prefill takes plain attention (no kernel launches) and the engine
-    returns its tokens."""
+    the prefill runs B1 in f32 once per layer, and the engine returns its
+    tokens."""
     from ray_tpu_torch.serve.llm import LLMEngine
     cfg = tcfg.tiny(hidden=256, heads=2, seq=2048)
     before = _launches()
+    before_f32 = tflash.flash_attention.launches_by_dtype["f32"]
     eng = LLMEngine(cfg, num_slots=2, max_len=2048, seed=0,
                     compute_dtype=torch.float32, device=cuda_device)
     try:
@@ -173,15 +176,19 @@ def test_f32_engine_prefills_a_long_bucket_on_card(cuda_device):
         eng.shutdown()
     assert len(toks) == 2 and all(0 <= t < cfg.vocab_size for t in toks)
     assert eng.admit_batches_by_bucket.get(2048) == 1
-    assert _launches() == before
+    assert _launches() == (before[0] + cfg.num_layers, *before[1:])
+    assert (tflash.flash_attention.launches_by_dtype["f32"]
+            == before_f32 + cfg.num_layers)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("impl", ["auto", "flash", "splash"])
 def test_f32_train_step_at_1024_on_card(cuda_device, impl):
     """An f32 training step at S=1024 on the card, through every
-    attention_impl that would reach a bf16-only kernel: it runs, its loss
-    and gradient norm are finite, and no kernel launches."""
+    attention_impl that reaches a kernel: it runs, its loss and gradient
+    norm are finite, and the f32 kernels launch (B1-B3, or B4 with
+    "splash") once per layer each, and the forward once more in full
+    remat's replay."""
     from ray_tpu_torch.parallel import (init_sharded_state, make_optimizer,
                                         make_train_step)
     cfg = _cfg(impl)
@@ -192,9 +199,10 @@ def test_f32_train_step_at_1024_on_card(cuda_device, impl):
     batch = {"tokens": np.random.default_rng(0).integers(
         0, cfg.vocab_size, (1, 1025)).astype(np.int32)}
     before = _launches()
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", RuntimeWarning)  # splash declines
-        state, metrics = step(state, batch)
+    state, metrics = step(state, batch)
     assert np.isfinite(metrics["loss"].item())
     assert np.isfinite(metrics["grad_norm"].item())
-    assert _launches() == before
+    n = cfg.num_layers  # full remat (the default) replays the forward
+    want = ((0, 0, 0, 2 * n, n, n) if impl == "splash"
+            else (2 * n, n, n, 0, 0, 0))
+    assert tuple(a - b for a, b in zip(_launches(), before)) == want

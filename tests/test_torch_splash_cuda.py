@@ -219,8 +219,8 @@ def test_head_dim_the_kernel_lacks_raises(cuda_device, monkeypatch):
     """D=384 tiles for splash (a multiple of 128) but B4 has no such
     instantiation: ``splash_mha`` declines it up front, as it declines a
     shape that does not tile (one RuntimeWarning, then None, and the caller
-    takes ``mha``), and so does a dtype other than bf16.  The kernel's
-    wrapper, called directly, still raises."""
+    takes ``mha``).  B4 takes bf16, f16 and f32; a dtype it does not take
+    (f64) raises.  The kernel's wrapper, called directly, still raises."""
     q, k, v, _ = _inputs(cuda_device, 1, 256, 2, 1, 384)
     assert tsplash.splash_supported(256, 256, 2, 1, 384) is None
     monkeypatch.setattr(tsplash, "_warned", False)
@@ -228,7 +228,8 @@ def test_head_dim_the_kernel_lacks_raises(cuda_device, monkeypatch):
     with pytest.warns(RuntimeWarning, match="head_dim=384"):
         assert tsplash.splash_mha(q, k, v) is None
     q, k, v, _ = _inputs(cuda_device, 1, 256, 2, 1, 128)
-    assert tsplash.splash_mha(q.float(), k.float(), v.float()) is None
+    with pytest.raises(ValueError, match="f32"):
+        tsplash.splash_mha(q.double(), k.double(), v.double())
     assert tsplash.splash_attention.launches == before
     q, k, v, _ = _inputs(cuda_device, 1, 256, 2, 1, 384)
     with pytest.raises(ValueError, match="D in"):
